@@ -1,12 +1,24 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch/CUDA port (voxelray_torch) at full size.
 
-Drives the port's main path once, the way a user calls it, at the bench's
-size: a 1,048,576-triangle torus knot voxelized to 512^3
-(GridBool.from_mesh), the voxel scene and its brick accel (build_scene),
-and a 1920x1080 frame with shadow rays (render_image, backend="fast").
-Then it holds each hand-written kernel against its plain PyTorch version
-on the same inputs on the card, times both, and times whole frames.
+Drives the port's paths the way a user calls them, at the bench's size:
+
+  * the voxel path: a 1,048,576-triangle torus knot voxelized to 512^3
+    (GridBool.from_mesh, kernel K1), the voxel scene and its brick accel
+    (build_scene), and a 1920x1080 frame with shadow rays (render_image,
+    backend="fast": the megakernel K2);
+  * the same frame through the staged walk (fast_opts {"mega": False}:
+    kernels K3 grid_walk and K4 brick_fine);
+  * the triangle path: the same knot as a triangle model
+    (build_scene(models=[...]) builds the triangle accel on the card) and
+    a 1920x1080 frame with shadow rays, whose tri-grid march runs K3 and
+    K4 every lap.
+
+Each path runs once with the kernels' launch counters set to 0 just
+before it and read just after.  Then every kernel is held against its
+plain PyTorch version on the same inputs on the card and timed beside it,
+the traces are checked against the exhaustive references, and whole
+frames are timed.
 
     python3 chip_smoke.py
 
@@ -33,6 +45,15 @@ N_FRAMES = 4
 MAX_DIFF_RAYS = 2048
 PIXEL_ATOL = 2e-5
 PIXEL_FRAC = 0.999
+TRI_RTOL, TRI_ATOL = 3e-6, 1e-7
+N_BRUTE = 4096
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, fp32 FLOP/s
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# fp32 operations per step, counted from the kernels' expressions:
+# K1 one SAT test of a (triangle, cell) slot (13 axes) plus its cell
+# centre; K2 and K4 one cell's slab test plus the DDA step; K3 (and K2
+# between bricks) one brick's crossing times, their minimum and the step
+OPS_SAT, OPS_CELL, OPS_BRICK = 350, 52, 17
 
 
 def log(msg):
@@ -59,6 +80,26 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
+    fp32 operations over the fp32 peak."""
+    t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
+               ops):
+    b_ms, b_by = bound(nbytes, ops)
+    log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, "
+        f"{ops / 1e9:.3f} GFLOP), launches {launches}, max |err| {err}")
+    return {"name": name, "route": "cuda",
+            "source": f"voxelray_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": round(ms, 4), "plain_ms": round(plain_ms, 4),
+            "bound_ms": round(b_ms, 5), "bound_by": b_by, "library_ms": None}
+
+
 def smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -80,6 +121,17 @@ def bench_camera(bb_min, bb_max):
                        radius=r_orbit,
                        height=float(center[1] + 0.55 * extent))
     return cam, orbit
+
+
+def close_camera(bb_min, bb_max):
+    """A camera inside the knot's box, looking at its centre: most rays
+    hit within a few cells, many at grazing angles."""
+    import numpy as np
+    from voxelray_torch.render.camera import Camera
+    extent = float(max(bb_max - bb_min))
+    center = (bb_min + bb_max) * 0.5
+    return Camera(eye=tuple(center + np.asarray([0.25, 0.12, -0.2]) * extent),
+                  center=tuple(center))
 
 
 def compare_traces(what, o, d, occ, origin, vs, t_k, lin_k, t_p, lin_p):
@@ -109,6 +161,157 @@ def compare_traces(what, o, d, occ, origin, vs, t_k, lin_k, t_p, lin_p):
     return len(idx), err
 
 
+def time_frames(scene, mats, **kw):
+    """{shadows: ms per WIDTHxHEIGHT frame} over the orbit cameras, after
+    one warm-up pass; kw go to render_image."""
+    import torch
+    from voxelray_torch.render import pipeline
+    out = {}
+    for shadows in (True, False):
+        def frames():
+            for mvi, mpi in mats:
+                pipeline.render_image(scene, mvi, mpi, width=WIDTH,
+                                      height=HEIGHT, backend="fast",
+                                      shadows=shadows, **kw)
+        frames()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames()
+        torch.cuda.synchronize()
+        out[shadows] = (time.perf_counter() - t0) * 1e3 / len(mats)
+    return out
+
+
+def log_frames(what, frame_ms, smi):
+    for shadows, ms in frame_ms.items():
+        log(f"{what} frame {WIDTH}x{HEIGHT} shadows={shadows}: {ms:.3f} "
+            f"ms/frame, {WIDTH * HEIGHT / ms / 1e3:.2f} Mrays/s (primary "
+            f"rays) over {N_FRAMES} orbit cameras [{smi}]")
+
+
+def counts_of(*mods):
+    return {m.__name__.rsplit(".", 1)[-1]: m.launches for m in mods}
+
+
+def reset(*mods):
+    for m in mods:
+        m.launches = 0
+
+
+def mega_work(o, d, tmn, tmx, accel):
+    """K2's own work on these rays, counted by the plain staged walk one
+    occupied brick at a time, which is K2's order: the two-level brick
+    walk (empty superbricks skipped) to the next occupied brick, the
+    per-voxel walk through it, on until the first accepted cell.
+    Returns (brick steps, cell steps, distinct occupied bricks read,
+    hit cell lin per ray)."""
+    import torch
+    from voxelray_torch.ops.kernels import brick_fine, grid_walk
+    wkw = dict(bdims=accel.bdims, origin_key=accel.origin_key,
+               brick_world=float(accel.voxel_size * 8), k_hits=1,
+               count_steps=True)
+    fkw = dict(dims=accel.dims, bdims=accel.bdims,
+               origin_key=accel.origin_key, voxel_size=accel.voxel_size,
+               count_steps=True)
+    n = o.shape[0]
+    lin_out = torch.full((n,), -1, dtype=torch.int32, device=o.device)
+    idx = torch.arange(n, device=o.device)
+    hits, cell, cont, brick_steps = grid_walk.walk_plain(
+        o, d, tmn, tmx, None, None, accel.coarse, accel.l2, **wkw)
+    cell_steps, seen = 0, []
+    for _ in range(sum(accel.bdims) + 4):
+        seen.append(hits[0])
+        t, lin, steps = brick_fine.fine_plain(o[idx], d[idx], hits,
+                                              accel.fine, tmn[idx],
+                                              tmx[idx], **fkw)
+        cell_steps += steps
+        got = torch.isfinite(t)
+        lin_out[idx[got]] = lin[got]
+        keep = torch.nonzero(~got & (cont > 0)).squeeze(1)
+        idx, cell = idx[keep], cell[keep]
+        if idx.numel() == 0:
+            break
+        hits, cell, cont, steps = grid_walk.walk_plain(
+            o[idx], d[idx], None, tmx[idx], cell,
+            torch.ones(idx.shape, dtype=torch.int32, device=o.device),
+            accel.coarse, accel.l2, **wkw)
+        brick_steps += steps
+    require(idx.numel() == 0, "K2 work count: rays left at the step bound")
+    bricks = torch.unique(torch.cat(seen))
+    return brick_steps, cell_steps, int((bricks >= 0).sum()), lin_out
+
+
+def knot_model(v, f):
+    """The mesh as the ObjLoader flattens an OBJ without normals or UVs:
+    per-corner streams, flat face normals, one default material."""
+    import numpy as np
+    from voxelray_torch.io.objload import LoadedModel, Material
+    pos = v[f].reshape(-1, 3)
+    p = pos.reshape(-1, 3, 3)
+    n = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+    norm = np.linalg.norm(n, axis=1, keepdims=True)
+    n = np.where(norm > 0, n / np.maximum(norm, 1e-30), n)
+    verts = np.zeros((len(pos), 11), np.float32)
+    verts[:, 0:3] = pos
+    verts[:, 3:6] = np.repeat(n, 3, axis=0)
+    return LoadedModel(vertices=verts,
+                       indices=np.arange(len(pos), dtype=np.uint32),
+                       materials=Material().as_row()[None],
+                       textures=[], mat_index=np.zeros(len(f), np.int32))
+
+
+def check_walk(what, o, d, tmn, tmx, accel, k, cell=None, active=None):
+    """K3 against walk_plain on one call's inputs: every output bit-equal.
+    Returns (outputs, kernel ms, plain ms, lane steps, bytes)."""
+    import torch
+    from voxelray_torch.ops.kernels import grid_walk
+    l2 = accel.l2 if accel.coarse.shape[0] > 4 else None
+    kw = dict(bdims=accel.bdims, origin_key=accel.origin_key,
+              brick_world=float(accel.voxel_size * 8), k_hits=k)
+    args = (o, d, tmn if cell is None else None, tmx, cell, active,
+            accel.coarse, l2)
+    got = grid_walk.walk_cuda(*args, **kw)
+    *want, steps = grid_walk.walk_plain(*args, **kw, count_steps=True)
+    for name, a, b in zip(("hits", "cell", "cont"), got, want):
+        require(torch.equal(a, b), f"{what}: K3 {name} differ from plain")
+    ms = cuda_ms(lambda: grid_walk.walk_cuda(*args, **kw), 5)
+    plain_ms = cuda_ms(lambda: grid_walk.walk_plain(*args, **kw), 1)
+    n = o.shape[0]
+    nbytes = n * (32 if cell is None else 44) + n * (4 * k + 16) \
+        + 4 * accel.coarse.numel() + (0 if l2 is None else 4 * l2.numel())
+    b_ms, b_by = bound(nbytes, steps * OPS_BRICK)
+    log(f"{what}: K3 ({'two' if l2 is not None else 'one'} level, k {k}, "
+        f"{n} rays) bit-equal to plain; {int((got[0] >= 0).sum())} "
+        f"candidates, {steps} brick steps; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by}")
+    return got, ms, plain_ms, steps, nbytes
+
+
+def check_fine(what, o, d, bricks, tmn, tmx, accel):
+    """K4 against fine_plain on one call's inputs: (t, lin) bit-equal.
+    Returns (outputs, kernel ms, plain ms, lane steps, bytes)."""
+    import torch
+    from voxelray_torch.ops.kernels import brick_fine
+    kw = dict(dims=accel.dims, bdims=accel.bdims,
+              origin_key=accel.origin_key, voxel_size=accel.voxel_size)
+    args = (o, d, bricks, accel.fine, tmn, tmx)
+    got = brick_fine.fine_cuda(*args, **kw)
+    *want, steps = brick_fine.fine_plain(*args, **kw, count_steps=True)
+    require(torch.equal(got[1], want[1]), f"{what}: K4 cells differ")
+    require(torch.equal(got[0], want[0]), f"{what}: K4 t differ")
+    ms = cuda_ms(lambda: brick_fine.fine_cuda(*args, **kw), 5)
+    plain_ms = cuda_ms(lambda: brick_fine.fine_plain(*args, **kw), 1)
+    n, k = o.shape[0], bricks.shape[0]
+    n_bricks = int(torch.unique(bricks[bricks >= 0]).numel())
+    nbytes = n * (32 + 4 * k) + n * 8 + 64 * n_bricks
+    b_ms, b_by = bound(nbytes, steps * OPS_CELL)
+    log(f"{what}: K4 (k {k}, {n} rays, {n_bricks} distinct bricks) "
+        f"bit-equal to plain; {int((got[1] >= 0).sum())} hits, {steps} "
+        f"cell steps; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.5f} ms by {b_by}")
+    return got, ms, plain_ms, steps, nbytes
+
+
 def run(device):
     import numpy as np
     import torch
@@ -118,15 +321,21 @@ def run(device):
     from voxelray_torch.models.scene import build_scene
     from voxelray_torch.ops import geometry
     from voxelray_torch.ops.intersect import TMIN, TMAX, make_camera_rays
-    from voxelray_torch.ops.kernels import _build, mega_trace, voxel_accum
-    from voxelray_torch.ops.traverse import trace_grid_dda
-    from voxelray_torch.ops.voxelize import voxelize_plain
+    from voxelray_torch.ops.kernels import (_build, brick_fine, grid_walk,
+                                            mega_trace, voxel_accum)
+    from voxelray_torch.ops.traverse import (trace_grid_dda,
+                                             trace_triangles_brute)
+    from voxelray_torch.ops.traverse_fast import trace_grid_fast
+    from voxelray_torch.ops.tri_accel import trace_triangles_grid
+    from voxelray_torch.ops.voxelize import voxelize_plain, window_bounds
     from voxelray_torch.render import pipeline
 
     sync = torch.cuda.synchronize
+    kmods = (voxel_accum, mega_trace, grid_walk, brick_fine)
 
     # ---- 1. device + build ---------------------------------------------
-    log(f"device: {smi_line()} | torch {torch.__version__} "
+    smi = smi_line()
+    log(f"device: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda} | {torch.cuda.get_device_name(0)}")
     t0 = time.time()
     _build.load_library()
@@ -141,26 +350,25 @@ def run(device):
     vs = float(max(bb_max - bb_min)) / GRID_RES
     cam, orbit = bench_camera(bb_min, bb_max)
     _, _, vi, pi = cam.matrices(WIDTH, HEIGHT)
+    mats = [c.matrices(WIDTH, HEIGHT)[2:] for c in orbit]
     log(f"mesh: {len(f)} triangles, voxel {vs}, dims "
         f"{geometry.grid_dims(bb_min, bb_max, vs)}")
 
-    # ---- 2. the main path, counted ---------------------------------------
-    voxel_accum.launches = 0
-    mega_trace.launches = 0
+    # ---- 2. the voxel path, counted ---------------------------------------
+    reset(*kmods)
     sync()
     t0 = time.time()
     grid = GridBool.from_mesh(v, f, vs, device=device)
-    scene = build_scene(grid=grid)
+    scene = build_scene(grid=grid, device=device)
     img = pipeline.render_image(scene, vi, pi, width=WIDTH, height=HEIGHT,
                                 backend="fast", shadows=True)
     sync()
     main_s = time.time() - t0
-    counts = {"voxel_accum": voxel_accum.launches,
-              "mega_trace": mega_trace.launches}
-    log(f"main path (from_mesh -> build_scene -> render_image, first call): "
-        f"{main_s:.2f} s, launches {counts}")
-    require(counts["voxel_accum"] > 0, "K1 was not launched by the main path")
-    require(counts["mega_trace"] > 0, "K2 was not launched by the main path")
+    vox_counts = counts_of(*kmods)
+    log(f"voxel path (from_mesh -> build_scene -> render_image, first "
+        f"call): {main_s:.2f} s, launches {vox_counts}")
+    require(vox_counts["voxel_accum"] > 0, "K1 was not launched")
+    require(vox_counts["mega_trace"] > 0, "K2 was not launched")
     require(tuple(img.shape) == (HEIGHT, WIDTH, 4), f"frame {img.shape}")
     require(bool(torch.isfinite(img).all()), "frame has non-finite pixels")
     occ = grid.occupancy()
@@ -185,7 +393,14 @@ def run(device):
         v_t, f_t, bb_min, vs, grid.dims), 5)
     k1_plain_ms = cuda_ms(lambda: voxelize_plain(
         v_t, f_t, bb_min, vs, grid.dims), 1)
-    log(f"K1 voxelize ms: kernel {k1_ms:.3f}, plain {k1_plain_ms:.3f}")
+    tri = v_t[f_t.long()]
+    w0, w1 = window_bounds(tri.amin(1), tri.amax(1), bb_min, vs, grid.dims)
+    slots = int(torch.clamp(w1 - w0, min=0).prod(-1).sum())
+    rows = [kernel_row(
+        "voxel_accum", "voxel_accum.cu",
+        "voxelray_tpu/ops/pallas/voxel_accum.py:236",
+        vox_counts["voxel_accum"], k1_err, k1_ms, k1_plain_ms,
+        v.nbytes + f.size * 4 + grid.n_cells + 8, slots * OPS_SAT)]
 
     # ---- 4. K2 vs its plain version: primary and shadow rays ------------
     accel = scene.accel
@@ -213,6 +428,16 @@ def run(device):
         o, d, accel, tmn, tmx, ones), 1)
     log(f"K2 primary trace ms ({n} rays): kernel {k2_ms:.3f}, plain "
         f"{k2_plain_ms:.3f}")
+    k2_bsteps, k2_csteps, k2_bricks, lin_w = mega_work(o, d, tmn, tmx,
+                                                       accel)
+    n_sb = accel.fine_sb.shape[0]
+    k2_bytes = n * 45 + 4 * accel.l2.numel() + 64 * (n_sb + k2_bricks)
+    n_w = int((lin_w != lin_k).sum())
+    log(f"K2 primary work (plain staged walk, one brick at a time): "
+        f"{k2_bsteps} brick steps, {k2_csteps} cell steps, {k2_bricks} "
+        f"occupied bricks read, {n_w} rays with another cell than K2's")
+    require(n_w <= MAX_DIFF_RAYS, "K2 work count: the counting walk "
+            "does not follow K2")
 
     surf = pipeline.surface_terms(scene, o, d, t_k, lin_k)
     so, sd, sdist = surf.world_pos, surf.l_vec.contiguous(), surf.light_dist
@@ -234,8 +459,13 @@ def run(device):
     k2s_plain_ms = cuda_ms(lambda: mega_trace.trace_grid_mega_plain(
         so, sd, accel, stmn, sdist, admit), 1)
     log(f"K2 shadow trace ms: kernel {k2s_ms:.3f}, plain {k2s_plain_ms:.3f}")
+    rows.append(kernel_row(
+        "mega_trace", "mega_trace.cu",
+        "voxelray_tpu/ops/pallas/mega_trace.py:918",
+        vox_counts["mega_trace"], max(k2_err, k2s_err), k2_ms, k2_plain_ms,
+        k2_bytes, k2_bsteps * OPS_BRICK + k2_csteps * OPS_CELL))
 
-    # ---- 5. frames -------------------------------------------------------
+    # ---- 5. voxel frames ---------------------------------------------------
     _, _, cvi, cpi = cam.matrices(CHECK_W, CHECK_H)
     img_k = pipeline.render_image(scene, cvi, cpi, width=CHECK_W,
                                   height=CHECK_H, backend="fast")
@@ -251,41 +481,151 @@ def run(device):
         f"{PIXEL_ATOL}: {close}")
     require(bool((hit_k == hit_p).all()), "frame hit masks differ")
     require(close >= PIXEL_FRAC, f"only {close} of pixels match")
+    log_frames("voxel (megakernel)", time_frames(scene, mats), smi_line())
 
-    mats = [c.matrices(WIDTH, HEIGHT)[2:] for c in orbit]
-    frame_ms = {}
-    for shadows in (True, False):
-        def frames():
-            for mvi, mpi in mats:
-                pipeline.render_image(scene, mvi, mpi, width=WIDTH,
-                                      height=HEIGHT, backend="fast",
-                                      shadows=shadows)
-        frames()
-        sync()
-        t0 = time.perf_counter()
-        frames()
-        sync()
-        frame_ms[shadows] = (time.perf_counter() - t0) * 1e3 / len(mats)
-    smi = smi_line()
-    for shadows, ms in frame_ms.items():
-        log(f"frame {WIDTH}x{HEIGHT} shadows={shadows}: {ms:.3f} ms/frame, "
-            f"{WIDTH * HEIGHT / ms / 1e3:.2f} Mrays/s (primary rays) over "
-            f"{len(mats)} orbit cameras [{smi}]")
+    # ---- 6. the staged walk (K3 + K4) on the voxel frame ---------------
+    (hits, cell, cont), *_ = check_walk("staged 512^3 round 1", o, d, tmn,
+                                        tmx, accel, 5)
+    check_fine("staged 512^3 round 1", o, d, hits, tmn, tmx, accel)
+    go = torch.nonzero(cont > 0).squeeze(1)
+    check_walk("staged 512^3 resume", o[go], d[go], tmn[go], tmx[go], accel,
+               8, cell=cell[go].contiguous(),
+               active=torch.ones_like(go, dtype=torch.int32))
+    reset(*kmods)
+    t_s, lin_s, unres_s = trace_grid_fast(o, d, accel, mega=False,
+                                          return_stats=True)
+    sync()
+    staged_counts = counts_of(grid_walk, brick_fine)
+    log(f"staged primary trace: unresolved {unres_s}, launches "
+        f"{staged_counts}")
+    require(unres_s == 0, "the staged trace left rays unresolved")
+    n_vs_k2 = int((lin_s != lin_k).sum())
+    log(f"staged primary vs K2: {n_vs_k2} rays with another cell")
+    compare_traces("staged primary vs dda", o, d, occ_np, grid.origin, vs,
+                   t_s, lin_s, t_p, lin_p)
+    # as render_image's shadow pass calls it: scalar TMIN, any_hit's k 4
+    ts_s, tslin_s, unres_ss = trace_grid_fast(
+        so, sd, accel, t_min=float(TMIN), t_max=sdist, admit=admit,
+        mega=False, k_hits=4, return_stats=True)
+    require(unres_ss == 0, "the staged shadow trace left rays unresolved")
+    compare_traces("staged shadow vs dda", so, sd, occ_np, grid.origin, vs,
+                   ts_s, tslin_s, s_p, slin_p)
+    # the staged walk against the exhaustive DDA from the orbit cameras
+    # and from inside the knot's box
+    cams = mats + [close_camera(bb_min, bb_max).matrices(WIDTH, HEIGHT)[2:]]
+    for ci, (cvi, cpi) in enumerate(cams):
+        co, cd = make_camera_rays(WIDTH, HEIGHT, cvi, cpi, device=device)
+        co = pipeline._tile_rays(co, HEIGHT, WIDTH).contiguous()
+        cd = pipeline._tile_rays(cd, HEIGHT, WIDTH).contiguous()
+        ct_s, clin_s, cun = trace_grid_fast(co, cd, accel, mega=False,
+                                            return_stats=True)
+        require(cun == 0, f"camera {ci}: staged trace left rays unresolved")
+        ct_p, clin_p = trace_grid_dda(co, cd, occ_flat, scene.grid_origin,
+                                      dims=scene.grid_dims, voxel_size=vs)
+        compare_traces(f"staged vs dda, camera {ci} of {len(cams)}", co, cd,
+                       occ_np, grid.origin, vs, ct_s, clin_s, ct_p, clin_p)
+    staged = dict(fast_opts={"mega": False}, shadow_opts={"mega": False})
+    reset(*kmods)
+    pipeline.render_image(scene, vi, pi, width=WIDTH, height=HEIGHT,
+                          backend="fast", shadows=True, **staged)
+    sync()
+    staged_counts = counts_of(grid_walk, brick_fine)
+    log(f"staged voxel frame launches (shadows on): {staged_counts}")
+    require(staged_counts["grid_walk"] > 0, "staged frame: K3 not launched")
+    require(staged_counts["brick_fine"] > 0, "staged frame: K4 not launched")
+    log_frames("voxel (staged K3+K4)", time_frames(scene, mats, **staged),
+               smi_line())
 
-    kernels = [
-        {"name": "voxel_accum", "route": "cuda",
-         "source": "voxelray_torch/csrc/voxel_accum.cu",
-         "replaces": "voxelray_tpu/ops/pallas/voxel_accum.py:236",
-         "launches": counts["voxel_accum"], "max_abs_err": k1_err,
-         "ms": round(k1_ms, 4), "plain_ms": round(k1_plain_ms, 4)},
-        {"name": "mega_trace", "route": "cuda",
-         "source": "voxelray_torch/csrc/mega_trace.cu",
-         "replaces": "voxelray_tpu/ops/pallas/mega_trace.py:918",
-         "launches": counts["mega_trace"], "max_abs_err": max(k2_err,
-                                                              k2s_err),
-         "ms": round(k2_ms, 4), "plain_ms": round(k2_plain_ms, 4)},
-    ]
-    return kernels, smi
+    # ---- 7. the triangle path, counted -------------------------------------
+    model = knot_model(v, f)
+    reset(*kmods)
+    sync()
+    t0 = time.time()
+    tscene = build_scene(models=[model], device=device)
+    build_s = time.time() - t0
+    timg = pipeline.render_image(tscene, vi, pi, width=WIDTH, height=HEIGHT,
+                                 backend="fast", shadows=True)
+    sync()
+    tri_s = time.time() - t0
+    tri_counts = counts_of(*kmods)
+    ta = tscene.tri_accel
+    require(ta is not None, "build_scene built no triangle accel")
+    n_nonempty = int((ta.cell_slot >= 0).sum())
+    log(f"triangle path (build_scene(models) -> render_image, first call): "
+        f"{tri_s:.2f} s (build {build_s:.2f} s), launches {tri_counts}")
+    log(f"tri accel: dims {ta.dims}, l_width {ta.l_width}, overflow_cells "
+        f"{ta.overflow_cells}, nonempty cells {n_nonempty}, brick grid "
+        f"{ta.brick.bdims} ({ta.brick.coarse.shape[0]} coarse rows)")
+    require(ta.overflow_cells == 0, "tri accel cells overflow")
+    require(tri_counts["grid_walk"] > 0, "K3 was not launched")
+    require(tri_counts["brick_fine"] > 0, "K4 was not launched")
+    require(bool(torch.isfinite(timg).all()), "tri frame non-finite")
+
+    # K3 and K4 on the march's first lap (the frame's rays, t_min = TMIN)
+    tacc = ta.brick
+    (thits, _, _), k3_ms, k3_plain_ms, k3_steps, k3_bytes = check_walk(
+        "tri lap 1", o, d, tmn, tmx, tacc, 2)
+    (_, tlin), k4_ms, k4_plain_ms, k4_steps, k4_bytes = check_fine(
+        "tri lap 1", o, d, thits, tmn, tmx, tacc)
+
+    reset(*kmods)
+    tt, tid, tu, tv, unres_t = trace_triangles_grid(o, d, ta,
+                                                    return_stats=True)
+    sync()
+    march_counts = counts_of(grid_walk, brick_fine)
+    log(f"tri trace: {int(torch.isfinite(tt).sum())} hits, unresolved "
+        f"{unres_t}, launches {march_counts}")
+    require(unres_t == 0, "the tri march left rays unresolved")
+    saved = grid_walk.walk_cuda, brick_fine.fine_cuda
+    grid_walk.walk_cuda = grid_walk.walk_plain
+    brick_fine.fine_cuda = brick_fine.fine_plain
+    try:
+        t0 = time.time()
+        plain = trace_triangles_grid(o, d, ta)
+        sync()
+        log(f"tri trace with the plain K3/K4: {time.time() - t0:.2f} s")
+    finally:
+        grid_walk.walk_cuda, brick_fine.fine_cuda = saved
+    for name, a, b in zip(("t", "id", "u", "v"), (tt, tid, tu, tv), plain):
+        require(torch.equal(a, b), f"tri trace {name} differs with the "
+                "plain K3/K4")
+    log("tri trace with the kernels and with their plain versions: "
+        "bit-equal")
+
+    rng = np.random.default_rng(0)
+    hit_idx = torch.nonzero(torch.isfinite(tt)).squeeze(1).cpu().numpy()
+    idx = np.concatenate([rng.choice(hit_idx, N_BRUTE // 2, replace=False),
+                          rng.choice(n, N_BRUTE // 2, replace=False)])
+    idx_t = torch.as_tensor(idx, device=device)
+    t0 = time.time()
+    tb, idb, _, _ = trace_triangles_brute(o[idx_t], d[idx_t], tscene.tri_v0,
+                                          tscene.tri_v1, tscene.tri_v2)
+    sync()
+    brute_s = time.time() - t0
+    tg = tt[idx_t]
+    hb, hg = torch.isfinite(tb), torch.isfinite(tg)
+    same_id = float((idb[hb] == tid[idx_t][hb]).float().mean())
+    t_err = float(((tg[hb] - tb[hb]).abs()
+                   - (TRI_ATOL + TRI_RTOL * tb[hb].abs())).max())
+    log(f"tri brute check ({N_BRUTE} rays x {len(f)} triangles, "
+        f"{brute_s:.2f} s): hits grid {int(hg.sum())} brute {int(hb.sum())}"
+        f", same triangle {same_id}, max |t err| - tolerance {t_err}")
+    require(bool((hb == hg).all()), "tri march and brute hit masks differ")
+    require(t_err <= 0.0, "tri t outside rtol 3e-6, atol 1e-7 of brute")
+    log_frames("triangles (tri-grid march)", time_frames(tscene, mats),
+               smi_line())
+
+    rows.append(kernel_row(
+        "grid_walk", "grid_walk.cu",
+        "voxelray_tpu/ops/pallas/grid_walk.py:496",
+        tri_counts["grid_walk"], 0, k3_ms, k3_plain_ms, k3_bytes,
+        k3_steps * OPS_BRICK))
+    rows.append(kernel_row(
+        "brick_fine", "brick_fine.cu",
+        "voxelray_tpu/ops/pallas/brick_fine.py:296",
+        tri_counts["brick_fine"], 0.0, k4_ms, k4_plain_ms, k4_bytes,
+        k4_steps * OPS_CELL))
+    return rows, smi_line()
 
 
 def main():

@@ -46,7 +46,7 @@ def grids(request):
         origin, set_calls = np.asarray(jgrid.origin), jgrid.set_calls
         jwords = np.asarray(jgrid.words)
     else:
-        r = voxelize_mesh(v, f, vs)
+        r = voxelize_mesh(v, f, vs, device="cpu")
         occ, origin, set_calls = r["occ"].numpy(), r["origin"], \
             r["set_calls"]
         jwords = None

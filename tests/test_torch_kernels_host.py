@@ -1,14 +1,17 @@
 """The CUDA kernels' own source, built for the host, against their plain
 PyTorch versions.
 
-csrc/voxel_accum.cu and csrc/mega_trace.cu are compiled with g++ (launch
-stubs cut off, SHIM below standing in for the CUDA runtime) and each
-kernel runs thread by thread on the CPU.  Both sides use IEEE
-float32 without contraction, as on the card, so this holds the kernels'
-logic (windows, SAT, walk, near-tie probes) to the plain versions without
-a GPU.  K1's hit count is a warp reduction the host build cannot emulate,
-so only its occupancy is compared here (chip_smoke.py compares set_calls
-on the card).  Skips where g++ is missing.
+csrc/voxel_accum.cu, mega_trace.cu, grid_walk.cu and brick_fine.cu are
+compiled with g++ (launch stubs cut off, SHIM below standing in for the
+CUDA runtime) and each kernel runs thread by thread on the CPU.  Shared
+memory is one host array that the host program fills before the
+threads run, so running them one at a time never reads a word before it
+is written.  Both sides use IEEE float32 without contraction, as on the
+card, so this holds the kernels' logic (windows, SAT, walk, near-tie
+probes) to the plain versions without a GPU.  K1's hit count is a warp
+reduction the host build cannot emulate, so only its occupancy is
+compared here (chip_smoke.py compares set_calls on the card).  Skips
+where g++ is missing.
 """
 import ctypes
 import shutil
@@ -22,8 +25,12 @@ import torch
 from voxelray_torch.io import meshes
 from voxelray_torch.ops import geometry
 from voxelray_torch.ops.intersect import TMAX, TMIN, make_camera_rays
+from voxelray_torch.ops.kernels import brick_fine
+from voxelray_torch.ops.kernels.brick_fine import fine_plain
+from voxelray_torch.ops.kernels.grid_walk import walk_plain
 from voxelray_torch.ops.kernels.mega_trace import trace_grid_mega_plain
-from voxelray_torch.ops.traverse_fast import build_accel
+from voxelray_torch.ops.traverse import trace_grid_dda
+from voxelray_torch.ops.traverse_fast import build_accel, trace_grid_fast
 from voxelray_torch.ops.voxelize import voxelize_plain
 from voxelray_torch.render.camera import Camera
 from voxelray_torch.utils.parity import adjudicate_hit_diffs
@@ -50,6 +57,9 @@ using std::min;
 #define __device__
 #define __forceinline__ inline
 #define __restrict__
+#define __syncthreads()
+
+static uint32_t host_shared[1 << 16];
 
 struct HostDim3 {
   unsigned x = 0, y = 0, z = 0;
@@ -119,6 +129,55 @@ extern "C" void host_launch(const float* o, const float* d,
     }
 }
 ''', [P] * 7 + [I] * 7 + [F] * 6 + [P] * 3),
+    "grid_walk": ('''
+extern "C" void host_launch(const float* o, const float* d,
+                            const float* t_min, const float* t_max,
+                            const int* cell_in, const int* active_in,
+                            const uint32_t* coarse, const uint32_t* l2,
+                            int l2_words, int n, int bx, int by, int bz,
+                            float ogx, float ogy, float ogz, float bw,
+                            int k_hits, int* hits_out, int* cell_out,
+                            int* cont_out) {
+  WalkGrid g;
+  g.bx = bx; g.by = by; g.bz = bz;
+  g.sbx = (bx + 7) / 8;
+  g.sby = (by + 7) / 8;
+  g.ogx = ogx; g.ogy = ogy; g.ogz = ogz; g.bw = bw;
+  if (l2 != nullptr) memcpy(host_shared, l2, sizeof(uint32_t) * l2_words);
+  blockDim.x = 128;
+  gridDim.x = (n + 127) / 128;
+  for (unsigned b = 0; b < gridDim.x; ++b)
+    for (unsigned t = 0; t < blockDim.x; ++t) {
+      blockIdx.x = b;
+      threadIdx.x = t;
+      grid_walk_kernel(o, d, t_min, t_max, cell_in, active_in, coarse, l2,
+                       l2_words, n, g, k_hits, hits_out, cell_out, cont_out);
+    }
+}
+''', [P] * 8 + [I] * 5 + [F] * 4 + [I] + [P] * 3),
+    "brick_fine": ('''
+extern "C" void host_launch(const float* o, const float* d,
+                            const int* bricks, int k_slots,
+                            const uint32_t* fine, int nb, const float* t_min,
+                            const float* t_max, int n, int nx, int ny, int bx,
+                            int by, int bz, float ogx, float ogy, float ogz,
+                            float vs, float half, float bwf, float scale,
+                            float* t_out, int* lin_out) {
+  FineGrid g;
+  g.nx = nx; g.ny = ny; g.bx = bx; g.by = by; g.bz = bz; g.nb = nb;
+  g.ogx = ogx; g.ogy = ogy; g.ogz = ogz;
+  g.vs = vs; g.half = half; g.bwf = bwf; g.scale = scale;
+  blockDim.x = 128;
+  gridDim.x = (n + 127) / 128;
+  for (unsigned b = 0; b < gridDim.x; ++b)
+    for (unsigned t = 0; t < blockDim.x; ++t) {
+      blockIdx.x = b;
+      threadIdx.x = t;
+      brick_fine_kernel(o, d, bricks, k_slots, fine, t_min, t_max, n, g,
+                        t_out, lin_out);
+    }
+}
+''', [P, P, P, I, P, I, P, P] + [I] * 6 + [F] * 7 + [P] * 2),
 }
 
 
@@ -135,6 +194,8 @@ def host_kernels(tmp_path_factory):
         body = src[:src.index("}  // namespace")]
         body = body.replace("#include <cuda_runtime.h>",
                             '#include "cuda_host_shim.h"')
+        body = body.replace("extern __shared__ uint32_t s_l2[];",
+                            "uint32_t* s_l2 = host_shared;")
         cpp = out / f"{name}.cpp"
         cpp.write_text(body + "}  // namespace\n" + driver)
         lib = out / f"lib{name}.so"
@@ -286,3 +347,172 @@ def test_host_k2_edge_grazing_rays_match_the_oracle(host_kernels):
     adj = adjudicate_hit_diffs(o, d, occ.astype(bool), org, vs, diff, t,
                                lin, tp, lp)
     assert adj["adjudication_ok"] and adj["fast_within_envelope"] == 0, adj
+
+
+def _walk_scene(kind):
+    """(accel, o, d, t_min, t_max) for the K3/K4 host cases: an icosphere
+    shell (one coarse row) or random boxes in a 27x26x24-brick grid (five
+    coarse rows, superbricks sticking out of the grid); camera rays plus
+    random rays from inside, with per-ray bounds from a seed."""
+    rng = np.random.default_rng({"shell": 3, "boxes": 4}[kind])
+    if kind == "shell":
+        v, f, bb_min, _, vs, dims = _mesh_grid("icosphere", 48)
+        occ, _ = voxelize_plain(torch.from_numpy(v), torch.from_numpy(f),
+                                bb_min, vs, dims)
+        origin = bb_min
+    else:
+        nx, ny, nz = 216, 208, 192
+        occ = np.zeros((nz, ny, nx), np.uint8)
+        for _ in range(70):
+            lo = rng.integers(0, [nz - 8, ny - 8, nx - 8])
+            hi = np.minimum(lo + rng.integers(2, 24, 3), [nz, ny, nx])
+            occ[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] = 1
+        occ, origin, vs = torch.from_numpy(occ), \
+            np.asarray([-1.3, 0.2, -0.7], np.float32), 0.0125
+    accel = build_accel(occ, origin, vs)
+    ext = np.asarray(accel.dims, np.float64) * vs
+    center = origin + ext / 2
+    cam = Camera(eye=tuple(center + np.asarray([0.9, 0.55, -0.9]) * 1.3
+                           * ext.max()), center=tuple(center))
+    _, _, vi, pi = cam.matrices(64, 48)
+    o, d = make_camera_rays(64, 48, vi, pi)
+    m = 2048
+    o_in = (origin + rng.uniform(0.1, 0.9, (m, 3)) * ext).astype(np.float32)
+    d_in = rng.normal(size=(m, 3))
+    d_in = (d_in / np.linalg.norm(d_in, axis=1, keepdims=True)) \
+        .astype(np.float32)
+    o = np.concatenate([o.reshape(-1, 3).numpy(), o_in])
+    d = np.concatenate([d.reshape(-1, 3).numpy(), d_in])
+    n = len(o)
+    tmn = np.where(rng.random(n) < 0.5, TMIN,
+                   rng.uniform(0.001, 0.4 * ext.max(), n)).astype(np.float32)
+    tmx = np.where(rng.random(n) < 0.6, TMAX,
+                   tmn + rng.uniform(0, 2 * ext.max(), n)).astype(np.float32)
+    return accel, o, d, tmn, tmx
+
+
+def _host_walk(fn, accel, o, d, tmn, tmx, cell, active, two_level, k):
+    n = len(o)
+    hits = np.empty((k, n), np.int32)
+    cell_out = np.empty((n, 3), np.int32)
+    cont = np.empty(n, np.int32)
+    coarse = np.ascontiguousarray(accel.coarse.numpy())
+    l2 = np.ascontiguousarray(accel.l2.numpy())
+    ptr = lambda a: None if a is None else a.ctypes.data  # noqa: E731
+    fn(o.ctypes.data, d.ctypes.data, tmn.ctypes.data, tmx.ctypes.data,
+       ptr(cell), ptr(active), coarse.ctypes.data,
+       ptr(l2) if two_level else None, l2.size if two_level else 0, n,
+       *accel.bdims, *accel.origin_key,
+       float(np.float32(accel.voxel_size * 8)), k, hits.ctypes.data,
+       cell_out.ctypes.data, cont.ctypes.data)
+    return hits, cell_out, cont
+
+
+@pytest.mark.parametrize("kind", ["shell", "boxes"])
+@pytest.mark.parametrize("two_level", [False, True])
+@pytest.mark.parametrize("k,init", [(1, True), (5, True), (5, False)])
+def test_host_k3_matches_plain(host_kernels, kind, two_level, k, init):
+    """Candidate bricks, resume cells (of finished walks too) and `cont`
+    bit-equal between the kernel and walk_plain."""
+    accel, o, d, tmn, tmx = _walk_scene(kind)
+    t = torch.from_numpy
+    kw = dict(bdims=accel.bdims, origin_key=accel.origin_key,
+              brick_world=float(accel.voxel_size * 8), k_hits=k)
+    l2 = accel.l2 if two_level else None
+    if init:
+        cell = active = None
+        ref = walk_plain(t(o), t(d), t(tmn), t(tmx), None, None,
+                         accel.coarse, l2, **kw)
+    else:
+        # resume from where a one-brick walk stopped
+        _, cell_t, cont = walk_plain(t(o), t(d), t(tmn), t(tmx), None, None,
+                                     accel.coarse, l2, **dict(kw, k_hits=1))
+        cell = np.ascontiguousarray(cell_t.numpy())
+        active = np.ascontiguousarray(cont.numpy())
+        ref = walk_plain(t(o), t(d), None, t(tmx), cell_t, cont,
+                         accel.coarse, l2, **kw)
+    got = _host_walk(host_kernels["grid_walk"], accel, o, d, tmn, tmx, cell,
+                     active, two_level, k)
+    for g_, r_ in zip(got, ref):
+        assert np.array_equal(g_, r_.numpy())
+    assert (got[0] >= 0).sum() > 200
+
+
+@pytest.mark.parametrize("kind", ["shell", "boxes"])
+def test_host_k4_matches_plain(host_kernels, kind):
+    """(t, lin) bit-equal between the kernel and fine_plain for 1 to 5
+    candidate slots taken from the walk."""
+    accel, o, d, tmn, tmx = _walk_scene(kind)
+    t = torch.from_numpy
+    hits, _, _ = walk_plain(t(o), t(d), t(tmn), t(tmx), None, None,
+                            accel.coarse, accel.l2, bdims=accel.bdims,
+                            origin_key=accel.origin_key,
+                            brick_world=float(accel.voxel_size * 8),
+                            k_hits=5)
+    fine = np.ascontiguousarray(accel.fine.numpy())
+    og, vs, half, bwf, scale = brick_fine._consts(
+        accel.origin_key, accel.voxel_size, accel.bdims)
+    n = len(o)
+    for kk in (1, 2, 5):
+        bricks = np.ascontiguousarray(hits[:kk].numpy())
+        t_k = np.empty(n, np.float32)
+        lin_k = np.empty(n, np.int32)
+        host_kernels["brick_fine"](
+            o.ctypes.data, d.ctypes.data, bricks.ctypes.data, kk,
+            fine.ctypes.data, fine.shape[1], tmn.ctypes.data,
+            tmx.ctypes.data, n, accel.dims[0], accel.dims[1],
+            *accel.bdims, *map(float, og), float(vs), float(half),
+            float(bwf), float(scale), t_k.ctypes.data, lin_k.ctypes.data)
+        t_p, lin_p = fine_plain(t(o), t(d), t(bricks), accel.fine, t(tmn),
+                                t(tmx), dims=accel.dims, bdims=accel.bdims,
+                                origin_key=accel.origin_key,
+                                voxel_size=accel.voxel_size)
+        assert np.array_equal(lin_k, lin_p.numpy())
+        assert np.array_equal(t_k, t_p.numpy())
+        assert (lin_k >= 0).sum() > 100
+
+
+def test_host_k4_edge_grazing_rays_match_the_oracle(host_kernels):
+    """The staged walk on rays aimed exactly at grid edges: K4's near-tie
+    steps and probes (those of K2) keep every ray that differs from the
+    exhaustive DDA on the numpy oracle's cell, and the kernel built for
+    the host gives fine_plain's (t, lin) bit for bit on these rays."""
+    occ, org, vs, o, d = _edge_scene(np.random.default_rng(1))
+    accel = build_accel(torch.from_numpy(occ), org, vs)
+    t = torch.from_numpy
+    n = len(o)
+    t_s, lin_s, unresolved = trace_grid_fast(t(o), t(d), accel, mega=False,
+                                             return_stats=True)
+    t_p, lin_p = trace_grid_dda(t(o), t(d), t(occ.reshape(-1)), org,
+                                dims=accel.dims, voxel_size=vs)
+    ts, ls, tp, lp = t_s.numpy(), lin_s.numpy(), t_p.numpy(), lin_p.numpy()
+    assert unresolved == 0 and np.isfinite(ts).sum() > n // 3
+    hit, hit_p = np.isfinite(ts), np.isfinite(tp)
+    diff = np.flatnonzero((hit != hit_p) | (hit & hit_p & (ls != lp)))
+    assert len(diff) < n // 100
+    adj = adjudicate_hit_diffs(o, d, occ.astype(bool), org, vs, diff, ts,
+                               ls, tp, lp)
+    assert adj["adjudication_ok"] and adj["fast_within_envelope"] == 0, adj
+    tmn, tmx = np.full(n, TMIN, np.float32), np.full(n, TMAX, np.float32)
+    hits, _, _ = walk_plain(t(o), t(d), t(tmn), t(tmx), None, None,
+                            accel.coarse, None, bdims=accel.bdims,
+                            origin_key=accel.origin_key,
+                            brick_world=float(accel.voxel_size * 8),
+                            k_hits=5)
+    bricks = np.ascontiguousarray(hits.numpy())
+    fine = np.ascontiguousarray(accel.fine.numpy())
+    og, vs32, half, bwf, scale = brick_fine._consts(
+        accel.origin_key, accel.voxel_size, accel.bdims)
+    t_k = np.empty(n, np.float32)
+    lin_k = np.empty(n, np.int32)
+    host_kernels["brick_fine"](
+        o.ctypes.data, d.ctypes.data, bricks.ctypes.data, 5,
+        fine.ctypes.data, fine.shape[1], tmn.ctypes.data, tmx.ctypes.data,
+        n, accel.dims[0], accel.dims[1], *accel.bdims, *map(float, og),
+        float(vs32), float(half), float(bwf), float(scale), t_k.ctypes.data,
+        lin_k.ctypes.data)
+    t_f, lin_f = fine_plain(t(o), t(d), hits, accel.fine, t(tmn), t(tmx),
+                            dims=accel.dims, bdims=accel.bdims,
+                            origin_key=accel.origin_key, voxel_size=vs)
+    assert np.array_equal(lin_k, lin_f.numpy())
+    assert np.array_equal(t_k, t_f.numpy())

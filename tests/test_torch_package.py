@@ -19,7 +19,8 @@ import torch
 from voxelray_torch.io import meshes
 from voxelray_torch.ops import geometry
 from voxelray_torch.ops.intersect import make_camera_rays
-from voxelray_torch.ops.kernels import _build, mega_trace, voxel_accum
+from voxelray_torch.ops.kernels import (_build, brick_fine, grid_walk,
+                                        mega_trace, voxel_accum)
 from voxelray_torch.ops.traverse_fast import build_accel, trace_grid_fast
 from voxelray_torch.ops.voxelize import voxelize_plain
 from voxelray_torch.render.camera import Camera
@@ -78,7 +79,11 @@ def test_cpu_tensors_take_the_plain_versions():
         torch.ones(64 * 32, dtype=torch.bool))
     assert torch.equal(lin.reshape(-1), lin_p) and int(unresolved) == 0
     assert torch.isfinite(t).sum() > 100
+    grid_walk.launches = brick_fine.launches = 0
+    t_s, lin_s = trace_grid_fast(o, d, accel, mega=False)
+    assert torch.equal(lin_s, lin) and torch.equal(t_s, t)
     assert voxel_accum.launches == 0 and mega_trace.launches == 0
+    assert grid_walk.launches == 0 and brick_fine.launches == 0
 
 
 def test_cuda_entry_points_refuse_cpu_tensors():
@@ -98,16 +103,39 @@ def test_cuda_entry_points_refuse_cpu_tensors():
         voxel_accum.voxel_accum(meta, meta.int(), bb_min, vs, dims)
     with pytest.raises(ValueError, match="unsupported device"):
         mega_trace.trace_grid_mega(meta, meta, accel, 0.001, 10000.0)
+    kw = dict(bdims=accel.bdims, origin_key=accel.origin_key,
+              brick_world=0.8, k_hits=2)
+    cpu = torch.zeros(n)
+    with pytest.raises(ValueError):
+        grid_walk.walk_cuda(torch.zeros((n, 3)), torch.ones((n, 3)), cpu,
+                            cpu + 1, None, None, accel.coarse, None, **kw)
+    with pytest.raises(ValueError):
+        brick_fine.fine_cuda(torch.zeros((n, 3)), torch.ones((n, 3)),
+                             torch.zeros((1, n), dtype=torch.int32),
+                             accel.fine, cpu, cpu + 1, dims=accel.dims,
+                             bdims=accel.bdims, origin_key=accel.origin_key,
+                             voxel_size=0.1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        grid_walk.coarse_walk_init(meta, meta, meta[:, 0], meta[:, 0],
+                                   accel.coarse, **kw)
+    with pytest.raises(ValueError, match="unsupported device"):
+        trace_grid_fast(meta, meta, accel, mega=False)
 
 
 def test_nvcc_command_targets_hopper_without_fma_contraction():
-    cmd = _build.nvcc_command("nvcc", "/tmp/out.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert cmd[cmd.index("arch=compute_90a,code=sm_90a") - 1] == "-gencode"
-    assert "--fmad=false" in cmd and "-shared" in cmd
-    assert not any("fast_math" in c or "fast-math" in c for c in cmd)
-    srcs = {Path(c).name for c in cmd if c.endswith(".cu")}
-    assert srcs == {"voxel_accum.cu", "mega_trace.cu"}
+    compiles, link = _build.nvcc_commands("nvcc", "/tmp/out.so")
+    for cmd in compiles + [link]:
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert cmd[cmd.index("arch=compute_90a,code=sm_90a") - 1] == \
+            "-gencode"
+        assert not any("fast_math" in c or "fast-math" in c for c in cmd)
+    for cmd in compiles:
+        assert "--fmad=false" in cmd and "-c" in cmd
+    assert "-shared" in link
+    srcs = {Path(c).name for cmd in compiles for c in cmd if c.endswith(".cu")}
+    assert srcs == {"voxel_accum.cu", "mega_trace.cu", "grid_walk.cu",
+                    "brick_fine.cu"}
+    assert len(compiles) == len(srcs)
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -179,3 +207,51 @@ def test_kernels_match_plain_versions_on_cuda(cuda):
     assert torch.equal(lin, lin_p)
     same = lin >= 0
     assert torch.equal(t[same], t_p[same])
+
+
+@pytest.mark.cuda
+def test_staged_kernels_match_plain_versions_on_cuda(cuda):
+    """K3 (both entries, one and two levels) and K4 on the card against
+    their plain versions on the same card: bit-equal."""
+    v, f, bb_min, bb_max, vs, dims = _small_scene()
+    occ, _ = voxelize_plain(torch.from_numpy(v).to(cuda),
+                            torch.from_numpy(f).to(cuda), bb_min, vs, dims)
+    accel = build_accel(occ, bb_min, vs)
+    cam = Camera(eye=(2.5, 1.5, -2.5), center=(0.0, 0.0, 0.0))
+    _, _, vi, pi = cam.matrices(128, 64)
+    o, d = make_camera_rays(128, 64, vi, pi, device=cuda)
+    o, d = o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()
+    n = o.shape[0]
+    tmn = torch.full((n,), 0.001, device=cuda)
+    tmx = torch.full((n,), 10000.0, device=cuda)
+    kw = dict(bdims=accel.bdims, origin_key=accel.origin_key,
+              brick_world=float(accel.voxel_size * 8), k_hits=5)
+    for l2 in (None, accel.l2):
+        before = grid_walk.launches
+        got = grid_walk.walk_cuda(o, d, tmn, tmx, None, None, accel.coarse,
+                                  l2, **kw)
+        torch.cuda.synchronize()
+        assert grid_walk.launches == before + 1
+        want = grid_walk.walk_plain(o, d, tmn, tmx, None, None,
+                                    accel.coarse, l2, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        got2 = grid_walk.walk_cuda(o, d, None, tmx, got[1], got[2],
+                                   accel.coarse, l2, **kw)
+        want2 = grid_walk.walk_plain(o, d, None, tmx, got[1], got[2],
+                                     accel.coarse, l2, **kw)
+        for a, b in zip(got2, want2):
+            assert torch.equal(a, b)
+    fkw = dict(dims=accel.dims, bdims=accel.bdims,
+               origin_key=accel.origin_key, voxel_size=accel.voxel_size)
+    before = brick_fine.launches
+    t, lin = brick_fine.fine_cuda(o, d, got[0], accel.fine, tmn, tmx, **fkw)
+    torch.cuda.synchronize()
+    assert brick_fine.launches == before + 1 and (lin >= 0).sum() > 100
+    t_p, lin_p = brick_fine.fine_plain(o, d, got[0], accel.fine, tmn, tmx,
+                                       **fkw)
+    assert torch.equal(lin, lin_p) and torch.equal(t, t_p)
+    t_s, lin_s, unresolved = trace_grid_fast(o, d, accel, mega=False,
+                                             return_stats=True)
+    t_m, lin_m = trace_grid_fast(o, d, accel)
+    assert unresolved == 0 and torch.equal(lin_s, lin_m)

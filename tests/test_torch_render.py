@@ -35,7 +35,8 @@ VS = 0.05
 def scenes():
     v, f = jmeshes.bunny_like(3)
     jscene = jbuild_scene(models=None, grid=JGridBool.from_mesh(v, f, VS))
-    scene = build_scene(grid=GridBool.from_mesh(v, f, VS))
+    scene = build_scene(grid=GridBool.from_mesh(v, f, VS, device="cpu"),
+                        device="cpu")
     bb_min, bb_max = mesh_bbox(v)
     center = (bb_min + bb_max) * 0.5
     cam = Camera(eye=tuple(center + np.asarray([0.9, 0.55, -0.9]) * 1.3

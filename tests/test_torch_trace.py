@@ -40,7 +40,8 @@ W, H = 128, 64
 def _scene(res):
     v, f = jmeshes.icosphere(3)
     bb_min, bb_max = mesh_bbox(v)
-    r = voxelize_mesh(v, f, float(max(bb_max - bb_min)) / res)
+    r = voxelize_mesh(v, f, float(max(bb_max - bb_min)) / res,
+                      device="cpu")
     accel = build_accel(r["occ"], r["origin"], r["voxel_size"])
     return res, bb_min, bb_max, r, accel
 
@@ -192,11 +193,18 @@ def test_chunked_dda_matches_monolithic(scene):
 
 
 def test_staged_backend_is_not_ported(scene):
-    accel = scene[4]
-    o = torch.zeros((1, 3))
-    d = torch.ones((1, 3))
-    with pytest.raises(NotImplementedError, match="K3"):
-        trace_grid_fast(o, d, accel, mega=False)
+    """The staged backend (mega=False: kernels K3 grid_walk and K4
+    brick_fine) is ported now: it gives the megakernel's cells and t,
+    with nothing unresolved (tests/test_torch_staged.py holds it against
+    JAX)."""
+    _, bb_min, bb_max, _, accel = scene
+    jo, jd = _jax_rays(_camera(bb_min, bb_max, 1.0))
+    o, d = torch.from_numpy(jo), torch.from_numpy(jd)
+    t_s, lin_s, unresolved = trace_grid_fast(o, d, accel, mega=False,
+                                             return_stats=True)
+    t_m, lin_m = trace_grid_fast(o, d, accel)
+    assert unresolved == 0 and (lin_s >= 0).sum() > 1000
+    assert torch.equal(lin_s, lin_m) and torch.equal(t_s, t_m)
 
 
 def test_zero_direction_component_is_traced():

@@ -101,7 +101,7 @@ def test_voxelize_mesh_matches_jax(name):
     make, vs = MESHES[name]
     v, f = make(jmeshes)
     ref = jvoxelize_mesh(v, f, vs)
-    out = voxelize_mesh(v, f, vs)
+    out = voxelize_mesh(v, f, vs, device="cpu")
     assert out["dims"] == ref["dims"]
     assert np.array_equal(out["origin"], ref["origin"])
     occ = out["occ"].numpy()
@@ -120,7 +120,7 @@ def test_cube64_invariants():
     min-boundary slabs, max faces dropped by the reference's window
     truncation) and 12858 set_calls."""
     v, f = meshes.cube(2.0)
-    grid = GridBool.from_mesh(v, f, 2.0 / 64)
+    grid = GridBool.from_mesh(v, f, 2.0 / 64, device="cpu")
     assert grid.dims == (64, 64, 64)
     assert int(grid.occupancy().sum()) == 12097
     assert grid.set_calls == 12858
@@ -135,7 +135,7 @@ def test_gridbool_pack_round_trip_and_memory():
     assert np.array_equal(unpack_bits(words, len(bits)).numpy(), bits)
 
     v, f = meshes.bunny_like(2)
-    occ = voxelize_mesh(v, f, 0.11)["occ"]
+    occ = voxelize_mesh(v, f, 0.11, device="cpu")["occ"]
     grid = GridBool.from_occupancy(occ, np.zeros(3, np.float32), 0.11)
     jgrid = JGridBool.from_occupancy(jnp.asarray(occ.numpy()),
                                      np.zeros(3, np.float32), 0.11)
@@ -147,7 +147,7 @@ def test_gridbool_pack_round_trip_and_memory():
 
 def test_later_slices_raise():
     v, f = meshes.cube(2.0)
-    grid = build_grid("bool", v, f, 0.5)
+    grid = build_grid("bool", v, f, 0.5, device="cpu")
     with pytest.raises(NotImplementedError, match="AABB extraction"):
         grid.get_aabbs()
     for enc in ("aabbstruct", "vec", "octree"):

@@ -1,0 +1,221 @@
+// K3: the resumable brick-level walk of the staged trace, for Hopper.
+//
+// Replaces the Pallas kernels of voxelray_tpu/ops/pallas/grid_walk.py:
+// coarse_walk (_make_kernel / _make_kernel_2l, pallas_call :496) and
+// coarse_walk_init (the same walk seeded by _fused_init, pallas_call :569).
+// Per ray: walk the 8^3-brick grid with an exact DDA over the brick
+// bitmask `coarse`, record the next k_hits occupied bricks (brick lin,
+// -1 = none) and return the walk state after them, so a later call resumes
+// there.  With the superbrick bitmask `l2`, a ray inside an empty
+// superbrick first lands on the last brick it touches there (undershoot
+// biased, never backward) and then takes one exact step: the brick
+// sequence is the single-level walk's.
+//
+// What is ported is the walk, not the TPU's scheduling: the Pallas kernel
+// muxes table rows through lane gathers (mux_lookup, hoist_rows) and caps
+// the steps of a whole (BQ, 128) block; here one thread follows one ray, a
+// table lookup is an indexed load, and each thread stops after
+// bx+by+bz+3 steps, the per-lane bound that block cap stands for.
+//
+// Every expression keeps the Pallas kernel's shape: next_t (:162-170), the
+// tie order x, then y, then z (:191-194), the two-level landing (:319-359)
+// and the `cont` rule (:245).  Two deliberate differences, both in the
+// plain version (ops/kernels/grid_walk.py) too:
+//  - a float that is floored into a cell index goes through floor_cell,
+//    which maps NaN to 0 and clamps to +-2^30 before the conversion, where
+//    the reference's conversion is implementation-defined;
+//  - a cell outside the grid is empty.  The Pallas two-level walk can land
+//    outside the grid in a superbrick that sticks out of it (brick dims
+//    not a multiple of 8) and then reads the brick bit at the aliased lin
+//    cx + bx*(cy + by*cz): a brick elsewhere, sometimes occupied, which it
+//    reports as a candidate the single-level walk never visits.  Here the
+//    two-level brick sequence is the single-level one's.
+//
+// What bounds it on the H100: divergent, latency-bound integer and float
+// stepping, a handful of instructions and one table load per brick.  The
+// brick bitmask (<= 32 KB at 512^3, 4 KB for a 256-res triangle grid) is
+// read through the read-only path and stays in L1; the superbrick bitmask
+// is copied into shared memory once per block.  Rays arrive in the 8x128
+// tile order of render_image, so a warp walks neighbouring pixels.
+//
+// Numerics: built with --fmad=false and without fast math (see
+// ops/kernels/_build.py): every product, sum and division rounds as in the
+// plain PyTorch version, so the brick sequence and the state are
+// bit-equal to it.
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+struct WalkGrid {
+  int bx, by, bz, sbx, sby;
+  float ogx, ogy, ogz, bw;
+};
+
+__device__ __forceinline__ float jmin(float a, float b) {
+  return (isnan(a) || isnan(b)) ? __int_as_float(0x7fc00000) : fminf(a, b);
+}
+__device__ __forceinline__ float jmax(float a, float b) {
+  return (isnan(a) || isnan(b)) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+__device__ __forceinline__ int clampi(int x, int lo, int hi) {
+  return min(max(x, lo), hi);
+}
+// floor(x) as an int: NaN -> 0, clamped to +-2^30 (geometry.floor_cell)
+__device__ __forceinline__ int floor_cell(float x) {
+  if (isnan(x)) return 0;
+  return static_cast<int>(
+      fminf(fmaxf(floorf(x), -1073741824.0f), 1073741824.0f));
+}
+__device__ __forceinline__ bool bit_at(const uint32_t* table, int lin) {
+  return (table[lin >> 5] >> (lin & 31)) & 1u;
+}
+__device__ __forceinline__ bool in_grid(const WalkGrid& g, int cx, int cy,
+                                        int cz) {
+  return cx >= 0 && cx < g.bx && cy >= 0 && cy < g.by && cz >= 0 &&
+         cz < g.bz;
+}
+
+// o, d: (n, 3); t_max: (n,).  Entry state either from (cell_in (n, 3),
+// active_in (n,)) or, when cell_in is null, from _fused_init with t_min.
+// l2 (l2_words words) is null for the single-level walk.  Writes
+// hits_out (k_hits, n), cell_out (n, 3) and cont_out (n,).
+__global__ void grid_walk_kernel(
+    const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ t_min, const float* __restrict__ t_max,
+    const int* __restrict__ cell_in, const int* __restrict__ active_in,
+    const uint32_t* __restrict__ coarse, const uint32_t* __restrict__ l2,
+    int l2_words, int n, WalkGrid g, int k_hits, int* __restrict__ hits_out,
+    int* __restrict__ cell_out, int* __restrict__ cont_out) {
+  extern __shared__ uint32_t s_l2[];
+  if (l2 != nullptr) {
+    for (int w = threadIdx.x; w < l2_words; w += blockDim.x) s_l2[w] = l2[w];
+    __syncthreads();
+  }
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float inf = __int_as_float(0x7f800000);
+  const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
+  const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
+  const float tmax = t_max[i];
+  const float inv_x = 1.0f / dx, inv_y = 1.0f / dy, inv_z = 1.0f / dz;
+  const int sx = dx >= 0.0f ? 1 : -1;
+  const int sy = dy >= 0.0f ? 1 : -1;
+  const int sz = dz >= 0.0f ? 1 : -1;
+  const int fx = sx > 0, fy = sy > 0, fz = sz > 0;
+
+  int cx, cy, cz;
+  bool active;
+  if (cell_in == nullptr) {
+    // _fused_init: bbox clip, t_min fast-forward, entry brick
+    const float gmx = g.ogx + static_cast<float>(g.bx) * g.bw;
+    const float gmy = g.ogy + static_cast<float>(g.by) * g.bw;
+    const float gmz = g.ogz + static_cast<float>(g.bz) * g.bw;
+    const float tbx = inv_x * (g.ogx - ox), tby = inv_y * (g.ogy - oy),
+                tbz = inv_z * (g.ogz - oz);
+    const float ttx = inv_x * (gmx - ox), tty = inv_y * (gmy - oy),
+                ttz = inv_z * (gmz - oz);
+    const float t_enter = jmax(jmax(jmin(tbx, ttx), jmin(tby, tty)),
+                               jmin(tbz, ttz));
+    const float t_exit = jmin(jmin(jmax(tbx, ttx), jmax(tby, tty)),
+                              jmax(tbz, ttz));
+    const float lo = jmax(jmax(t_enter, 0.0f), t_min[i]);
+    const float t_start = lo + 1e-7f;
+    active = (t_exit > jmax(t_enter, 0.0f)) && (t_start <= tmax) &&
+             (t_start <= t_exit + 1e-7f);
+    cx = clampi(floor_cell((ox + dx * t_start - g.ogx) / g.bw), 0, g.bx - 1);
+    cy = clampi(floor_cell((oy + dy * t_start - g.ogy) / g.bw), 0, g.by - 1);
+    cz = clampi(floor_cell((oz + dz * t_start - g.ogz) / g.bw), 0, g.bz - 1);
+  } else {
+    cx = cell_in[3 * i];
+    cy = cell_in[3 * i + 1];
+    cz = cell_in[3 * i + 2];
+    active = active_in[i] != 0;
+  }
+  for (int s = 0; s < k_hits; ++s) hits_out[s * n + i] = -1;
+
+  int nhit = 0;
+  const int max_steps = g.bx + g.by + g.bz + 3;
+  for (int step = 0; step < max_steps && active; ++step) {
+    if (l2 != nullptr) {
+      const int scx = cx >> 3, scy = cy >> 3, scz = cz >> 3;
+      if (!bit_at(s_l2, scx + g.sbx * (scy + g.sby * scz))) {
+        // empty superbrick: land on the last brick the ray touches in it
+        float tsx = (g.ogx + static_cast<float>((scx + fx) * 8) * g.bw - ox) *
+                    inv_x;
+        float tsy = (g.ogy + static_cast<float>((scy + fy) * 8) * g.bw - oy) *
+                    inv_y;
+        float tsz = (g.ogz + static_cast<float>((scz + fz) * 8) * g.bw - oz) *
+                    inv_z;
+        if (dx == 0.0f) tsx = inf;
+        if (dy == 0.0f) tsy = inf;
+        if (dz == 0.0f) tsz = inf;
+        const float t_ex = jmin(tsx, jmin(tsy, tsz));
+        const int lx = clampi(floor_cell((ox + dx * t_ex - g.ogx) / g.bw) - sx,
+                              scx * 8, scx * 8 + 7);
+        const int ly = clampi(floor_cell((oy + dy * t_ex - g.ogy) / g.bw) - sy,
+                              scy * 8, scy * 8 + 7);
+        const int lz = clampi(floor_cell((oz + dz * t_ex - g.ogz) / g.bw) - sz,
+                              scz * 8, scz * 8 + 7);
+        cx = sx > 0 ? max(lx, cx) : min(lx, cx);
+        cy = sy > 0 ? max(ly, cy) : min(ly, cy);
+        cz = sz > 0 ? max(lz, cz) : min(lz, cz);
+      }
+    }
+    // a landing in a superbrick that sticks out of the grid can lie
+    // outside it; such a cell is empty (its lin would alias another row)
+    const int lin = cx + g.bx * (cy + g.by * cz);
+    const bool occ = in_grid(g, cx, cy, cz) &&
+                     ((__ldg(coarse + (lin >> 5)) >> (lin & 31)) & 1u);
+    if (occ) hits_out[(nhit++) * n + i] = lin;
+    // one exact brick step; the lane that filled its last slot steps too,
+    // so its cell is the resume position
+    float tx = (g.ogx + static_cast<float>(cx + fx) * g.bw - ox) * inv_x;
+    float ty = (g.ogy + static_cast<float>(cy + fy) * g.bw - oy) * inv_y;
+    float tz = (g.ogz + static_cast<float>(cz + fz) * g.bw - oz) * inv_z;
+    if (dx == 0.0f) tx = inf;
+    if (dy == 0.0f) ty = inf;
+    if (dz == 0.0f) tz = inf;
+    const float tmn = jmin(tx, jmin(ty, tz));
+    if (tx == tmn)
+      cx += sx;
+    else if (ty == tmn)
+      cy += sy;
+    else
+      cz += sz;
+    active = nhit < k_hits && in_grid(g, cx, cy, cz) && tmn <= tmax;
+  }
+  cell_out[3 * i] = cx;
+  cell_out[3 * i + 1] = cy;
+  cell_out[3 * i + 2] = cz;
+  cont_out[i] = in_grid(g, cx, cy, cz) && (active || nhit >= k_hits);
+}
+
+}  // namespace
+
+extern "C" int grid_walk_launch(
+    const void* o, const void* d, const void* t_min, const void* t_max,
+    const void* cell_in, const void* active_in, const void* coarse,
+    const void* l2, int l2_words, int n, int bx, int by, int bz, float ogx,
+    float ogy, float ogz, float bw, int k_hits, void* hits_out,
+    void* cell_out, void* cont_out, void* stream) {
+  if (n <= 0) return 0;
+  WalkGrid g;
+  g.bx = bx; g.by = by; g.bz = bz;
+  g.sbx = (bx + 7) / 8;
+  g.sby = (by + 7) / 8;
+  g.ogx = ogx; g.ogy = ogy; g.ogz = ogz; g.bw = bw;
+  const int threads = 128;
+  const int blocks = (n + threads - 1) / threads;
+  const size_t smem = l2 != nullptr ? sizeof(uint32_t) * l2_words : 0;
+  grid_walk_kernel<<<blocks, threads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(o), static_cast<const float*>(d),
+      static_cast<const float*>(t_min), static_cast<const float*>(t_max),
+      static_cast<const int*>(cell_in), static_cast<const int*>(active_in),
+      static_cast<const uint32_t*>(coarse), static_cast<const uint32_t*>(l2),
+      l2_words, n, g, k_hits, static_cast<int*>(hits_out),
+      static_cast<int*>(cell_out), static_cast<int*>(cont_out));
+  return static_cast<int>(cudaGetLastError());
+}

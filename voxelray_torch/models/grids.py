@@ -82,8 +82,9 @@ class GridBool:
                    set_calls=int(set_calls))
 
     @classmethod
-    def from_mesh(cls, vertices, faces, voxel_size, *, device="cpu", **kw):
-        """Voxelize a numpy mesh on `device` (the K1 kernel on CUDA)."""
+    def from_mesh(cls, vertices, faces, voxel_size, *, device=None, **kw):
+        """Voxelize a numpy mesh on `device`: by default the CUDA card
+        (the K1 kernel); device="cpu" runs the plain version."""
         r = voxelize_mesh(vertices, faces, voxel_size, device=device, **kw)
         return cls.from_occupancy(r["occ"], r["origin"], r["voxel_size"],
                                   r["set_calls"])
@@ -110,7 +111,8 @@ class GridBool:
 
 
 def build_grid(encoding: str, vertices, faces, voxel_size, **kw):
-    """Encoding-dispatch constructor; only 'bool' is ported so far."""
+    """Encoding-dispatch constructor; only 'bool' is ported so far.
+    Runs on the CUDA card unless `device=` says otherwise."""
     if encoding == "bool":
         return GridBool.from_mesh(vertices, faces, voxel_size, **kw)
     if encoding in ("aabbstruct", "vec"):

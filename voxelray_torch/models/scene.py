@@ -1,18 +1,30 @@
-"""Scene assembly for the voxel-only path: occupancy, accel, light.
+"""Scene assembly: triangle models + voxel geometry + lights, on one device.
 
-Counterpart of voxelray_tpu/models/scene.py with models=None: the scene
-holds the dense occupancy grid the DDA consumes, the BrickAccel the
-megakernel consumes (the reference's "procedural BLAS",
-hello_vulkan.cpp:699-715) and the default voxel material, all on one
-device.  Light defaults match the app's startup values (lightPosition
-(10,55,8), intensity 1000, point light, hello_vulkan.h:84-91).
+Counterpart of voxelray_tpu/models/scene.py.  The reference's engine keeps
+per-model device buffers, a TLAS with one instance per OBJ model and one
+procedural AABB instance (hello_vulkan.cpp:737-793), and push-constant
+light state (hello_vulkan.h:84-91).  Here the scene is a flat set of
+tensors:
 
-Triangle models, textures, the triangle accel and the octree come with
-later slices and raise NotImplementedError here.  The per-voxel AABB
-list is not built: nothing on this path reads it.
+  * all mesh triangles concatenated (instance transforms pre-applied),
+    with per-triangle material ids resolved into one global material
+    table, per-triangle texture layers, a mip-atlas texture stack with
+    its per-level placements, and the triangle accel (the "triangle
+    BLAS", ops/tri_accel.py) once a mesh passes 256 triangles;
+  * voxel geometry as the dense occupancy grid and its BrickAccel (the
+    "procedural BLAS", hello_vulkan.cpp:699-715);
+  * light defaults matching the app's startup values (lightPosition
+    (10,55,8), intensity 1000, point light, hello_vulkan.h:84-91).
+
+Mesh materials are converted sRGB -> linear on load (pow 2.2,
+hello_vulkan.cpp:204-208); the voxel default material is uploaded raw.
+Every array is built with the JAX package's numpy expressions, so the
+tensors are bit-equal to its Scene's.  The explicit AABB list and the
+octree come with later slices and raise NotImplementedError.
 """
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from typing import Any
 
@@ -20,7 +32,10 @@ import numpy as np
 import torch
 
 from ..io.objload import Material
+from ..io.textures import build_mip_chain, load_texture
 from ..ops.traverse_fast import build_accel
+from ..ops.tri_accel import build_tri_accel
+from ..utils.device import resolve_device
 
 __all__ = ["Scene", "Light", "build_scene"]
 
@@ -34,14 +49,37 @@ class Light:
     type: int = 0  # 0 = point, 1 = directional
 
 
+def _srgb_to_linear_rows(mat_rows: np.ndarray) -> np.ndarray:
+    """ambient/diffuse/specular **= 2.2 (hello_vulkan.cpp:204-208)."""
+    out = mat_rows.copy()
+    out[:, 0:9] = np.power(out[:, 0:9], np.float32(2.2))
+    return out
+
+
 @dataclass(frozen=True)
 class Scene:
-    """Device-resident voxel scene."""
+    """Device-resident scene.  Triangle streams are globally concatenated."""
 
+    tri_v0: Any                     # float32[F, 3] world-space corners
+    tri_v1: Any
+    tri_v2: Any
+    tri_n0: Any                     # per-corner normals
+    tri_n1: Any
+    tri_n2: Any
+    tri_uv0: Any                    # float32[F, 2]
+    tri_uv1: Any
+    tri_uv2: Any
+    tri_mat: Any                    # int32[F] -> rows of materials
+    tri_tex: Any                    # int32[F] -> texture layer or -1
+    tri_lod: Any                    # float32[F] texel-density log2 term
+    materials: Any                  # float32[M, 20] packed rows
+    textures: Any                   # float32[T, TH, TWA, 3] mip atlases
+    tex_meta: Any                   # int32[T, LMAX, 4] (y0, x0, h, w)
     voxel_material: Any             # float32[20] (default MaterialObj)
     occ_flat: Any                   # uint8[X*Y*Z] dense occupancy
     grid_origin: Any                # float32[3]
     accel: Any                      # BrickAccel or None
+    tri_accel: Any                  # ops.tri_accel.TriAccel or None
     grid_dims: tuple
     grid_voxel_size: float
 
@@ -49,18 +87,152 @@ class Scene:
     def device(self):
         return self.occ_flat.device
 
+    @property
+    def n_triangles(self):
+        return int(self.tri_v0.shape[0])
+
+
+def _triangle_streams(models, transforms):
+    """The models' per-triangle arrays, materials and texture files, with
+    the JAX package's numpy expressions (scene.py:118-180)."""
+    v0s, v1s, v2s, n0s, n1s, n2s = [], [], [], [], [], []
+    uv0s, uv1s, uv2s = [], [], []
+    mats_rows, mat_ids, tex_ids = [], [], []
+    textures: list[np.ndarray] = []
+    mat_offset = 0
+    for model, xf in zip(models, transforms):
+        verts = np.asarray(model.vertices, np.float32)
+        pos = verts[:, 0:3]
+        nrm = verts[:, 3:6]
+        uv = verts[:, 9:11]
+        if xf is not None:
+            m = np.asarray(xf, np.float32)
+            pos = pos @ m[:3, :3].T + m[:3, 3]
+            n_mat = np.linalg.inv(m[:3, :3]).T
+            nrm = nrm @ n_mat.T
+        idx = np.asarray(model.indices).reshape(-1, 3)
+        v0s.append(pos[idx[:, 0]])
+        v1s.append(pos[idx[:, 1]])
+        v2s.append(pos[idx[:, 2]])
+        n0s.append(nrm[idx[:, 0]])
+        n1s.append(nrm[idx[:, 1]])
+        n2s.append(nrm[idx[:, 2]])
+        uv0s.append(uv[idx[:, 0]])
+        uv1s.append(uv[idx[:, 1]])
+        uv2s.append(uv[idx[:, 2]])
+        rows = _srgb_to_linear_rows(np.asarray(model.materials, np.float32))
+        mats_rows.append(rows)
+        mat_ids.append(np.asarray(model.mat_index, np.int32) + mat_offset)
+        # texture id per triangle resolved through its material; the
+        # model's texture files load now (magenta on failure,
+        # hello_vulkan.cpp:323-331)
+        tex_of_mat = rows[:, 19].astype(np.int32)
+        tex_base = len(textures)
+        for name in model.textures:
+            textures.append(load_texture(name))
+        per_tri_tex = tex_of_mat[np.asarray(model.mat_index, np.int32)]
+        tex_ids.append(np.where(per_tri_tex >= 0, per_tri_tex + tex_base, -1))
+        mat_offset += len(rows)
+    if models:
+        cat = np.concatenate
+        streams = dict(
+            tri_v0=cat(v0s), tri_v1=cat(v1s), tri_v2=cat(v2s),
+            tri_n0=cat(n0s), tri_n1=cat(n1s), tri_n2=cat(n2s),
+            tri_uv0=cat(uv0s), tri_uv1=cat(uv1s), tri_uv2=cat(uv2s),
+            tri_mat=cat(mat_ids), tri_tex=cat(tex_ids))
+        materials = cat(mats_rows)
+    else:
+        z3, z2 = np.zeros((0, 3), np.float32), np.zeros((0, 2), np.float32)
+        streams = dict(tri_v0=z3, tri_v1=z3, tri_v2=z3, tri_n0=z3,
+                       tri_n1=z3, tri_n2=z3, tri_uv0=z2, tri_uv1=z2,
+                       tri_uv2=z2, tri_mat=np.zeros((0,), np.int32),
+                       tri_tex=np.zeros((0,), np.int32))
+        materials = Material().as_row()[None]
+    return streams, materials, textures
+
+
+def _texture_atlas(textures):
+    """Mip atlases: level 0 top-left, levels >= 1 stacked down the column
+    to its right; tex_meta[t, level] = (y0, x0, h, w), levels past a
+    texture's chain clamped to its last (scene.py:182-212).  A 1x1 white
+    dummy when there is no texture (hello_vulkan.cpp:297-312)."""
+    if not textures:
+        textures = [np.ones((1, 1, 3), np.float32)]
+    chains = [build_mip_chain(t) for t in textures]
+    lmax = max(len(c) for c in chains)
+    th = max(max(c[0].shape[0], sum(lv.shape[0] for lv in c[1:]))
+             for c in chains)
+    tw = max(c[0].shape[1] + (c[1].shape[1] if len(c) > 1 else 0)
+             for c in chains)
+    tex_stack = np.zeros((len(chains), th, tw, 3), np.float32)
+    tex_meta = np.zeros((len(chains), lmax, 4), np.int32)
+    for i, chain in enumerate(chains):
+        h0, w0 = chain[0].shape[:2]
+        tex_stack[i, :h0, :w0] = chain[0]
+        tex_meta[i, 0] = (0, 0, h0, w0)
+        ycur = 0
+        for lv, img in enumerate(chain[1:], start=1):
+            hl, wl = img.shape[:2]
+            tex_stack[i, ycur: ycur + hl, w0: w0 + wl] = img
+            tex_meta[i, lv] = (ycur, w0, hl, wl)
+            ycur += hl
+        for lv in range(len(chain), lmax):
+            tex_meta[i, lv] = tex_meta[i, len(chain) - 1]
+    return tex_stack, tex_meta, len(chains)
+
+
+def _tri_lod(streams, tex_meta, n_layers):
+    """0.5 * log2(texels covered / world area) per triangle, the footprint
+    mip-selection constant (scene.py:214-235)."""
+    v0, v1, v2 = streams["tri_v0"], streams["tri_v1"], streams["tri_v2"]
+    if not len(v0):
+        return np.zeros((0,), np.float32)
+    uv_e1 = streams["tri_uv1"] - streams["tri_uv0"]
+    uv_e2 = streams["tri_uv2"] - streams["tri_uv0"]
+    uv_area = 0.5 * np.abs(uv_e1[:, 0] * uv_e2[:, 1]
+                           - uv_e1[:, 1] * uv_e2[:, 0])
+    w_area = 0.5 * np.linalg.norm(np.cross(v1 - v0, v2 - v0), axis=-1)
+    tri_tex = streams["tri_tex"]
+    layer = np.clip(tri_tex, 0, n_layers - 1)
+    texels = (tex_meta[layer, 0, 2].astype(np.float64)
+              * tex_meta[layer, 0, 3])
+    dens = uv_area * texels / np.maximum(w_area, 1e-20)
+    return np.where(tri_tex >= 0, 0.5 * np.log2(np.maximum(dens, 1e-20)),
+                    0.0).astype(np.float32)
+
+
+def _build_tri_accel(v0, v1, v2, device):
+    """The triangle BLAS with build_scene's sizing and overflow rule."""
+    # resolution scales with triangle count (~4 tris per nonempty cell
+    # on surface meshes), 16 to 256 cells on the longest axis
+    res = int(np.clip(round(float(len(v0)) ** (1 / 2.2)), 16, 256))
+    ta = build_tri_accel(v0, v1, v2, res=res, device=device)
+    if ta.overflow_cells:
+        # a truncated row would skip triangles: retry with the true
+        # widest cell, else fall back to the exact brute trace
+        ta = build_tri_accel(v0, v1, v2, res=res, max_l_width=4096,
+                             device=device)
+        if ta.overflow_cells:
+            logging.getLogger(__name__).warning(
+                "tri accel: %d cells overflow even at l_width 4096; using "
+                "exact brute triangle traversal", ta.overflow_cells)
+            return None
+    return ta
+
 
 def build_scene(models=None, grid=None, aabbs=None,
                 voxel_material: Material | None = None, transforms=None,
-                octree=None, tri_accel=None, device=None) -> Scene:
-    """Assemble a voxel-only Scene on `device` (default: the grid's).
+                octree=None, tri_accel="auto", device=None) -> Scene:
+    """Assemble a Scene on `device` (default: the CUDA card).
 
-    grid: a GridBool or a voxelize_mesh result dict.
+    models: list of LoadedModel (io/objload.py render streams).
+    grid: a GridBool or a voxelize_mesh result dict (voxel geometry).
+    transforms: optional per-model 4x4 matrices, pre-applied to vertices
+        and inverse-transposed to normals.
+    tri_accel: "auto" builds the triangle accel once the meshes pass 256
+        triangles (below that the brute trace is cheaper), True forces
+        it, False/None keeps the brute trace.
     """
-    if models:
-        raise NotImplementedError(
-            "triangle models (and their textures and triangle accel) are "
-            "not ported yet: they come with the triangle-path slice")
     if octree is not None:
         raise NotImplementedError(
             "the octree is not ported yet: it comes with the octree slice")
@@ -68,9 +240,15 @@ def build_scene(models=None, grid=None, aabbs=None,
         raise NotImplementedError(
             "explicit AABB lists are not ported yet: they come with the "
             "AABB extraction slice")
-    del transforms, tri_accel  # meaningful only with triangle models
+    dev = resolve_device(device)
+    models = models or []
+    transforms = transforms or [None] * len(models)
+    streams, materials, textures = _triangle_streams(models, transforms)
+    tex_stack, tex_meta, n_layers = _texture_atlas(textures)
+    tri_lod = _tri_lod(streams, tex_meta, n_layers)
+
     if grid is None:
-        occ = torch.zeros((0, 0, 0), dtype=torch.uint8, device=device)
+        occ = torch.zeros((0, 0, 0), dtype=torch.uint8, device=dev)
         g_dims, g_org, g_vs = (0, 0, 0), np.zeros(3, np.float32), 1.0
     elif isinstance(grid, dict):
         occ = grid["occ"]
@@ -78,15 +256,26 @@ def build_scene(models=None, grid=None, aabbs=None,
     else:
         occ = grid.occupancy()
         g_dims, g_org, g_vs = grid.dims, grid.origin, grid.voxel_size
-    device = device if device is not None else occ.device
-    occ = occ.to(device=device, dtype=torch.uint8)
+    occ = torch.as_tensor(occ).to(device=dev, dtype=torch.uint8)
     g_org = np.asarray(g_org, np.float32)
-    vox_mat = (voxel_material or Material()).as_row()
     accel = build_accel(occ, g_org, float(g_vs)) if occ.numel() else None
+
+    n_tri = len(streams["tri_v0"])
+    ta = None
+    if n_tri and (tri_accel is True
+                  or (tri_accel == "auto" and n_tri >= 256)):
+        ta = _build_tri_accel(streams["tri_v0"], streams["tri_v1"],
+                              streams["tri_v2"], dev)
+
+    def as_t(x):
+        return torch.as_tensor(np.ascontiguousarray(x), device=dev)
+
     return Scene(
-        voxel_material=torch.as_tensor(vox_mat, device=device),
-        occ_flat=occ.reshape(-1),
-        grid_origin=torch.as_tensor(g_org.copy(), device=device),
-        accel=accel,
+        **{k: as_t(v) for k, v in streams.items()},
+        tri_lod=as_t(tri_lod), materials=as_t(materials),
+        textures=as_t(tex_stack), tex_meta=as_t(tex_meta),
+        voxel_material=as_t((voxel_material or Material()).as_row()),
+        occ_flat=occ.reshape(-1), grid_origin=as_t(g_org),
+        accel=accel, tri_accel=ta,
         grid_dims=tuple(int(x) for x in g_dims),
         grid_voxel_size=float(g_vs))

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 __all__ = ["mesh_bbox", "grid_dims", "map3d_to_1d", "map1d_to_3d",
-           "voxel_center", "div_scalar"]
+           "voxel_center", "div_scalar", "floor_cell"]
 
 
 def div_scalar(x, s):
@@ -29,6 +29,18 @@ def div_scalar(x, s):
     divisor tensor on x's device takes the true-division path.
     """
     return x / torch.tensor(s, dtype=x.dtype, device=x.device)
+
+
+def floor_cell(x):
+    """floor(x) as int32 cell indices, NaN -> 0, clamped to +-2^30.
+
+    The walks floor float positions into cell indices and clamp them;
+    C's float-to-int conversion of NaN or of an out-of-range value is
+    undefined and differs between the CPU and the card, so the kernels
+    and their plain versions both convert through this rule.
+    """
+    f = torch.clamp(torch.floor(x), -2.0 ** 30, 2.0 ** 30)
+    return torch.nan_to_num(f, nan=0.0).to(torch.int32)
 
 
 def mesh_bbox(vertices) -> tuple[np.ndarray, np.ndarray]:

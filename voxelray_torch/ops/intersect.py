@@ -1,10 +1,12 @@
-"""Ray primitives: camera ray generation and the slab test.
+"""Ray primitives: camera ray generation, the slab test, triangles.
 
   make_camera_rays — the raygen reconstruction from inverse matrices
                      (raytrace.rgen:41-47)
   hit_aabb         — branchless slab test, hit iff t1 > max(t0, 0),
                      reporting t0 (raytrace.rint:46-56); the renderer
                      additionally requires tMin <= t0 <= tMax
+  hit_triangles    — Moller-Trumbore with barycentrics, the software
+                     equivalent of Vulkan's triangle intersector
 
 Counterpart of voxelray_tpu/ops/intersect.py.  The matrix-vector products
 of make_camera_rays are written out as explicit left-to-right sums, so
@@ -18,7 +20,8 @@ import torch
 
 from .geometry import div_scalar
 
-__all__ = ["make_camera_rays", "hit_aabb", "TMIN", "TMAX"]
+__all__ = ["make_camera_rays", "hit_aabb", "hit_triangles", "TMIN",
+           "TMAX"]
 
 TMIN = np.float32(0.001)    # raytrace.rgen:50
 TMAX = np.float32(10000.0)  # raytrace.rgen:51
@@ -76,3 +79,46 @@ def hit_aabb(aabb_min, aabb_max, origin, direction):
                        torch.minimum(tmax[..., 1], tmax[..., 2]))
     return torch.where(t1 > torch.clamp(t0, min=0.0), t0,
                        torch.full_like(t0, -1.0))
+
+
+def _cross(a, b):
+    """Components of a x b, each a list of three tensors (jnp.cross's
+    expression per component)."""
+    return [a[1] * b[2] - a[2] * b[1], a[2] * b[0] - a[0] * b[2],
+            a[0] * b[1] - a[1] * b[0]]
+
+
+def _dot(a, b):
+    return (a[0] * b[0] + a[1] * b[1]) + a[2] * b[2]
+
+
+def hit_triangles(origin, direction, v0, v1, v2, t_min=TMIN, t_max=TMAX):
+    """Moller-Trumbore; returns (t, u, v) with t = inf on miss.
+
+    origin/direction: (..., 3); v0/v1/v2: (..., 3) broadcastable; t_min
+    and t_max scalars or tensors broadcastable to the batch.  Backface
+    culling off (the reference builds its BLAS without culling flags);
+    degenerate triangles miss.  The expressions of voxelray_tpu's
+    hit_triangles, with three-term sums taken left to right.
+    """
+    o, d = origin.unbind(-1), direction.unbind(-1)
+    a, b, c = v0.unbind(-1), v1.unbind(-1), v2.unbind(-1)
+    e1 = [b[i] - a[i] for i in range(3)]
+    e2 = [c[i] - a[i] for i in range(3)]
+    p = _cross(d, e2)
+    det = _dot(e1, p)
+    ok = torch.abs(det) > 1e-8
+    inv_det = torch.where(ok, 1.0 / torch.where(ok, det, torch.ones_like(det)),
+                          torch.zeros_like(det))
+    s = [o[i] - a[i] for i in range(3)]
+    u = _dot(s, p) * inv_det
+    q = _cross(s, e1)
+    v = _dot(d, q) * inv_det
+    t = _dot(e2, q) * inv_det
+    if not torch.is_tensor(t_min):
+        t_min = float(np.float32(t_min))
+    if not torch.is_tensor(t_max):
+        t_max = float(np.float32(t_max))
+    hit = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > t_min) \
+        & (t < t_max)
+    return torch.where(hit, t, torch.full_like(t, float("inf"))), u, v

@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) at first use.
 
-One shared library with a plain C interface, compiled by nvcc and bound
-with ctypes (no PyTorch headers, so a build takes seconds):
+One shared library with a plain C interface, bound with ctypes (no
+PyTorch headers, so a build takes seconds).  Every source compiles in
+its own nvcc process, all started together, then one nvcc links them:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-         -Xptxas=-v -shared -Xcompiler -fPIC -o libvoxelray_kernels.so csrc/*.cu
+         -Xptxas=-v -Xcompiler -fPIC -c -o <name>.o csrc/<name>.cu  (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o
+         libvoxelray_kernels.so *.o
 
 --fmad=false keeps every `a*b+c` as a separate multiply and add, so the
 kernels evaluate the same float32 expressions as their plain PyTorch
@@ -27,7 +30,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "nvcc_command", "find_nvcc", "load_library",
+__all__ = ["NVCC_FLAGS", "nvcc_commands", "find_nvcc", "load_library",
            "build_log"]
 
 PKG_DIR = Path(__file__).resolve().parents[2]
@@ -35,8 +38,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 LIB_NAME = "libvoxelray_kernels.so"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xptxas=-v",
               "-Xcompiler", "-fPIC")
 
 
@@ -44,9 +47,15 @@ def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def nvcc_command(nvcc: str, out: str | os.PathLike) -> list[str]:
-    """The exact nvcc command line that builds the library into `out`."""
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, sources())]
+def nvcc_commands(nvcc: str, out: str | os.PathLike):
+    """(compile commands, one per source, and the link command) that build
+    the library into `out`; objects go beside it."""
+    out = Path(out)
+    objs = [out.parent / (src.stem + ".o") for src in sources()]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources(), objs)]
+    link = [nvcc, *ARCH, "-shared", "-o", str(out), *map(str, objs)]
+    return compiles, link
 
 
 def find_nvcc() -> str:
@@ -87,11 +96,19 @@ def load_library() -> ctypes.CDLL:
         out_dir.mkdir(parents=True, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
             tmp_lib = Path(tmp) / LIB_NAME
-            proc = subprocess.run(nvcc_command(nvcc, tmp_lib),
-                                  capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed (rc={proc.returncode}):\n"
+            compiles, link = nvcc_commands(nvcc, tmp_lib)
+            procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for cmd in compiles]
+            logs = [proc.communicate()[0] for proc in procs]
+            log = "".join(logs)
+            bad = [p.returncode for p in procs if p.returncode != 0]
+            if not bad:
+                proc = subprocess.run(link, capture_output=True, text=True)
+                log += proc.stdout + proc.stderr
+                bad = [proc.returncode] if proc.returncode != 0 else []
+            if bad:
+                raise RuntimeError(f"nvcc failed (rc={bad[0]}):\n"
                                    f"{log[-8000:]}")
             (Path(tmp) / "nvcc.log").write_text(log)
             os.replace(Path(tmp) / "nvcc.log", out_dir / "nvcc.log")

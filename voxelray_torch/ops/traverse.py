@@ -1,7 +1,9 @@
-"""Exhaustive grid traversal: the Amanatides-Woo DDA over a dense grid.
+"""Exhaustive traversal: the Amanatides-Woo DDA over a dense grid, and
+the brute-force triangle trace.
 
 Counterpart of trace_grid_dda / any_hit_grid_dda /
-trace_grid_dda_chunked in voxelray_tpu/ops/traverse.py.  Hit semantics
+trace_grid_dda_chunked and trace_triangles_brute /
+any_hit_triangles_brute in voxelray_tpu/ops/traverse.py.  Hit semantics
 (the VK_KHR_ray_tracing report/accept rules the reference's shaders rely
 on): a voxel is hit at the slab t0 iff
 
@@ -28,9 +30,10 @@ import numpy as np
 import torch
 
 from .geometry import div_scalar
-from .intersect import TMAX, TMIN, hit_aabb
+from .intersect import TMAX, TMIN, hit_aabb, hit_triangles
 
-__all__ = ["trace_grid_dda", "any_hit_grid_dda", "trace_grid_dda_chunked"]
+__all__ = ["trace_grid_dda", "any_hit_grid_dda", "trace_grid_dda_chunked",
+           "trace_triangles_brute", "any_hit_triangles_brute"]
 
 
 def _per_ray(x, n, device):
@@ -190,3 +193,48 @@ def trace_grid_dda_chunked(origins, dirs, occ_flat, grid_origin, *, dims,
         return (torch.full(batch, float("inf"), device=o.device),
                 torch.full(batch, -1, dtype=torch.int32, device=o.device))
     return torch.cat(ts).reshape(batch), torch.cat(lins).reshape(batch)
+
+
+def trace_triangles_brute(origins, dirs, v0, v1, v2, t_min=TMIN, t_max=TMAX):
+    """Nearest triangle hit by testing every triangle (the Vulkan
+    triangle BLAS, in software).
+
+    origins/dirs: (..., 3); v0/v1/v2: (F, 3) triangle corners on the same
+    device; t_min/t_max scalars or per-ray.  Returns (t, prim_id, u, v),
+    t = +inf / prim_id = -1 on a miss.  Ties go to the lowest triangle
+    index.  Triangles are taken in chunks of about 2^24 ray-triangle
+    pairs.
+    """
+    batch = origins.shape[:-1]
+    dev = origins.device
+    o = origins.reshape(-1, 3).to(torch.float32)
+    d = dirs.reshape(-1, 3).to(torch.float32)
+    n, f = o.shape[0], v0.shape[0]
+    best_t = torch.full((n,), float("inf"), device=dev)
+    best_id = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    best_u = torch.zeros((n,), device=dev)
+    best_v = torch.zeros((n,), device=dev)
+    tmn = _per_ray(t_min, n, dev)[:, None]
+    tmx = _per_ray(t_max, n, dev)[:, None]
+    chunk = max(256, (1 << 24) // max(n, 1))
+    for c0 in range(0, f, chunk):
+        c1 = min(c0 + chunk, f)
+        t, u, v = hit_triangles(o[:, None, :], d[:, None, :], v0[c0:c1],
+                                v1[c0:c1], v2[c0:c1], t_min=tmn, t_max=tmx)
+        arg = torch.argmin(t, dim=1, keepdim=True)
+        tb = t.gather(1, arg)[:, 0]
+        better = tb < best_t
+        best_id = torch.where(better, arg[:, 0].to(torch.int32) + c0, best_id)
+        best_t = torch.where(better, tb, best_t)
+        best_u = torch.where(better, u.gather(1, arg)[:, 0], best_u)
+        best_v = torch.where(better, v.gather(1, arg)[:, 0], best_v)
+    return (best_t.reshape(batch), best_id.reshape(batch),
+            best_u.reshape(batch), best_v.reshape(batch))
+
+
+def any_hit_triangles_brute(origins, dirs, v0, v1, v2, t_min=TMIN,
+                            t_max=TMAX):
+    """Shadow predicate over every triangle; t_max may be per ray."""
+    t, _, _, _ = trace_triangles_brute(origins, dirs, v0, v1, v2,
+                                       t_min=t_min, t_max=t_max)
+    return torch.isfinite(t)

@@ -22,10 +22,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from .geometry import div_scalar, grid_dims, mesh_bbox
 from .sat import tri_box_overlap
 
-__all__ = ["window_bounds", "voxelize_plain", "voxelize_mesh"]
+__all__ = ["window_bounds", "voxelize_plain", "tri_cell_pairs",
+           "voxelize_mesh"]
 
 
 def window_bounds(tri_min, tri_max, origin, voxel_size, dims):
@@ -46,22 +48,20 @@ def window_bounds(tri_min, tri_max, origin, voxel_size, dims):
     return start, end
 
 
-def voxelize_plain(v, f, origin, voxel_size, dims):
-    """Plain PyTorch voxelizer: (occ (Z,Y,X) uint8, set_calls int).
+def _window_hits(tri, origin, voxel_size, dims):
+    """SAT hits over every triangle's clamped window, chunk by chunk.
 
-    v: (V, 3) float32, f: (F, 3) int32/int64, on one device; origin the
-    float32 grid min corner, dims (X, Y, Z).  A triangle with a
-    non-finite vertex gets an empty window.
+    tri: (F, 3, 3) float32.  Yields (t, lin, hit) per chunk of window
+    slots: the owning triangle, the cell's linear index (int64) and the
+    SAT result.  A triangle with a non-finite vertex gets an empty window.
     """
     nx, ny, nz = dims
-    dev = v.device
-    occ = torch.zeros(nz * ny * nx, dtype=torch.uint8, device=dev)
-    if f.shape[0] == 0 or nx * ny * nz == 0:
-        return occ.reshape(nz, ny, nx), 0
+    dev = tri.device
+    if tri.shape[0] == 0 or nx * ny * nz == 0:
+        return
     vs = float(np.float32(voxel_size))
     half = float(np.float32(voxel_size * 0.5))
     org = torch.as_tensor(np.asarray(origin, np.float32), device=dev)
-    tri = v[f.long()]                                   # (F, 3, 3)
     v0, v1, v2 = tri[:, 0], tri[:, 1], tri[:, 2]
     tmin = torch.minimum(v0, torch.minimum(v1, v2))
     tmax = torch.maximum(v0, torch.maximum(v1, v2))
@@ -76,7 +76,6 @@ def voxelize_plain(v, f, origin, voxel_size, dims):
     total = int(cum[-1])
     first = cum - cap                                   # first slot of each
     budget = (1 << 22) if dev.type == "cuda" else (1 << 16)
-    calls = torch.zeros((), dtype=torch.int64, device=dev)
     for s0 in range(0, total, budget):
         slot = torch.arange(s0, min(s0 + budget, total), device=dev)
         t = torch.searchsorted(cum, slot, right=True)   # owning triangle
@@ -95,20 +94,58 @@ def voxelize_plain(v, f, origin, voxel_size, dims):
         ], dim=-1)
         hit = tri_box_overlap(centers, half, v0[t], v1[t], v2[t])
         lin = cx.long() + nx * (cy.long() + ny * cz.long())
+        yield t, lin, hit
+
+
+def voxelize_plain(v, f, origin, voxel_size, dims):
+    """Plain PyTorch voxelizer: (occ (Z,Y,X) uint8, set_calls int).
+
+    v: (V, 3) float32, f: (F, 3) int32/int64, on one device; origin the
+    float32 grid min corner, dims (X, Y, Z).  A triangle with a
+    non-finite vertex gets an empty window.
+    """
+    nx, ny, nz = dims
+    occ = torch.zeros(nz * ny * nx, dtype=torch.uint8, device=v.device)
+    calls = torch.zeros((), dtype=torch.int64, device=v.device)
+    for _, lin, hit in _window_hits(v[f.long()], origin, voxel_size, dims):
         occ[lin[hit]] = 1
         calls += hit.sum()
     return occ.reshape(nz, ny, nx), int(calls)
 
 
+def tri_cell_pairs(tri, origin, voxel_size, dims):
+    """Every (triangle, cell) SAT hit inside the triangle's clamped window.
+
+    The pair listing the triangle accel is built from: the JAX package
+    gets the same set from plan_buckets + voxelize_dense(with_hit_mask)
+    (voxelray_tpu/ops/tri_accel.py:95-121).  tri: (F, 3, 3) float32.
+    Returns (tri_id, lin) int64 tensors sorted by (lin, tri_id).
+    """
+    ts, lins = [], []
+    for t, lin, hit in _window_hits(tri, origin, voxel_size, dims):
+        ts.append(t[hit])
+        lins.append(lin[hit])
+    if not ts:
+        empty = torch.zeros((0,), dtype=torch.int64, device=tri.device)
+        return empty, empty.clone()
+    t, lin = torch.cat(ts), torch.cat(lins)
+    # a triangle lists each cell of its window once, so the keys are unique
+    order = torch.argsort(lin * tri.shape[0] + t)
+    return t[order], lin[order]
+
+
 def voxelize_mesh(vertices, faces, voxel_size, *, bb_min=None, bb_max=None,
-                  device="cpu"):
+                  device=None):
     """Host-facing wrapper: mesh in, occupancy + grid metadata out.
 
     Computes bbox/dims host-side (exact reference math), then runs the
-    voxelizer on `device`.  Returns a dict with occ (Z,Y,X) uint8 on the
-    device plus dims/origin/voxel_size/set_calls.
+    voxelizer on `device` (default: the CUDA card, utils/device.py).
+    Returns a dict with occ (Z,Y,X) uint8 on the device plus
+    dims/origin/voxel_size/set_calls.
     """
     from .kernels.voxel_accum import voxel_accum
+
+    device = resolve_device(device)
 
     v = np.asarray(vertices, dtype=np.float32).reshape(-1, 3)
     f = np.asarray(faces).reshape(-1, 3)

@@ -1,12 +1,17 @@
-"""The render pipeline, voxel path: camera rays to a gamma-corrected frame.
+"""The render pipeline: camera rays to a gamma-corrected frame.
 
-Counterpart of the voxel branch of voxelray_tpu/render/pipeline.py.  Per
-pixel (the reference's raygen -> voxel closest hit -> shadow ray -> miss
--> post chain):
+Counterpart of voxelray_tpu/render/pipeline.py.  Per pixel (the
+reference's raygen -> closest hit -> shadow ray -> miss -> post chain):
 
   raygen (raytrace.rgen:39-67)
-    -> nearest voxel hit (backend "fast": the megakernel K2; "dda": the
-       exhaustive DDA)
+    -> nearest hit over { triangles, voxels }: triangles through the
+       tri-grid march when the scene has a triangle accel (the staged
+       walk K3 + K4), else the brute trace; voxels with backend "fast"
+       (the megakernel K2, or the staged walk with fast_opts
+       {"mega": False}) or "dda" (the exhaustive DDA)
+    -> triangle CH (raytrace.rchit): interpolated normal, texture-
+       modulated diffuse (base mip level), attenuation 1 -> shadow ray
+       if dot(N,L) > 0 -> 0.3 if shadowed else specular
     -> voxel CH (raytrace2.rchit): dominant-axis cube normal, attenuation
        0.3 by default -> shadow ray if dot(N,L) > 0 -> 1 + specular if
        unshadowed
@@ -16,8 +21,8 @@ pixel (the reference's raygen -> voxel closest hit -> shadow ray -> miss
 With backend "fast" the shadow pass traces only the rays of pixels that
 hit something facing the light (the admit mask); the others' shadow
 results could not change the image.  Fast-backend rays travel in 8x128
-tile order when the frame tiles, so a warp of the kernel walks 32
-neighbouring pixels.
+tile order when the frame tiles, so a warp of a kernel walks neighbouring
+pixels.
 """
 from __future__ import annotations
 
@@ -26,8 +31,10 @@ from typing import NamedTuple
 import torch
 
 from ..ops.intersect import TMAX, TMIN, make_camera_rays
-from ..ops.traverse import any_hit_grid_dda, trace_grid_dda
+from ..ops.traverse import (any_hit_grid_dda, any_hit_triangles_brute,
+                            trace_grid_dda, trace_triangles_brute)
 from ..ops.traverse_fast import any_hit_grid_fast, trace_grid_fast
+from ..ops.tri_accel import any_hit_triangles_grid, trace_triangles_grid
 from . import shading
 from .camera import Camera
 from ..models.scene import Light, Scene
@@ -45,7 +52,59 @@ def _check_backend(backend):
             f"{_BACKENDS}")
 
 
-def _trace_voxels(scene: Scene, origins, dirs, t_min, t_max, backend):
+def _sample_texture(textures, tex_meta, layer, uv):
+    """Bilinear sample of each texture's base level with repeat
+    addressing; layer -1 -> white.  textures is the (T, TH, TWA, 3)
+    mip-atlas stack, tex_meta the (T, LMAX, 4) per-level (y0, x0, h, w)
+    placements: every texture samples with its own dims.  The base level
+    is what the reference's closest-hit stage reads (implicit-lod
+    texture() has no derivatives there)."""
+    layer_c = torch.clamp(layer, 0, textures.shape[0] - 1).long()
+    uvw = uv - torch.floor(uv)
+    meta = tex_meta[layer_c, 0].long()                      # (..., 4)
+    y0, x0, hh, ww = meta.unbind(-1)
+    u = uvw[..., 0] * ww.to(torch.float32) - 0.5
+    v = uvw[..., 1] * hh.to(torch.float32) - 0.5
+    xf = torch.floor(u)
+    yf = torch.floor(v)
+    fu = (u - xf)[..., None]
+    fv = (v - yf)[..., None]
+    xi = xf.long()
+    yi = yf.long()
+
+    def fetch(xa, ya):
+        # xi in [-1, w-1] and xi+1 in [0, w]: only the edges wrap
+        xa = torch.where(xa < 0, ww - 1, torch.where(xa >= ww, 0, xa))
+        ya = torch.where(ya < 0, hh - 1, torch.where(ya >= hh, 0, ya))
+        return textures[layer_c, ya + y0, xa + x0]
+
+    c = (fetch(xi, yi) * (1 - fu) * (1 - fv)
+         + fetch(xi + 1, yi) * fu * (1 - fv)
+         + fetch(xi, yi + 1) * (1 - fu) * fv
+         + fetch(xi + 1, yi + 1) * fu * fv)
+    return torch.where((layer >= 0)[..., None], c, torch.ones_like(c))
+
+
+def _trace_triangles(scene: Scene, origins, dirs, t_min, t_max):
+    """Nearest triangle hit (t, tri_id, u, v): the tri-grid march when the
+    scene carries a triangle accel, the brute trace otherwise."""
+    if scene.tri_accel is not None:
+        return trace_triangles_grid(origins, dirs, scene.tri_accel,
+                                    t_min=t_min, t_max=t_max)
+    return trace_triangles_brute(origins, dirs, scene.tri_v0, scene.tri_v1,
+                                 scene.tri_v2, t_min=t_min, t_max=t_max)
+
+
+def _fast_opts(scene: Scene, opts):
+    """The fast backend's options with JAX's default: the megakernel when
+    the accel carries its superbrick table (pipeline.py:121-126)."""
+    opts = dict(opts or {})
+    opts.setdefault("mega", scene.accel.fine_sb is not None)
+    return opts
+
+
+def _trace_voxels(scene: Scene, origins, dirs, t_min, t_max, backend,
+                  fast_opts=None):
     if scene.accel is None:
         shape = origins.shape[:-1]
         return (torch.full(shape, float("inf"), device=origins.device),
@@ -53,24 +112,51 @@ def _trace_voxels(scene: Scene, origins, dirs, t_min, t_max, backend):
                            device=origins.device))
     if backend == "fast":
         return trace_grid_fast(origins, dirs, scene.accel, t_min=t_min,
-                               t_max=t_max)
+                               t_max=t_max, **_fast_opts(scene, fast_opts))
     return trace_grid_dda(origins, dirs, scene.occ_flat, scene.grid_origin,
                           dims=scene.grid_dims,
                           voxel_size=scene.grid_voxel_size, t_min=t_min,
                           t_max=t_max)
 
 
-def _any_hit(scene: Scene, origins, dirs, t_min, t_max, backend, admit):
-    if scene.accel is None:
-        return torch.zeros(origins.shape[:-1], dtype=torch.bool,
+def _any_hit(scene: Scene, origins, dirs, t_min, t_max, backend, admit,
+             fast_opts=None, shadow_opts=None):
+    """Occlusion of the shadow rays.  With an admit mask only the admitted
+    rays are traced; the others come back unoccluded."""
+    occluded = torch.zeros(origins.shape[:-1], dtype=torch.bool,
                            device=origins.device)
+    if scene.n_triangles:
+        o, d, tmx = origins, dirs, t_max
+        if admit is not None:
+            sel = torch.nonzero(admit.reshape(-1)).squeeze(1)
+            o, d = o.reshape(-1, 3)[sel], d.reshape(-1, 3)[sel]
+            tmx = tmx.reshape(-1)[sel]
+        if scene.tri_accel is not None:
+            occ_t = any_hit_triangles_grid(o, d, scene.tri_accel,
+                                           t_min=t_min, t_max=tmx)
+        else:
+            occ_t = any_hit_triangles_brute(o, d, scene.tri_v0,
+                                            scene.tri_v1, scene.tri_v2,
+                                            t_min=t_min, t_max=tmx)
+        if admit is not None:
+            occluded.reshape(-1)[sel] = occ_t
+        else:
+            occluded = occ_t
+    if scene.accel is None:
+        return occluded
     if backend == "fast":
-        return any_hit_grid_fast(origins, dirs, scene.accel, t_min=t_min,
-                                 t_max=t_max, admit=admit)
-    return any_hit_grid_dda(origins, dirs, scene.occ_flat, scene.grid_origin,
-                            dims=scene.grid_dims,
-                            voxel_size=scene.grid_voxel_size, t_min=t_min,
-                            t_max=t_max)
+        # shadow coverage has its own defaults: of fast_opts only the
+        # layout knob two_level carries over (pipeline.py:170-190)
+        opts = {k: v for k, v in (fast_opts or {}).items()
+                if k == "two_level"}
+        opts.update(_fast_opts(scene, shadow_opts))
+        return occluded | any_hit_grid_fast(origins, dirs, scene.accel,
+                                            t_min=t_min, t_max=t_max,
+                                            admit=admit, **opts)
+    return occluded | any_hit_grid_dda(
+        origins, dirs, scene.occ_flat, scene.grid_origin,
+        dims=scene.grid_dims, voxel_size=scene.grid_voxel_size, t_min=t_min,
+        t_max=t_max)
 
 
 def _voxel_center_of_hit(scene: Scene, hit_id):
@@ -84,11 +170,14 @@ def _voxel_center_of_hit(scene: Scene, hit_id):
 
 
 class Surface(NamedTuple):
-    """Per-ray terms at the nearest voxel hit of a traced ray batch."""
+    """Per-ray terms at the nearest hit of a traced ray batch."""
 
-    hit: torch.Tensor          # bool: the ray hit a voxel
+    hit: torch.Tensor          # bool: the ray hit a triangle or a voxel
+    vox_hit: torch.Tensor      # bool: the nearest hit is a voxel
     world_pos: torch.Tensor    # hit point (origin + dir * 1 on a miss)
-    normal: torch.Tensor       # cube normal of the hit cell (0 on a miss)
+    normal: torch.Tensor       # shading normal
+    mat: torch.Tensor          # (..., 20) material row
+    diffuse: torch.Tensor      # diffuse term, texture-modulated
     l_vec: torch.Tensor        # unit vector toward the light
     intensity: torch.Tensor    # light intensity at the hit point
     light_dist: torch.Tensor   # shadow-ray t_max
@@ -96,53 +185,103 @@ class Surface(NamedTuple):
 
 
 def surface_terms(scene: Scene, origins, dirs, t_vox, vox_id,
-                  light: Light = Light()) -> Surface:
-    """Hit point, normal and light terms of a traced batch; the shadow
-    query of the frame is (world_pos, l_vec, TMIN, light_dist) for the
-    rays with hit & facing."""
-    hit = torch.isfinite(t_vox)
-    t_safe = torch.where(hit, t_vox, torch.ones_like(t_vox))
+                  light: Light = Light(), tri=None) -> Surface:
+    """Closest-hit terms of a traced batch (pipeline.py:217-276).
+
+    tri: the triangle trace (t, tri_id, u, v), or None for no triangle
+    hits.  The frame's shadow query is (world_pos, l_vec, TMIN,
+    light_dist) for the rays with hit & facing.
+    """
+    shape = origins.shape[:-1]
+    dev = origins.device
+    if tri is None:
+        z = torch.zeros(shape, device=dev)
+        tri = (torch.full(shape, float("inf"), device=dev),
+               torch.full(shape, -1, dtype=torch.int32, device=dev), z, z)
+    t_tri, tri_id, bu, bv = tri
+    vox_hit = torch.isfinite(t_vox) & (t_vox < t_tri)
+    tri_hit = torch.isfinite(t_tri) & ~vox_hit
+    hit = vox_hit | tri_hit
+    t_hit = torch.where(vox_hit, t_vox, t_tri)
+    t_safe = torch.where(hit, t_hit, torch.ones_like(t_hit))
     world_pos = origins + dirs * t_safe[..., None]
-    normal = shading.cube_normal(world_pos,
-                                 _voxel_center_of_hit(scene, vox_id))
-    normal = torch.where(hit[..., None], normal, torch.zeros_like(normal))
+
+    has_tri = scene.n_triangles > 0
+    tid = torch.clamp(tri_id, min=0).long()
+    w = (1.0 - bu - bv)[..., None]
+    if has_tri:
+        n_tri = (scene.tri_n0[tid] * w + scene.tri_n1[tid] * bu[..., None]
+                 + scene.tri_n2[tid] * bv[..., None])
+        n_tri = n_tri / torch.clamp(torch.sqrt(shading.dot3(n_tri, n_tri)),
+                                    min=1e-20)
+    else:
+        n_tri = torch.zeros_like(world_pos)
+    if scene.accel is not None:
+        n_vox = shading.cube_normal(world_pos,
+                                    _voxel_center_of_hit(scene, vox_id))
+    else:
+        n_vox = torch.zeros_like(world_pos)
+    normal = torch.where(vox_hit[..., None], n_vox, n_tri)
+
+    vox_mat = scene.voxel_material.expand(shape + (20,))
+    mat_tri = scene.materials[scene.tri_mat[tid].long()] if has_tri \
+        else vox_mat
+    mat = torch.where(vox_hit[..., None], vox_mat, mat_tri)
+
     l_vec, intensity, light_dist = shading.light_terms(
         world_pos, light.position, light.intensity, light.type)
+    diffuse = shading.compute_diffuse(mat, l_vec, normal)
+    if has_tri:
+        uv = (scene.tri_uv0[tid] * w + scene.tri_uv1[tid] * bu[..., None]
+              + scene.tri_uv2[tid] * bv[..., None])
+        tex_rgb = _sample_texture(scene.textures, scene.tex_meta,
+                                  scene.tri_tex[tid], uv)
+        diffuse = torch.where(tri_hit[..., None], diffuse * tex_rgb, diffuse)
     facing = shading.dot3(normal, l_vec)[..., 0] > 0.0
-    return Surface(hit, world_pos, normal, l_vec, intensity, light_dist,
-                   facing)
+    return Surface(hit, vox_hit, world_pos, normal, mat, diffuse, l_vec,
+                   intensity, light_dist, facing)
 
 
 def render_rays(scene: Scene, origins, dirs, light: Light = Light(),
                 clear_color=(1.0, 1.0, 1.0, 1.0), *, backend="dda",
-                t_min=TMIN, t_max=TMAX, shadows=True):
-    """Trace + shade a ray batch; returns linear-space RGB (..., 3)."""
+                t_min=TMIN, t_max=TMAX, shadows=True, fast_opts=None,
+                shadow_opts=None):
+    """Trace + shade a ray batch; returns linear-space RGB (..., 3).
+
+    fast_opts: options of trace_grid_fast for backend "fast" ("mega",
+    "k_hits", "two_level"); {"mega": False} selects the staged walk
+    K3 + K4.  shadow_opts: the same for the shadow pass
+    (any_hit_grid_fast).  Both default to the megakernel when the accel
+    carries its superbrick table.
+    """
     _check_backend(backend)
+    tri = (_trace_triangles(scene, origins, dirs, t_min, t_max)
+           if scene.n_triangles else None)
     t_vox, vox_id = _trace_voxels(scene, origins, dirs, t_min, t_max,
-                                  backend)
-    hit, world_pos, normal, l_vec, intensity, light_dist, facing = \
-        surface_terms(scene, origins, dirs, t_vox, vox_id, light)
-    mat = scene.voxel_material.expand(world_pos.shape[:-1] + (20,))
-    diffuse = shading.compute_diffuse(mat, l_vec, normal)
+                                  backend, fast_opts)
+    s = surface_terms(scene, origins, dirs, t_vox, vox_id, light, tri)
     if shadows:
-        admit = (hit & facing) if backend == "fast" else None
-        shadowed = _any_hit(scene, world_pos, l_vec, TMIN, light_dist,
-                            backend, admit)
-        shadowed = torch.where(facing, shadowed, torch.ones_like(shadowed))
+        admit = (s.hit & s.facing) if backend == "fast" else None
+        shadowed = _any_hit(scene, s.world_pos, s.l_vec, TMIN, s.light_dist,
+                            backend, admit, fast_opts, shadow_opts)
+        shadowed = torch.where(s.facing, shadowed, torch.ones_like(shadowed))
     else:
         # shadows disabled: every facing surface counts as lit
-        shadowed = ~facing
+        shadowed = ~s.facing
 
-    specular = shading.compute_specular(mat, dirs, l_vec, normal)
-    lit = facing & ~shadowed
+    specular = shading.compute_specular(s.mat, dirs, s.l_vec, s.normal)
+    lit = s.facing & ~shadowed
+    # triangle CH: attenuation 1 unless facing and shadowed -> 0.3;
     # voxel CH: attenuation 0.3 unless facing and unshadowed -> 1
-    attenuation = torch.where(lit, 1.0, 0.3)
+    att_tri = torch.where(s.facing & shadowed, 0.3, 1.0)
+    att_vox = torch.where(lit, 1.0, 0.3)
+    attenuation = torch.where(s.vox_hit, att_vox, att_tri)
     specular = torch.where(lit[..., None], specular,
                            torch.zeros_like(specular))
-    color = intensity[..., None] * attenuation[..., None] \
-        * (diffuse + specular)
+    color = s.intensity[..., None] * attenuation[..., None] \
+        * (s.diffuse + specular)
     miss = shading.miss_color(clear_color, device=color.device)
-    return torch.where(hit[..., None], color, miss)
+    return torch.where(s.hit[..., None], color, miss)
 
 
 _TILE_H, _TILE_W = 8, 128
@@ -168,9 +307,10 @@ def _untile_rays(x, height, width):
 
 def render_image(scene: Scene, view_inv, proj_inv, *, width, height,
                  light: Light = Light(), clear_color=(1.0, 1.0, 1.0, 1.0),
-                 backend="dda", shadows=True):
+                 backend="dda", shadows=True, fast_opts=None,
+                 shadow_opts=None):
     """Framebuffer (H, W, 4) float32 on the scene's device,
-    gamma-corrected."""
+    gamma-corrected.  fast_opts / shadow_opts as in render_rays."""
     _check_backend(backend)
     origins, dirs = make_camera_rays(width, height, view_inv, proj_inv,
                                      device=scene.device)
@@ -179,7 +319,8 @@ def render_image(scene: Scene, view_inv, proj_inv, *, width, height,
         origins = _tile_rays(origins, height, width)
         dirs = _tile_rays(dirs, height, width)
     rgb = render_rays(scene, origins, dirs, light, clear_color,
-                      backend=backend, shadows=shadows)
+                      backend=backend, shadows=shadows, fast_opts=fast_opts,
+                      shadow_opts=shadow_opts)
     if tiled:
         rgb = _untile_rays(rgb, height, width)
     rgba = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)

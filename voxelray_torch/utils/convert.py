@@ -2,7 +2,8 @@
 
 The JAX package stores bit words as uint32; the port stores the same bit
 patterns in int32 tensors.  Convert with numpy arrays only, so neither
-package imports the other.
+package imports the other: a grid, a BrickAccel, a TriAccel and a
+Scene's arrays, so tests can feed both packages the same state.
 """
 from __future__ import annotations
 
@@ -10,9 +11,18 @@ import numpy as np
 import torch
 
 from ..models.grids import GridBool
+from ..models.scene import Scene
 from ..ops.traverse_fast import BrickAccel
+from ..ops.tri_accel import TriAccel
 
-__all__ = ["grid_from_numpy", "accel_from_numpy", "words_to_tensor"]
+__all__ = ["grid_from_numpy", "accel_from_numpy", "tri_accel_from_numpy",
+           "scene_from_numpy", "words_to_tensor", "SCENE_ARRAYS"]
+
+# the Scene fields that are plain arrays, as the JAX Scene names them
+SCENE_ARRAYS = ("tri_v0", "tri_v1", "tri_v2", "tri_n0", "tri_n1", "tri_n2",
+                "tri_uv0", "tri_uv1", "tri_uv2", "tri_mat", "tri_tex",
+                "tri_lod", "materials", "textures", "tex_meta",
+                "voxel_material", "occ_flat", "grid_origin")
 
 
 def words_to_tensor(words, device="cpu"):
@@ -45,3 +55,30 @@ def accel_from_numpy(coarse, fine, l2, fine_sb, origin, dims, bdims,
         origin_key=(float(org[0]), float(org[1]), float(org[2])),
         fine_sb=None if fine_sb is None else words_to_tensor(fine_sb,
                                                              device))
+
+
+def tri_accel_from_numpy(brick: BrickAccel, cell_slot, cell_tris, tri9,
+                         origin, dims, voxel_size, l_width, overflow_cells,
+                         device="cpu") -> TriAccel:
+    """The JAX TriAccel's tables (numpy) -> port TriAccel; `brick` is its
+    BrickAccel already carried over with accel_from_numpy."""
+    def as_t(x, dtype):
+        return torch.as_tensor(np.array(x, dtype), device=device)
+    return TriAccel(
+        brick=brick, cell_slot=as_t(cell_slot, np.int32),
+        cell_tris=as_t(cell_tris, np.int32), tri9=as_t(tri9, np.float32),
+        origin=as_t(origin, np.float32),
+        dims=tuple(int(x) for x in dims), voxel_size=float(voxel_size),
+        l_width=int(l_width), overflow_cells=int(overflow_cells))
+
+
+def scene_from_numpy(arrays, grid_dims, grid_voxel_size, accel=None,
+                     tri_accel=None, device="cpu") -> Scene:
+    """A JAX Scene's arrays (a mapping with the SCENE_ARRAYS names, numpy)
+    plus its accels (already carried over) -> port Scene."""
+    return Scene(
+        **{k: torch.as_tensor(np.array(arrays[k]), device=device)
+           for k in SCENE_ARRAYS},
+        accel=accel, tri_accel=tri_accel,
+        grid_dims=tuple(int(x) for x in grid_dims),
+        grid_voxel_size=float(grid_voxel_size))
