@@ -11,14 +11,17 @@ Drives the port's paths the way a user calls them, at the bench's size:
     kernels K3 grid_walk and K4 brick_fine);
   * the triangle path: the same knot as a triangle model
     (build_scene(models=[...]) builds the triangle accel on the card) and
-    a 1920x1080 frame with shadow rays, whose tri-grid march runs K3 and
-    K4 every lap.
+    a 1920x1080 frame with shadow rays, whose tri-grid march is one
+    tri_march launch per trace (K3 and K4 are not launched there).
 
 Each path runs once with the kernels' launch counters set to 0 just
 before it and read just after.  Then every kernel is held against its
-plain PyTorch version on the same inputs on the card and timed beside it,
-the traces are checked against the exhaustive references, and whole
-frames are timed.
+plain PyTorch version on the same inputs on the card and timed beside it
+(tri_march against the lap loop over K3 and K4 it replaces, run with the
+kernels and fully plain, on the frame's primary and shadow rays), the
+traces are checked against the exhaustive references, and whole frames
+are timed (the triangle frame also with the lap loop, for the same-run
+before and after).
 
     python3 chip_smoke.py
 
@@ -31,6 +34,7 @@ and power limit as nvidia-smi reports them, and the result line
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -52,8 +56,12 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 # fp32 operations per step, counted from the kernels' expressions:
 # K1 one SAT test of a (triangle, cell) slot (13 axes) plus its cell
 # centre; K2 and K4 one cell's slab test plus the DDA step; K3 (and K2
-# between bricks) one brick's crossing times, their minimum and the step
+# between bricks) one brick's crossing times, their minimum and the step;
+# tri_march per lap K3's fused init (bbox clip and entry brick) and the
+# advance, per tested row the cell's span (a slab test), per
+# ray-triangle pair Moller-Trumbore with its accept tests
 OPS_SAT, OPS_CELL, OPS_BRICK = 350, 52, 17
+OPS_LAP, OPS_TRI = 48, 61
 
 
 def log(msg):
@@ -241,6 +249,115 @@ def mega_work(o, d, tmn, tmx, accel):
     return brick_steps, cell_steps, int((bricks >= 0).sum()), lin_out
 
 
+@contextlib.contextmanager
+def lap_loop_march():
+    """Inside, trace_triangles_grid on the card runs the lap loop over the
+    K3 and K4 kernels (tri_march_plain), the march before its kernel."""
+    from voxelray_torch.ops import tri_accel
+    from voxelray_torch.ops.kernels import tri_march
+    saved = tri_accel.tri_march_cuda
+    tri_accel.tri_march_cuda = tri_march.tri_march_plain
+    try:
+        yield
+    finally:
+        tri_accel.tri_march_cuda = saved
+
+
+def march_work(o, d, tmn, tmx, ta):
+    """The fully plain march (the lap loop over the plain K3 and K4) on
+    these rays, counting tri_march's own work on them: ray-laps, rows
+    tested, ray-triangle tests, distinct rows and triangles read, and the
+    staged walk's brick and cell steps as the kernel takes them.  Each
+    K4 call of the lap loop follows the K3 call that collected its
+    bricks; the kernel walks a group's bricks only up to the one at which
+    K4 decides the hit, so a ray's brick steps in a group are K3's
+    iterations up to that brick (all of them where none decides).  On
+    CPU tensors too.  Returns (outputs, work, seconds)."""
+    import torch
+    from voxelray_torch.ops.kernels import brick_fine, grid_walk, tri_march
+    work = {"brick_steps": 0, "cell_steps": 0}
+    group = {}
+    saved = (grid_walk.walk_cuda, grid_walk.walk_plain, brick_fine.fine_cuda,
+             brick_fine.fine_plain)
+    walk_plain, fine_plain = saved[1], saved[3]
+
+    def walk(*a, **kw):
+        *out, hit_steps = walk_plain(*a, **kw, per_hit=True)
+        group["hit_steps"] = hit_steps
+        return tuple(out)
+
+    def fine(*a, **kw):
+        *out, steps, decided = fine_plain(*a, **kw, count_steps=True,
+                                          per_hit=True)
+        hit_steps = group.pop("hit_steps")
+        slot = torch.clamp(decided, max=hit_steps.shape[0] - 1)
+        work["brick_steps"] += int(hit_steps.gather(0, slot[None]).sum())
+        work["cell_steps"] += steps
+        return tuple(out)
+
+    grid_walk.walk_cuda = grid_walk.walk_plain = walk
+    brick_fine.fine_cuda = brick_fine.fine_plain = fine
+    try:
+        t0 = time.perf_counter()
+        out = tri_march.tri_march_plain(o, d, tmn, tmx, ta, work=work)
+        if o.is_cuda:
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        (grid_walk.walk_cuda, grid_walk.walk_plain, brick_fine.fine_cuda,
+         brick_fine.fine_plain) = saved
+    return out, work, secs
+
+
+def check_march(what, o, d, tmn, tmx, ta):
+    """tri_march against the lap loop it replaces on the same rays, run
+    with the K3/K4 kernels and fully plain: (t, id) bit-equal, (u, v)
+    bit-equal where there is a hit, unresolved 0 on every side.  Returns
+    (kernel ms, lap-loop ms, plain ms, bytes, operations)."""
+    import torch
+    from voxelray_torch.ops.kernels import tri_march
+    args = (o, d, tmn, tmx, ta)
+    got = tri_march.tri_march_cuda(*args)
+    unresolved = int(got[4])
+    lap = tri_march.tri_march_plain(*args)
+    plain, work, plain_s = march_work(*args)
+    log(f"{what}: tri_march unresolved {unresolved}, lap loop "
+        f"{lap[4]}, plain lap loop {plain[4]}")
+    require(unresolved == lap[4] == plain[4] == 0,
+            f"{what}: a march left rays unresolved")
+    for ref, name in ((lap, "the lap loop with K3/K4"),
+                      (plain, "the plain lap loop")):
+        hit = ref[1] >= 0
+        for k, a, b in (("t", got[0], ref[0]), ("id", got[1], ref[1]),
+                        ("u", got[2][hit], ref[2][hit]),
+                        ("v", got[3][hit], ref[3][hit])):
+            require(torch.equal(a, b), f"{what}: tri_march {k} differs "
+                    f"from {name}")
+    ms = cuda_ms(lambda: tri_march.tri_march_cuda(*args), 5)
+    lap_ms = cuda_ms(lambda: tri_march.tri_march_plain(*args), 1)
+    n = o.shape[0]
+    rows_read = int(work["rows_seen"].sum())
+    tris_read = int(work["tris_seen"].sum())
+    br = ta.brick
+    nbytes = (n * 48 + rows_read * (4 * ta.l_width + 4) + tris_read * 36
+              + 4 * (br.coarse.numel() + br.l2.numel()))
+    ops = (work["laps"] * OPS_LAP + work["rows"] * OPS_CELL
+           + work["brick_steps"] * OPS_BRICK + work["cell_steps"] * OPS_CELL
+           + work["tests"] * OPS_TRI)
+    b_ms, b_by = bound(nbytes, ops)
+    log(f"{what}: tri_march ({n} rays, {int((got[1] >= 0).sum())} hits) "
+        f"bit-equal to the lap loop with K3/K4 and to the plain lap loop; "
+        f"work {work['laps']} ray-laps, {work['rows']} rows, "
+        f"{work['tests']} ray-triangle tests, {work['brick_steps']} brick "
+        f"steps, {work['cell_steps']} cell steps, {rows_read} rows and "
+        f"{tris_read} triangles read; kernel {ms:.4f} ms, lap loop with "
+        f"K3/K4 {lap_ms:.4f} ms (same run: before {lap_ms:.4f} ms, after "
+        f"{ms:.4f} ms), plain lap loop {plain_s * 1e3:.1f} ms, bound "
+        f"{b_ms:.5f} ms by {b_by} ({nbytes / 1e6:.1f} MB, "
+        f"{ops / 1e9:.3f} GFLOP)")
+    return ms, lap_ms, plain_s * 1e3, nbytes, ops
+
+
 def knot_model(v, f):
     """The mesh as the ObjLoader flattens an OBJ without normals or UVs:
     per-corner streams, flat face normals, one default material."""
@@ -322,7 +439,8 @@ def run(device):
     from voxelray_torch.ops import geometry
     from voxelray_torch.ops.intersect import TMIN, TMAX, make_camera_rays
     from voxelray_torch.ops.kernels import (_build, brick_fine, grid_walk,
-                                            mega_trace, voxel_accum)
+                                            mega_trace, tri_march,
+                                            voxel_accum)
     from voxelray_torch.ops.traverse import (trace_grid_dda,
                                              trace_triangles_brute)
     from voxelray_torch.ops.traverse_fast import trace_grid_fast
@@ -331,7 +449,7 @@ def run(device):
     from voxelray_torch.render import pipeline
 
     sync = torch.cuda.synchronize
-    kmods = (voxel_accum, mega_trace, grid_walk, brick_fine)
+    kmods = (voxel_accum, mega_trace, grid_walk, brick_fine, tri_march)
 
     # ---- 1. device + build ---------------------------------------------
     smi = smi_line()
@@ -341,7 +459,8 @@ def run(device):
     _build.load_library()
     log(f"kernel library ready in {time.time() - t0:.1f} s")
     ptxas = [ln.strip() for ln in _build.build_log().splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "Compiling entry function" in ln or "registers" in ln
+             or "spill" in ln]
     for ln in ptxas:
         log(f"ptxas: {ln}")
 
@@ -459,6 +578,18 @@ def run(device):
     k2s_plain_ms = cuda_ms(lambda: mega_trace.trace_grid_mega_plain(
         so, sd, accel, stmn, sdist, admit), 1)
     log(f"K2 shadow trace ms: kernel {k2s_ms:.3f}, plain {k2s_plain_ms:.3f}")
+    # K2's own work on the admitted shadow rays, counted as for primary
+    adm = torch.nonzero(admit).squeeze(1)
+    s_bsteps, s_csteps, s_bricks, _ = mega_work(so[adm], sd[adm], stmn[adm],
+                                                sdist[adm], accel)
+    k2s_bytes = n * 13 + adm.numel() * 32 + 4 * accel.l2.numel() \
+        + 64 * (n_sb + s_bricks)
+    k2s_b_ms, k2s_b_by = bound(k2s_bytes, s_bsteps * OPS_BRICK
+                               + s_csteps * OPS_CELL)
+    log(f"K2 shadow work ({adm.numel()} admitted rays): {s_bsteps} brick "
+        f"steps, {s_csteps} cell steps, {s_bricks} occupied bricks read; "
+        f"bound {k2s_b_ms:.5f} ms by {k2s_b_by} ({k2s_bytes / 1e6:.1f} MB); "
+        f"kernel {k2s_ms:.4f} ms")
     rows.append(kernel_row(
         "mega_trace", "mega_trace.cu",
         "voxelray_tpu/ops/pallas/mega_trace.py:918",
@@ -529,7 +660,7 @@ def run(device):
     pipeline.render_image(scene, vi, pi, width=WIDTH, height=HEIGHT,
                           backend="fast", shadows=True, **staged)
     sync()
-    staged_counts = counts_of(grid_walk, brick_fine)
+    staged_counts = counts_of(*kmods)
     log(f"staged voxel frame launches (shadows on): {staged_counts}")
     require(staged_counts["grid_walk"] > 0, "staged frame: K3 not launched")
     require(staged_counts["brick_fine"] > 0, "staged frame: K4 not launched")
@@ -557,8 +688,9 @@ def run(device):
         f"{ta.overflow_cells}, nonempty cells {n_nonempty}, brick grid "
         f"{ta.brick.bdims} ({ta.brick.coarse.shape[0]} coarse rows)")
     require(ta.overflow_cells == 0, "tri accel cells overflow")
-    require(tri_counts["grid_walk"] > 0, "K3 was not launched")
-    require(tri_counts["brick_fine"] > 0, "K4 was not launched")
+    require(tri_counts["tri_march"] > 0, "tri_march was not launched")
+    require(tri_counts["grid_walk"] == 0 and tri_counts["brick_fine"] == 0,
+            "the triangle march launched K3 or K4")
     require(bool(torch.isfinite(timg).all()), "tri frame non-finite")
 
     # K3 and K4 on the march's first lap (the frame's rays, t_min = TMIN)
@@ -568,29 +700,26 @@ def run(device):
     (_, tlin), k4_ms, k4_plain_ms, k4_steps, k4_bytes = check_fine(
         "tri lap 1", o, d, thits, tmn, tmx, tacc)
 
-    reset(*kmods)
+    # tri_march on the frame's rays and on its shadow rays, against the
+    # lap loop over K3/K4 (with the kernels and fully plain)
     tt, tid, tu, tv, unres_t = trace_triangles_grid(o, d, ta,
                                                     return_stats=True)
     sync()
-    march_counts = counts_of(grid_walk, brick_fine)
     log(f"tri trace: {int(torch.isfinite(tt).sum())} hits, unresolved "
-        f"{unres_t}, launches {march_counts}")
+        f"{unres_t}")
     require(unres_t == 0, "the tri march left rays unresolved")
-    saved = grid_walk.walk_cuda, brick_fine.fine_cuda
-    grid_walk.walk_cuda = grid_walk.walk_plain
-    brick_fine.fine_cuda = brick_fine.fine_plain
-    try:
-        t0 = time.time()
-        plain = trace_triangles_grid(o, d, ta)
-        sync()
-        log(f"tri trace with the plain K3/K4: {time.time() - t0:.2f} s")
-    finally:
-        grid_walk.walk_cuda, brick_fine.fine_cuda = saved
-    for name, a, b in zip(("t", "id", "u", "v"), (tt, tid, tu, tv), plain):
-        require(torch.equal(a, b), f"tri trace {name} differs with the "
-                "plain K3/K4")
-    log("tri trace with the kernels and with their plain versions: "
-        "bit-equal")
+    tm_ms, tm_lap_ms, tm_plain_ms, tm_bytes, tm_ops = check_march(
+        "tri primary", o, d, tmn, tmx, ta)
+    no_vox = torch.full((n,), float("inf"), device=device)
+    tsurf = pipeline.surface_terms(tscene, o, d, no_vox,
+                                   torch.full_like(lin_k, -1),
+                                   tri=(tt, tid, tu, tv))
+    sel = torch.nonzero(tsurf.hit & tsurf.facing).squeeze(1)
+    tso = tsurf.world_pos[sel].contiguous()
+    tsd = tsurf.l_vec[sel].contiguous()
+    tsmx = tsurf.light_dist[sel].contiguous()
+    tsmn = torch.full((sel.numel(),), float(TMIN), device=device)
+    check_march("tri shadow", tso, tsd, tsmn, tsmx, ta)
 
     rng = np.random.default_rng(0)
     hit_idx = torch.nonzero(torch.isfinite(tt)).squeeze(1).cpu().numpy()
@@ -612,19 +741,32 @@ def run(device):
         f", same triangle {same_id}, max |t err| - tolerance {t_err}")
     require(bool((hb == hg).all()), "tri march and brute hit masks differ")
     require(t_err <= 0.0, "tri t outside rtol 3e-6, atol 1e-7 of brute")
-    log_frames("triangles (tri-grid march)", time_frames(tscene, mats),
+    with lap_loop_march():
+        log_frames("triangles (lap loop over K3+K4, before)",
+                   time_frames(tscene, mats), smi_line())
+    log_frames("triangles (tri_march, after)", time_frames(tscene, mats),
                smi_line())
 
+    # K3 and K4 launch on the staged voxel frame; their times are the
+    # triangle march's first lap
     rows.append(kernel_row(
         "grid_walk", "grid_walk.cu",
         "voxelray_tpu/ops/pallas/grid_walk.py:496",
-        tri_counts["grid_walk"], 0, k3_ms, k3_plain_ms, k3_bytes,
+        staged_counts["grid_walk"], 0, k3_ms, k3_plain_ms, k3_bytes,
         k3_steps * OPS_BRICK))
     rows.append(kernel_row(
         "brick_fine", "brick_fine.cu",
         "voxelray_tpu/ops/pallas/brick_fine.py:296",
-        tri_counts["brick_fine"], 0.0, k4_ms, k4_plain_ms, k4_bytes,
+        staged_counts["brick_fine"], 0.0, k4_ms, k4_plain_ms, k4_bytes,
         k4_steps * OPS_CELL))
+    rows.append(kernel_row(
+        "tri_march", "tri_march.cu",
+        "voxelray_tpu/ops/pallas/grid_walk.py:496,:569; "
+        "voxelray_tpu/ops/pallas/brick_fine.py:296; "
+        "voxelray_tpu/ops/tri_accel.py:242-320",
+        tri_counts["tri_march"], 0.0, tm_ms, tm_plain_ms, tm_bytes, tm_ops))
+    log(f"tri_march on the triangle path: lap loop with K3/K4 "
+        f"{tm_lap_ms:.4f} ms, tri_march {tm_ms:.4f} ms")
     return rows, smi_line()
 
 

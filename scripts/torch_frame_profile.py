@@ -4,7 +4,8 @@
 Builds the bench scenes of chip_smoke.py (the 1,048,576-triangle torus
 knot as a 512^3 voxel grid and as a triangle model) and, for each frame
 kind (voxel with the megakernel K2, voxel with the staged walk K3 + K4,
-triangles through the tri-grid march), records one warm frame with
+triangles through the tri_march kernel, and triangles through the lap
+loop over K3 + K4 that the kernel replaced), records one warm frame with
 torch.profiler: wall ms, device busy ms (the union of the kernels'
 intervals), the device's idle share, launches by kernel name, and the
 port's kernel launch counters.  Prints one JSON line per frame kind and,
@@ -16,6 +17,7 @@ Needs one CUDA device and nvcc; imports no JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -80,19 +82,21 @@ def main():
         print("torch_frame_profile: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from chip_smoke import bench_camera, knot_model, MESH, GRID_RES
+    from chip_smoke import (bench_camera, knot_model, lap_loop_march, MESH,
+                            GRID_RES)
     from voxelray_torch.io import meshes
     from voxelray_torch.models.grids import GridBool
     from voxelray_torch.models.scene import build_scene
     from voxelray_torch.ops import geometry
     from voxelray_torch.ops.kernels import (brick_fine, grid_walk,
-                                            mega_trace, voxel_accum)
+                                            mega_trace, tri_march,
+                                            voxel_accum)
     from voxelray_torch.render.pipeline import render_image
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    kmods = (voxel_accum, mega_trace, grid_walk, brick_fine)
+    kmods = (voxel_accum, mega_trace, grid_walk, brick_fine, tri_march)
     v, f = meshes.torus_knot(**MESH)
     bb_min, bb_max = geometry.mesh_bbox(v)
     vs = float(max(bb_max - bb_min)) / GRID_RES
@@ -102,16 +106,18 @@ def main():
     tri = build_scene(models=[knot_model(v, f)])
     staged = dict(fast_opts={"mega": False}, shadow_opts={"mega": False})
     kinds = {
-        "voxel_mega": (vox, {}),
-        "voxel_staged": (vox, staged),
-        "triangles": (tri, {}),
+        "voxel_mega": (vox, {}, contextlib.nullcontext),
+        "voxel_staged": (vox, staged, contextlib.nullcontext),
+        "triangles": (tri, {}, contextlib.nullcontext),
+        "triangles_lap_loop": (tri, {}, lap_loop_march),
     }
     rows = []
-    for name, (scene, kw) in kinds.items():
+    for name, (scene, kw, march) in kinds.items():
         for shadows in (True, False):
-            res = profile_frame(lambda: render_image(
-                scene, vi, pi, width=WIDTH, height=HEIGHT, backend="fast",
-                shadows=shadows, **kw), kmods)
+            with march():
+                res = profile_frame(lambda: render_image(
+                    scene, vi, pi, width=WIDTH, height=HEIGHT,
+                    backend="fast", shadows=shadows, **kw), kmods)
             res.update(frame=name, shadows=shadows, card=smi)
             print(json.dumps(res), flush=True)
             rows.append(res)

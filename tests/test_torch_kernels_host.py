@@ -1,10 +1,11 @@
 """The CUDA kernels' own source, built for the host, against their plain
 PyTorch versions.
 
-csrc/voxel_accum.cu, mega_trace.cu, grid_walk.cu and brick_fine.cu are
-compiled with g++ (launch stubs cut off, SHIM below standing in for the
-CUDA runtime) and each kernel runs thread by thread on the CPU.  Shared
-memory is one host array that the host program fills before the
+csrc/voxel_accum.cu, mega_trace.cu, grid_walk.cu, brick_fine.cu and
+tri_march.cu are compiled with g++ (launch stubs cut off, SHIM below
+standing in for the CUDA runtime, csrc/ on the include path for the
+shared brick_walk.cuh) and each kernel runs thread by thread on the CPU.
+Shared memory is one host array that the host program fills before the
 threads run, so running them one at a time never reads a word before it
 is written.  Both sides use IEEE float32 without contraction, as on the
 card, so this holds the kernels' logic (windows, SAT, walk, near-tie
@@ -14,6 +15,7 @@ compared here (chip_smoke.py compares set_calls on the card).  Skips
 where g++ is missing.
 """
 import ctypes
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -25,12 +27,14 @@ import torch
 from voxelray_torch.io import meshes
 from voxelray_torch.ops import geometry
 from voxelray_torch.ops.intersect import TMAX, TMIN, make_camera_rays
-from voxelray_torch.ops.kernels import brick_fine
+from voxelray_torch.ops.kernels import brick_fine, tri_march
 from voxelray_torch.ops.kernels.brick_fine import fine_plain
 from voxelray_torch.ops.kernels.grid_walk import walk_plain
 from voxelray_torch.ops.kernels.mega_trace import trace_grid_mega_plain
+from voxelray_torch.ops.kernels.tri_march import tri_march_plain
 from voxelray_torch.ops.traverse import trace_grid_dda
 from voxelray_torch.ops.traverse_fast import build_accel, trace_grid_fast
+from voxelray_torch.ops.tri_accel import build_tri_accel
 from voxelray_torch.ops.voxelize import voxelize_plain
 from voxelray_torch.render.camera import Camera
 from voxelray_torch.utils.parity import adjudicate_hit_diffs
@@ -58,6 +62,7 @@ using std::min;
 #define __forceinline__ inline
 #define __restrict__
 #define __syncthreads()
+#define __launch_bounds__(...)
 
 static uint32_t host_shared[1 << 16];
 
@@ -77,12 +82,20 @@ inline unsigned long long __shfl_down_sync(unsigned, unsigned long long,
                                            int) {
   return 0;
 }
-inline unsigned long long atomicAdd(unsigned long long* p,
-                                    unsigned long long v) {
-  const unsigned long long old = *p;
+template <class T>
+inline T atomicAdd(T* p, T v) {
+  const T old = *p;
   *p += v;
   return old;
 }
+// a "warp" of one lane: the running thread
+inline int __shfl_sync(unsigned, int v, int) { return v; }
+inline unsigned __ballot_sync(unsigned, int p) {
+  return p ? 1u << (threadIdx.x & 31) : 0u;
+}
+inline bool __all_sync(unsigned, int p) { return p != 0; }
+inline int __ffs(unsigned x) { return __builtin_ffs(x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 '''
@@ -178,32 +191,71 @@ extern "C" void host_launch(const float* o, const float* d,
     }
 }
 ''', [P, P, P, I, P, I, P, P] + [I] * 6 + [F] * 7 + [P] * 2),
+    "tri_march": ('''
+extern "C" void host_launch(
+    const void* o, const void* d, const void* t_min, const void* t_max,
+    const void* coarse, int coarse_words, const void* l2, int l2_words,
+    const void* fine, int nb, const void* cell_slot, const void* cell_tris,
+    const void* tri9, const void* tri_origin, int n, int nx, int ny, int nz,
+    int bx, int by, int bz, float ogx, float ogy, float ogz, float vs,
+    float half, float bwf, float scale, float tri_vs, float tri_half,
+    int l_width, int k_first, int k_drain, int max_groups, int max_laps,
+    int smem_words, void* t_out, void* id_out, void* u_out, void* v_out,
+    void* unresolved, void* next_ray) {
+  const MarchArgs a = march_args(
+      o, d, t_min, t_max, coarse, coarse_words, l2, l2_words, fine, nb,
+      cell_slot, cell_tris, tri9, tri_origin, n, nx, ny, nz, bx, by, bz, ogx,
+      ogy, ogz, vs, half, bwf, scale, tri_vs, tri_half, l_width, k_first,
+      k_drain, max_groups, max_laps, smem_words, t_out, id_out, u_out, v_out,
+      unresolved, next_ray);
+  if (a.l2_words) memcpy(host_shared, a.l2, sizeof(uint32_t) * a.l2_words);
+  if (a.coarse_smem)
+    memcpy(host_shared + a.l2_words, a.coarse,
+           sizeof(uint32_t) * a.coarse_words);
+  // one block of one-lane warps: the first thread takes every ray from
+  // the counter, lap by lap, the others find it exhausted
+  blockDim.x = kThreads;
+  gridDim.x = 1;
+  blockIdx.x = 0;
+  for (unsigned t = 0; t < blockDim.x; ++t) {
+    threadIdx.x = t;
+    tri_march_kernel(a);
+  }
 }
+''', [P] * 5 + [I, P, I, P, I] + [P] * 4 + [I] * 7 + [F] * 9 + [I] * 6
+        + [P] * 6),
+}
+
+
+def _host_build(out, name, src, driver, include):
+    """g++ build of kernel source `src` (launch stub cut off) with the
+    host driver appended, headers from `include`: the loaded library."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the kernels for the host")
+    (out / "cuda_host_shim.h").write_text(SHIM)
+    body = src[:src.index("}  // namespace")]
+    body = body.replace("#include <cuda_runtime.h>",
+                        '#include "cuda_host_shim.h"')
+    body = re.sub(r"extern __shared__ uint32_t (\w+)\[\];",
+                  r"uint32_t* \1 = host_shared;", body)
+    cpp = out / f"{name}.cpp"
+    cpp.write_text(body + "}  // namespace\n" + driver)
+    lib = out / f"lib{name}.so"
+    subprocess.run([gxx, "-O1", "-ffp-contract=off", "-std=c++17", "-I",
+                    str(include), "-I", str(out), "-shared", "-fPIC", "-o",
+                    str(lib), str(cpp)], check=True, capture_output=True,
+                   timeout=300)
+    return ctypes.CDLL(str(lib))
 
 
 @pytest.fixture(scope="module")
 def host_kernels(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the kernels for the host")
     out = tmp_path_factory.mktemp("host_kernels")
-    (out / "cuda_host_shim.h").write_text(SHIM)
     fns = {}
     for name, (driver, argtypes) in DRIVERS.items():
-        src = (CSRC / f"{name}.cu").read_text()
-        body = src[:src.index("}  // namespace")]
-        body = body.replace("#include <cuda_runtime.h>",
-                            '#include "cuda_host_shim.h"')
-        body = body.replace("extern __shared__ uint32_t s_l2[];",
-                            "uint32_t* s_l2 = host_shared;")
-        cpp = out / f"{name}.cpp"
-        cpp.write_text(body + "}  // namespace\n" + driver)
-        lib = out / f"lib{name}.so"
-        subprocess.run([gxx, "-O1", "-ffp-contract=off", "-std=c++17",
-                        "-shared", "-fPIC", "-o", str(lib),
-                        str(cpp)], check=True, capture_output=True,
-                       timeout=300)
-        fn = ctypes.CDLL(str(lib)).host_launch
+        fn = _host_build(out, name, (CSRC / f"{name}.cu").read_text(),
+                         driver, CSRC).host_launch
         fn.argtypes = argtypes
         fn.restype = None
         fns[name] = fn
@@ -516,3 +568,169 @@ def test_host_k4_edge_grazing_rays_match_the_oracle(host_kernels):
                             origin_key=accel.origin_key, voxel_size=vs)
     assert np.array_equal(lin_k, lin_f.numpy())
     assert np.array_equal(t_k, t_f.numpy())
+
+
+def _tri_scene(name, res):
+    """(triangles (F, 3, 3), TriAccel on the CPU) of a small mesh, or of
+    "pair": a knot and a sphere far apart along x, an empty superbrick
+    between them."""
+    kv, kf = meshes.torus_knot(2, 3, 64, 8)
+    sv, sf = meshes.icosphere(3)
+    tri = {"icosphere": lambda: sv[sf], "knot": lambda: kv[kf],
+           "pair": lambda: np.concatenate([
+               kv[kf], sv[sf] * np.float32(0.4) + np.float32([9.0, 0, 0])])
+           }[name]()
+    return tri, build_tri_accel(tri[:, 0], tri[:, 1], tri[:, 2], res=res,
+                                device="cpu")
+
+
+def _tri_rays(kind, tri, ta, rng):
+    """(o, d, t_min, t_max) float32 for one tri_march host case: camera
+    rays from the bench camera's direction or from inside the mesh's box,
+    shadow rays from the bench rays' hit points toward a point light
+    (t_min = TMIN: round 0 tests the start point's cell), or rays
+    through cell edges and corners of the tri grid, a third of them with
+    zero direction components."""
+    lo, hi = tri.reshape(-1, 3).min(0), tri.reshape(-1, 3).max(0)
+    center, extent = (lo + hi) * 0.5, float(max(hi - lo))
+    if kind == "grazing":
+        m = 3072
+        og, vs = ta.origin.numpy(), np.float32(ta.voxel_size)
+        p = og + rng.integers(1, ta.dims, (m, 3)).astype(np.float32) * vs
+        edge = rng.random(m) < 0.5
+        ax = rng.integers(0, 3, m)
+        p[edge, ax[edge]] += rng.uniform(0.1, 0.9, edge.sum()) * vs
+        d = rng.normal(size=(m, 3))
+        d[np.arange(m) % 3 == 0, ax[np.arange(m) % 3 == 0]] = 0.0
+        d[np.arange(m) % 9 == 0, (ax[np.arange(m) % 9 == 0] + 1) % 3] = 0.0
+        d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+        o = (p - d * np.float32(0.7 * extent)).astype(np.float32)
+        return (o, d, np.full(m, TMIN, np.float32),
+                np.full(m, TMAX, np.float32))
+    off = [0.25, 0.12, -0.2] if kind == "inside" else [0.9, 0.55, -0.9]
+    cam = Camera(eye=tuple(center + np.asarray(off) * extent),
+                 center=tuple(center))
+    _, _, vi, pi = cam.matrices(64, 48)
+    o, d = make_camera_rays(64, 48, vi, pi)
+    o, d = o.reshape(-1, 3).numpy().copy(), d.reshape(-1, 3).numpy().copy()
+    tmn = np.full(len(o), TMIN, np.float32)
+    tmx = np.full(len(o), TMAX, np.float32)
+    if kind == "shadow":
+        t, _, _, _, _ = tri_march_plain(*map(torch.from_numpy,
+                                             (o, d, tmn, tmx)), ta)
+        hit = np.isfinite(t.numpy())
+        p = (o[hit] + d[hit] * t.numpy()[hit, None]).astype(np.float32)
+        # a light behind the mesh: most shadow rays cross it
+        light = (center + np.asarray([-1.2, 1.5, 1.1]) * extent)
+        to_l = (light - p).astype(np.float32)
+        dist = np.linalg.norm(to_l, axis=1).astype(np.float32)
+        return (p, (to_l / dist[:, None]).astype(np.float32),
+                np.full(len(p), TMIN, np.float32), dist)
+    return o, d, tmn, tmx
+
+
+@pytest.mark.parametrize("name,res", [("icosphere", 24), ("knot", 32),
+                                      ("pair", 192)])
+@pytest.mark.parametrize("kind", ["camera", "inside", "shadow", "grazing"])
+@pytest.mark.parametrize("two_level", [False, True])
+def test_host_tri_march_matches_plain(host_kernels, name, res, kind,
+                                      two_level):
+    """The march kernel built for the host (its warps one lane wide, so
+    the lane takes a new ray from the counter after every lap, as on the
+    card) against tri_march_plain (the lap loop over the staged walk): t
+    and id bit-equal, u and v bit-equal where there is a hit, unresolved
+    0 on both sides.  The pair's grid has an empty superbrick, so its
+    two-level walk takes the landing step."""
+    tri, ta = _tri_scene(name, res)
+    o, d, tmn, tmx = _tri_rays(kind, tri, ta, np.random.default_rng(res))
+    t = torch.from_numpy
+    want = tri_march_plain(t(o), t(d), t(tmn), t(tmx), ta,
+                           two_level=two_level)
+    n = len(o)
+    hit = want[1] >= 0
+    assert want[4] == 0 and int(hit.sum()) > 20
+    outs = (torch.empty(n), torch.empty(n, dtype=torch.int32),
+            torch.empty(n), torch.empty(n), torch.zeros(1, dtype=torch.int64))
+    args = tri_march._launch_args(
+        t(o), t(d), t(tmn), t(tmx), ta, ta.brick.l2 if two_level else None,
+        outs, torch.zeros(1, dtype=torch.int32))
+    host_kernels["tri_march"](*[x.data_ptr() if torch.is_tensor(x) else x
+                                for x in args])
+    got_t, got_id, got_u, got_v, unresolved = outs
+    assert int(unresolved) == 0
+    assert torch.equal(got_id, want[1])
+    assert torch.equal(got_t, want[0])
+    assert torch.equal(got_u[hit], want[2][hit])
+    assert torch.equal(got_v[hit], want[3][hit])
+    if name == "pair":
+        n_sup = int(np.prod([-(-b // 8) for b in ta.brick.bdims]))
+        bits = np.unpackbits(ta.brick.l2.numpy().view(np.uint8),
+                             bitorder="little")[:n_sup]
+        assert n_sup > 1 and not bits.all()
+
+
+@pytest.fixture(scope="module")
+def counting_march(tmp_path_factory):
+    """tri_march built for the host with two counters added: the brick
+    walk's iterations in staged_first_cell and K4's cell steps in
+    fine_brick.  Returns a launcher with host_launch's arguments that
+    gives (brick steps, cell steps)."""
+    out = tmp_path_factory.mktemp("counting_march")
+    hdr = (CSRC / "brick_walk.cuh").read_text()
+    cell_loop = "  for (int step = 0; step < kSteps; ++step) {\n"
+    assert hdr.count(cell_loop) == 1
+    hdr = hdr.replace("namespace {\n", "static unsigned long long "
+                      "g_bricks = 0, g_cells = 0;\nnamespace {\n", 1)
+    (out / "brick_walk.cuh").write_text(
+        hdr.replace(cell_loop, cell_loop + "    ++g_cells;\n"))
+    src = (CSRC / "tri_march.cu").read_text()
+    brick_loop = ("    for (int step = 0; step < max_steps && active; "
+                  "++step) {\n")
+    assert src.count(brick_loop) == 1
+    driver, argtypes = DRIVERS["tri_march"]
+    lib = _host_build(out, "tri_march_counting",
+                      src.replace(brick_loop, brick_loop + "      ++g_bricks;\n"),
+                      driver + '''
+extern "C" void host_counts(unsigned long long* c) {
+  c[0] = g_bricks;
+  c[1] = g_cells;
+  g_bricks = g_cells = 0;
+}
+''', out)
+    lib.host_launch.argtypes = argtypes
+    lib.host_launch.restype = None
+
+    def run(*args):
+        lib.host_launch(*args)
+        c = (ctypes.c_ulonglong * 2)()
+        lib.host_counts(c)
+        return int(c[0]), int(c[1])
+    return run
+
+
+@pytest.mark.parametrize("name,res", [("icosphere", 24), ("knot", 32),
+                                      ("pair", 192)])
+@pytest.mark.parametrize("kind", ["camera", "grazing"])
+def test_host_tri_march_work_count_is_the_kernels(counting_march, name, res,
+                                                   kind):
+    """chip_smoke.py's bound for tri_march counts the march's brick and
+    cell steps from the plain lap loop (march_work); the count must be
+    the very steps the kernel takes, not the lap loop's own (K3 walks on
+    past the brick where K4 decides the hit, the kernel does not)."""
+    import sys
+    sys.path.insert(0, str(HERE.parent))
+    from chip_smoke import march_work
+    tri, ta = _tri_scene(name, res)
+    o, d, tmn, tmx = map(torch.from_numpy, _tri_rays(
+        kind, tri, ta, np.random.default_rng(res)))
+    n = o.shape[0]
+    outs = (torch.empty(n), torch.empty(n, dtype=torch.int32),
+            torch.empty(n), torch.empty(n), torch.zeros(1, dtype=torch.int64))
+    args = tri_march._launch_args(o, d, tmn, tmx, ta, None, outs,
+                                  torch.zeros(1, dtype=torch.int32))
+    bricks, cells = counting_march(*[x.data_ptr() if torch.is_tensor(x)
+                                     else x for x in args])
+    want, work, _ = march_work(o, d, tmn, tmx, ta)
+    assert torch.equal(outs[1], want[1])
+    assert cells > 0 and bricks > 0
+    assert (work["brick_steps"], work["cell_steps"]) == (bricks, cells)

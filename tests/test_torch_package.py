@@ -20,8 +20,9 @@ from voxelray_torch.io import meshes
 from voxelray_torch.ops import geometry
 from voxelray_torch.ops.intersect import make_camera_rays
 from voxelray_torch.ops.kernels import (_build, brick_fine, grid_walk,
-                                        mega_trace, voxel_accum)
+                                        mega_trace, tri_march, voxel_accum)
 from voxelray_torch.ops.traverse_fast import build_accel, trace_grid_fast
+from voxelray_torch.ops.tri_accel import build_tri_accel, trace_triangles_grid
 from voxelray_torch.ops.voxelize import voxelize_plain
 from voxelray_torch.render.camera import Camera
 
@@ -120,6 +121,38 @@ def test_cuda_entry_points_refuse_cpu_tensors():
                                    accel.coarse, **kw)
     with pytest.raises(ValueError, match="unsupported device"):
         trace_grid_fast(meta, meta, accel, mega=False)
+    v, f, *_ = _small_scene()
+    ta = build_tri_accel(v[f][:, 0], v[f][:, 1], v[f][:, 2], res=8,
+                         device="cpu")
+    with pytest.raises(ValueError):
+        tri_march.tri_march_cuda(torch.zeros((n, 3)), torch.ones((n, 3)),
+                                 cpu, cpu + 1, ta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        trace_triangles_grid(meta, meta, ta)
+
+
+def test_cpu_triangle_trace_takes_the_plain_march():
+    """trace_triangles_grid on CPU tensors runs tri_march_plain (the lap
+    loop over the plain K3 and K4), launching no kernel."""
+    v, f, *_ = _small_scene()
+    tri = v[f]
+    ta = build_tri_accel(tri[:, 0], tri[:, 1], tri[:, 2], res=16,
+                         device="cpu")
+    cam = Camera(eye=(2.5, 1.5, -2.5), center=(0.0, 0.0, 0.0))
+    _, _, vi, pi = cam.matrices(64, 32)
+    o, d = make_camera_rays(64, 32, vi, pi)
+    tri_march.launches = grid_walk.launches = brick_fine.launches = 0
+    t, pid, u, v_, unresolved = trace_triangles_grid(o, d, ta,
+                                                     return_stats=True)
+    n = 64 * 32
+    want = tri_march.tri_march_plain(
+        o.reshape(-1, 3), d.reshape(-1, 3), torch.full((n,), 0.001),
+        torch.full((n,), 10000.0), ta)
+    for a, b in zip((t, pid, u, v_), want):
+        assert torch.equal(a.reshape(-1), b)
+    assert unresolved == want[4] == 0 and (pid >= 0).sum() > 100
+    assert tri_march.launches == grid_walk.launches == 0
+    assert brick_fine.launches == 0
 
 
 def test_nvcc_command_targets_hopper_without_fma_contraction():
@@ -134,8 +167,25 @@ def test_nvcc_command_targets_hopper_without_fma_contraction():
     assert "-shared" in link
     srcs = {Path(c).name for cmd in compiles for c in cmd if c.endswith(".cu")}
     assert srcs == {"voxel_accum.cu", "mega_trace.cu", "grid_walk.cu",
-                    "brick_fine.cu"}
+                    "brick_fine.cu", "tri_march.cu"}
     assert len(compiles) == len(srcs)
+    # the shared header brick_walk.cuh is found through -I csrc
+    for cmd in compiles:
+        assert cmd[cmd.index("-I") + 1] == str(_build.CSRC_DIR)
+    assert (_build.CSRC_DIR / "brick_walk.cuh") in _build.headers()
+
+
+def test_build_key_covers_the_shared_headers(monkeypatch, tmp_path):
+    """An edit to a csrc/*.cuh header changes the library's key, so the
+    next load rebuilds instead of loading a stale library."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    key = _build._key()
+    assert _build._key() == key
+    header = csrc / "brick_walk.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build._key() != key
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -255,3 +305,35 @@ def test_staged_kernels_match_plain_versions_on_cuda(cuda):
                                              return_stats=True)
     t_m, lin_m = trace_grid_fast(o, d, accel)
     assert unresolved == 0 and torch.equal(lin_s, lin_m)
+
+
+@pytest.mark.cuda
+def test_tri_march_matches_the_lap_loop_on_cuda(cuda):
+    """The march kernel on the card against the lap loop on the same card
+    (its staged walk launching K3 and K4): t and id bit-equal, u and v
+    where there is a hit, one launch, unresolved 0."""
+    v, f, *_ = _small_scene()
+    tri = v[f]
+    ta = build_tri_accel(tri[:, 0], tri[:, 1], tri[:, 2], res=24,
+                         device=cuda)
+    cam = Camera(eye=(2.5, 1.5, -2.5), center=(0.0, 0.0, 0.0))
+    _, _, vi, pi = cam.matrices(128, 64)
+    o, d = make_camera_rays(128, 64, vi, pi, device=cuda)
+    o, d = o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous()
+    n = o.shape[0]
+    tmn = torch.full((n,), 0.001, device=cuda)
+    tmx = torch.full((n,), 10000.0, device=cuda)
+    for two_level in (False, True):
+        want = tri_march.tri_march_plain(o, d, tmn, tmx, ta,
+                                         two_level=two_level)
+        hit = want[1] >= 0
+        assert int(hit.sum()) > 500 and want[4] == 0
+        before = tri_march.launches
+        got = tri_march.tri_march_cuda(o, d, tmn, tmx, ta,
+                                       two_level=two_level)
+        torch.cuda.synchronize()
+        assert tri_march.launches == before + 1 and int(got[4]) == 0
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[2][hit], want[2][hit])
+        assert torch.equal(got[3][hit], want[3][hit])

@@ -38,6 +38,9 @@
 // is copied into shared memory once per block.  Rays arrive in the 8x128
 // tile order of render_image, so a warp walks neighbouring pixels.
 //
+// The walk itself (walk_init, walk_land, walk_occupied, walk_step) is in
+// brick_walk.cuh, shared with K4 and the triangle march.
+//
 // Numerics: built with --fmad=false and without fast math (see
 // ops/kernels/_build.py): every product, sum and division rounds as in the
 // plain PyTorch version, so the brick sequence and the state are
@@ -46,36 +49,9 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "brick_walk.cuh"
+
 namespace {
-
-struct WalkGrid {
-  int bx, by, bz, sbx, sby;
-  float ogx, ogy, ogz, bw;
-};
-
-__device__ __forceinline__ float jmin(float a, float b) {
-  return (isnan(a) || isnan(b)) ? __int_as_float(0x7fc00000) : fminf(a, b);
-}
-__device__ __forceinline__ float jmax(float a, float b) {
-  return (isnan(a) || isnan(b)) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
-}
-__device__ __forceinline__ int clampi(int x, int lo, int hi) {
-  return min(max(x, lo), hi);
-}
-// floor(x) as an int: NaN -> 0, clamped to +-2^30 (geometry.floor_cell)
-__device__ __forceinline__ int floor_cell(float x) {
-  if (isnan(x)) return 0;
-  return static_cast<int>(
-      fminf(fmaxf(floorf(x), -1073741824.0f), 1073741824.0f));
-}
-__device__ __forceinline__ bool bit_at(const uint32_t* table, int lin) {
-  return (table[lin >> 5] >> (lin & 31)) & 1u;
-}
-__device__ __forceinline__ bool in_grid(const WalkGrid& g, int cx, int cy,
-                                        int cz) {
-  return cx >= 0 && cx < g.bx && cy >= 0 && cy < g.by && cz >= 0 &&
-         cz < g.bz;
-}
 
 // o, d: (n, 3); t_max: (n,).  Entry state either from (cell_in (n, 3),
 // active_in (n,)) or, when cell_in is null, from _fused_init with t_min.
@@ -95,38 +71,13 @@ __global__ void grid_walk_kernel(
   }
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const float inf = __int_as_float(0x7f800000);
-  const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
-  const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
   const float tmax = t_max[i];
-  const float inv_x = 1.0f / dx, inv_y = 1.0f / dy, inv_z = 1.0f / dz;
-  const int sx = dx >= 0.0f ? 1 : -1;
-  const int sy = dy >= 0.0f ? 1 : -1;
-  const int sz = dz >= 0.0f ? 1 : -1;
-  const int fx = sx > 0, fy = sy > 0, fz = sz > 0;
+  const Ray r = load_ray(o, d, i, 0.0f, tmax);
 
   int cx, cy, cz;
   bool active;
   if (cell_in == nullptr) {
-    // _fused_init: bbox clip, t_min fast-forward, entry brick
-    const float gmx = g.ogx + static_cast<float>(g.bx) * g.bw;
-    const float gmy = g.ogy + static_cast<float>(g.by) * g.bw;
-    const float gmz = g.ogz + static_cast<float>(g.bz) * g.bw;
-    const float tbx = inv_x * (g.ogx - ox), tby = inv_y * (g.ogy - oy),
-                tbz = inv_z * (g.ogz - oz);
-    const float ttx = inv_x * (gmx - ox), tty = inv_y * (gmy - oy),
-                ttz = inv_z * (gmz - oz);
-    const float t_enter = jmax(jmax(jmin(tbx, ttx), jmin(tby, tty)),
-                               jmin(tbz, ttz));
-    const float t_exit = jmin(jmin(jmax(tbx, ttx), jmax(tby, tty)),
-                              jmax(tbz, ttz));
-    const float lo = jmax(jmax(t_enter, 0.0f), t_min[i]);
-    const float t_start = lo + 1e-7f;
-    active = (t_exit > jmax(t_enter, 0.0f)) && (t_start <= tmax) &&
-             (t_start <= t_exit + 1e-7f);
-    cx = clampi(floor_cell((ox + dx * t_start - g.ogx) / g.bw), 0, g.bx - 1);
-    cy = clampi(floor_cell((oy + dy * t_start - g.ogy) / g.bw), 0, g.by - 1);
-    cz = clampi(floor_cell((oz + dz * t_start - g.ogz) / g.bw), 0, g.bz - 1);
+    active = walk_init(g, r, t_min[i], cx, cy, cz);
   } else {
     cx = cell_in[3 * i];
     cy = cell_in[3 * i + 1];
@@ -138,52 +89,13 @@ __global__ void grid_walk_kernel(
   int nhit = 0;
   const int max_steps = g.bx + g.by + g.bz + 3;
   for (int step = 0; step < max_steps && active; ++step) {
-    if (l2 != nullptr) {
-      const int scx = cx >> 3, scy = cy >> 3, scz = cz >> 3;
-      if (!bit_at(s_l2, scx + g.sbx * (scy + g.sby * scz))) {
-        // empty superbrick: land on the last brick the ray touches in it
-        float tsx = (g.ogx + static_cast<float>((scx + fx) * 8) * g.bw - ox) *
-                    inv_x;
-        float tsy = (g.ogy + static_cast<float>((scy + fy) * 8) * g.bw - oy) *
-                    inv_y;
-        float tsz = (g.ogz + static_cast<float>((scz + fz) * 8) * g.bw - oz) *
-                    inv_z;
-        if (dx == 0.0f) tsx = inf;
-        if (dy == 0.0f) tsy = inf;
-        if (dz == 0.0f) tsz = inf;
-        const float t_ex = jmin(tsx, jmin(tsy, tsz));
-        const int lx = clampi(floor_cell((ox + dx * t_ex - g.ogx) / g.bw) - sx,
-                              scx * 8, scx * 8 + 7);
-        const int ly = clampi(floor_cell((oy + dy * t_ex - g.ogy) / g.bw) - sy,
-                              scy * 8, scy * 8 + 7);
-        const int lz = clampi(floor_cell((oz + dz * t_ex - g.ogz) / g.bw) - sz,
-                              scz * 8, scz * 8 + 7);
-        cx = sx > 0 ? max(lx, cx) : min(lx, cx);
-        cy = sy > 0 ? max(ly, cy) : min(ly, cy);
-        cz = sz > 0 ? max(lz, cz) : min(lz, cz);
-      }
-    }
-    // a landing in a superbrick that sticks out of the grid can lie
-    // outside it; such a cell is empty (its lin would alias another row)
-    const int lin = cx + g.bx * (cy + g.by * cz);
-    const bool occ = in_grid(g, cx, cy, cz) &&
-                     ((__ldg(coarse + (lin >> 5)) >> (lin & 31)) & 1u);
-    if (occ) hits_out[(nhit++) * n + i] = lin;
+    if (l2 != nullptr) walk_land(g, r, s_l2, cx, cy, cz);
+    int lin;
+    if (walk_occupied<true>(g, coarse, cx, cy, cz, lin))
+      hits_out[(nhit++) * n + i] = lin;
     // one exact brick step; the lane that filled its last slot steps too,
     // so its cell is the resume position
-    float tx = (g.ogx + static_cast<float>(cx + fx) * g.bw - ox) * inv_x;
-    float ty = (g.ogy + static_cast<float>(cy + fy) * g.bw - oy) * inv_y;
-    float tz = (g.ogz + static_cast<float>(cz + fz) * g.bw - oz) * inv_z;
-    if (dx == 0.0f) tx = inf;
-    if (dy == 0.0f) ty = inf;
-    if (dz == 0.0f) tz = inf;
-    const float tmn = jmin(tx, jmin(ty, tz));
-    if (tx == tmn)
-      cx += sx;
-    else if (ty == tmn)
-      cy += sy;
-    else
-      cz += sz;
+    const float tmn = walk_step(g, r, cx, cy, cz);
     active = nhit < k_hits && in_grid(g, cx, cy, cz) && tmn <= tmax;
   }
   cell_out[3 * i] = cx;

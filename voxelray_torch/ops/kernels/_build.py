@@ -5,7 +5,8 @@ PyTorch headers, so a build takes seconds).  Every source compiles in
 its own nvcc process, all started together, then one nvcc links them:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-         -Xptxas=-v -Xcompiler -fPIC -c -o <name>.o csrc/<name>.cu  (each)
+         -Xptxas=-v -Xcompiler -fPIC -I csrc -c -o <name>.o csrc/<name>.cu
+                                                                   (each)
     nvcc -gencode arch=compute_90a,code=sm_90a -shared -o
          libvoxelray_kernels.so *.o
 
@@ -15,8 +16,9 @@ versions (whose elementwise ops never contract); no --use_fast_math, so
 IEEE division, no flush-to-zero and precise sqrt stay on.
 
 The library lands in voxelray_torch/_build/<hash>/, keyed by a hash of
-the sources and flags.  It is built under a temporary name and moved into
-place with os.replace, so two processes never load a half-written file.
+the sources, the headers they share (csrc/*.cuh) and the flags.  It is
+built under a temporary name and moved into place with os.replace, so two
+processes never load a half-written file.
 Nothing is downloaded; a machine without nvcc gets a RuntimeError.
 """
 from __future__ import annotations
@@ -47,12 +49,17 @@ def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def nvcc_commands(nvcc: str, out: str | os.PathLike):
     """(compile commands, one per source, and the link command) that build
     the library into `out`; objects go beside it."""
     out = Path(out)
     objs = [out.parent / (src.stem + ".o") for src in sources()]
-    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+    compiles = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o",
+                 str(obj), str(src)]
                 for src, obj in zip(sources(), objs)]
     link = [nvcc, *ARCH, "-shared", "-o", str(out), *map(str, objs)]
     return compiles, link
@@ -74,7 +81,7 @@ def _key() -> str:
     h = hashlib.sha256()
     for flag in NVCC_FLAGS:
         h.update(flag.encode() + b"\0")
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     return h.hexdigest()[:16]
 

@@ -46,11 +46,13 @@ def _consts(origin_key, voxel_size, bdims):
 
 
 def fine_plain(o, d, bricks, fine, t_min, t_max, *, dims, bdims,
-               origin_key, voxel_size, count_steps=False):
+               origin_key, voxel_size, count_steps=False, per_hit=False):
     """Plain version.  o, d: (N, 3) float32; bricks (K, N) int32; fine
     (16, NB) int32 words; t_min, t_max (N,) float32.  Returns (t, lin),
     and with count_steps=True also the cell steps summed over rays and
-    slots: the kernel's per-thread steps on the same inputs."""
+    slots: the kernel's per-thread steps on the same inputs; with
+    per_hit=True too, last, the (N,) int64 slot at which each ray's hit
+    was decided (K where it was not)."""
     nx, ny, _ = dims
     bx, by, bz = bdims
     og32, vs32, half32, bwf32, scale32 = _consts(origin_key, voxel_size,
@@ -113,6 +115,8 @@ def fine_plain(o, d, bricks, fine, t_min, t_max, *, dims, bdims,
                                best_lin)
 
     steps = torch.zeros((), dtype=torch.int64, device=dev)
+    decided = torch.full((n,), bricks.shape[0], dtype=torch.int64,
+                         device=dev)
     for s in range(bricks.shape[0]):
         bid = bricks[s].to(i32)
         act = (bid >= 0) & ~done
@@ -204,7 +208,9 @@ def fine_plain(o, d, bricks, fine, t_min, t_max, *, dims, bdims,
             inb = ((loc[0] >= 0) & (loc[0] < BRICK) & (loc[1] >= 0)
                    & (loc[1] < BRICK) & (loc[2] >= 0) & (loc[2] < BRICK))
             act = act & inb & (tmn <= t_max)
-    return (best_t, best_lin) + ((int(steps),) if count_steps else ())
+        decided = torch.where(done & (decided > s), s, decided)
+    out = (best_t, best_lin) + ((int(steps),) if count_steps else ())
+    return out + (decided,) if per_hit else out
 
 
 def _lib():

@@ -46,13 +46,17 @@ def _consts(origin_key, brick_world):
 
 
 def walk_plain(o, d, t_min, t_max, cell, active, coarse, l2, *, bdims,
-               origin_key, brick_world, k_hits, count_steps=False):
+               origin_key, brick_world, k_hits, count_steps=False,
+               per_hit=False):
     """Plain version of the walk.  o, d: (N, 3) float32; t_max (N,); the
     entry state is (cell (N, 3) int32, active (N,)) or, with cell None,
     the fused init from t_min (N,).  coarse, l2: int32 word tables (l2
     None: single level).  Returns (hits (k, N), cell (N, 3), cont (N,)),
     and with count_steps=True also the number of loop iterations summed
-    over the rays: the kernel's per-thread steps on the same inputs."""
+    over the rays: the kernel's per-thread steps on the same inputs.
+    per_hit=True counts per ray instead: an int64 (k, N) tensor whose row
+    s holds each ray's iterations up to and including the one that found
+    its hit s (all of its iterations where it found none)."""
     bx, by, bz = bdims
     sbx, sby = -(-bx // 8), -(-by // 8)
     og32, bw32 = _consts(origin_key, brick_world)
@@ -94,11 +98,16 @@ def walk_plain(o, d, t_min, t_max, cell, active, coarse, l2, *, bdims,
                 & (c[2] >= 0) & (c[2] < bz))
 
     steps = torch.zeros((), dtype=torch.int64, device=dev)
+    if per_hit:
+        ray_steps = torch.zeros((n,), dtype=torch.int64, device=dev)
+        hit_steps = torch.zeros((k_hits, n), dtype=torch.int64, device=dev)
     for _ in range(bx + by + bz + 3):
         if not bool(act.any()):
             break
         if count_steps:
             steps += act.sum()
+        if per_hit:
+            ray_steps += act
         if l2 is not None:
             sc = [x >> 3 for x in c]
             skip = act & ~_bit(l2, sc[0] + sbx * (sc[1] + sby * sc[2]))
@@ -119,6 +128,9 @@ def walk_plain(o, d, t_min, t_max, cell, active, coarse, l2, *, bdims,
         hit_now = act & in_grid(c) & _bit(coarse, lin)
         for s in range(k_hits):
             hits[s] = torch.where(hit_now & (nhit == s), lin, hits[s])
+            if per_hit:
+                hit_steps[s] = torch.where(hit_now & (nhit == s), ray_steps,
+                                           hit_steps[s])
         nhit = nhit + hit_now.to(i32)
         t = [torch.where(da[a] == 0.0, inf, (og[a] + (c[a] + fwd[a]).to(
             torch.float32) * bw - oa[a]) * inv[a]) for a in range(3)]
@@ -131,6 +143,8 @@ def walk_plain(o, d, t_min, t_max, cell, active, coarse, l2, *, bdims,
         act = act & (nhit < k_hits) & in_grid(c) & (tmn <= t_max)
     cont = in_grid(c) & (act | (nhit >= k_hits))
     out = (hits, torch.stack(c, dim=1), cont.to(i32))
+    if per_hit:
+        return out + (torch.where(hits >= 0, hit_steps, ray_steps),)
     return out + (int(steps),) if count_steps else out
 
 

@@ -109,6 +109,19 @@ def build_accel(occ, origin, voxel_size) -> BrickAccel:
         fine_sb=build_fine_sb(fine, (bx, by, bz)))
 
 
+def use_two_level(accel, two_level):
+    """The staged walk's superbrick skip: two_level, or with None the
+    skip when `coarse` has more than 4 rows."""
+    return accel.coarse.shape[0] > 4 if two_level is None else bool(two_level)
+
+
+def max_drain_laps(bdims):
+    """Drain laps of one staged trace at most: each consumes _DRAIN_K
+    occupied bricks of a walk of at most bx+by+bz+3 steps."""
+    bx, by, bz = bdims
+    return (bx + by + bz + 3 + _DRAIN_K - 1) // _DRAIN_K + 1
+
+
 def _trace_staged(o, d, accel, tmn, tmx, admit, k_hits, two_level):
     """The staged trace over (N, 3) rays with (N,) bounds.
 
@@ -124,10 +137,7 @@ def _trace_staged(o, d, accel, tmn, tmx, admit, k_hits, two_level):
     that bound and is 0 by construction.
     """
     n, dev = o.shape[0], o.device
-    bx, by, bz = accel.bdims
-    use_l2 = (accel.coarse.shape[0] > 4 if two_level is None
-              else bool(two_level))
-    l2 = accel.l2 if use_l2 else None
+    l2 = accel.l2 if use_two_level(accel, two_level) else None
     wkw = dict(bdims=accel.bdims, origin_key=accel.origin_key,
                brick_world=float(accel.voxel_size * BRICK))
     fkw = dict(dims=accel.dims, bdims=accel.bdims,
@@ -143,7 +153,7 @@ def _trace_staged(o, d, accel, tmn, tmx, admit, k_hits, two_level):
         hits, cell, cont = coarse_walk_init(o[idx], d[idx], tmn[idx],
                                             tmx[idx], accel.coarse, l2,
                                             k_hits=k_hits, **wkw)
-    max_laps = (bx + by + bz + 3 + _DRAIN_K - 1) // _DRAIN_K + 1
+    max_laps = max_drain_laps(accel.bdims)
     for lap in range(max_laps + 1):
         t, lin = fine_walk_multi(o[idx], d[idx], hits, accel.fine, tmn[idx],
                                  tmx[idx], **fkw)
