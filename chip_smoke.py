@@ -21,7 +21,9 @@ plain PyTorch version on the same inputs on the card and timed beside it
 kernels and fully plain, on the frame's primary and shadow rays), the
 traces are checked against the exhaustive references, and whole frames
 are timed (the triangle frame also with the lap loop, for the same-run
-before and after).
+before and after).  K1 is also timed alone (no zeroed volume, no sync);
+K2 also on the primary rays of each step class (k2_step_classes) and on
+the shadow pass's admitted rays compacted.
 
     python3 chip_smoke.py
 
@@ -211,28 +213,30 @@ def mega_work(o, d, tmn, tmx, accel):
     occupied brick at a time, which is K2's order: the two-level brick
     walk (empty superbricks skipped) to the next occupied brick, the
     per-voxel walk through it, on until the first accepted cell.
-    Returns (brick steps, cell steps, distinct occupied bricks read,
-    hit cell lin per ray)."""
+    Returns (brick steps, cell steps: (N,) int64 per ray, distinct
+    occupied bricks read, hit cell lin per ray)."""
     import torch
     from voxelray_torch.ops.kernels import brick_fine, grid_walk
     wkw = dict(bdims=accel.bdims, origin_key=accel.origin_key,
                brick_world=float(accel.voxel_size * 8), k_hits=1,
-               count_steps=True)
+               per_hit=True)
     fkw = dict(dims=accel.dims, bdims=accel.bdims,
                origin_key=accel.origin_key, voxel_size=accel.voxel_size,
                count_steps=True)
     n = o.shape[0]
     lin_out = torch.full((n,), -1, dtype=torch.int32, device=o.device)
     idx = torch.arange(n, device=o.device)
-    hits, cell, cont, brick_steps = grid_walk.walk_plain(
+    hits, cell, cont, steps = grid_walk.walk_plain(
         o, d, tmn, tmx, None, None, accel.coarse, accel.l2, **wkw)
-    cell_steps, seen = 0, []
+    brick_steps = steps[0].clone()
+    cell_steps = torch.zeros_like(brick_steps)
+    seen = []
     for _ in range(sum(accel.bdims) + 4):
         seen.append(hits[0])
         t, lin, steps = brick_fine.fine_plain(o[idx], d[idx], hits,
                                               accel.fine, tmn[idx],
                                               tmx[idx], **fkw)
-        cell_steps += steps
+        cell_steps[idx] += steps
         got = torch.isfinite(t)
         lin_out[idx[got]] = lin[got]
         keep = torch.nonzero(~got & (cont > 0)).squeeze(1)
@@ -243,10 +247,41 @@ def mega_work(o, d, tmn, tmx, accel):
             o[idx], d[idx], None, tmx[idx], cell,
             torch.ones(idx.shape, dtype=torch.int32, device=o.device),
             accel.coarse, accel.l2, **wkw)
-        brick_steps += steps
+        brick_steps[idx] += steps[0]
     require(idx.numel() == 0, "K2 work count: rays left at the step bound")
     bricks = torch.unique(torch.cat(seen))
     return brick_steps, cell_steps, int((bricks >= 0).sum()), lin_out
+
+
+def k2_step_classes(brick_steps, cell_steps):
+    """The rays split by their K2 steps (brick + cell steps, mega_work's
+    per-ray counts): {class name: ray indices} for fewer than 8 steps, 8
+    to 31, at least 32 and the longest ray alone, and the step histogram
+    and the SIMT efficiency of one ray per thread in 32-ray warps (the
+    steps over 32 x the sum of each warp's longest ray: the share of
+    lane-steps doing work when a warp runs until its longest ray ends),
+    of brick steps, cell steps and operations (OPS_BRICK, OPS_CELL)."""
+    import torch
+    steps = brick_steps + cell_steps
+
+    def simt(x):
+        w = torch.nn.functional.pad(x, (0, (-x.numel()) % 32)).reshape(-1, 32)
+        return float(x.sum()) / (32 * float(w.amax(1).sum()))
+
+    classes = {"< 8 steps": steps < 8,
+               "8-31 steps": (steps >= 8) & (steps < 32),
+               ">= 32 steps": steps >= 32}
+    idx = {k: torch.nonzero(m).squeeze(1) for k, m in classes.items()}
+    idx["the longest ray"] = torch.argmax(steps)[None]
+    stats = {"rays_with_steps_at_least": {
+                 k: int((steps >= k).sum()) for k in
+                 (1, 2, 4, 8, 16, 32, 64, 128, 256)},
+             "max_steps": int(steps.max()),
+             "simt_efficiency": {
+                 "brick": simt(brick_steps), "cell": simt(cell_steps),
+                 "operations": simt(brick_steps * OPS_BRICK
+                                    + cell_steps * OPS_CELL)}}
+    return idx, stats
 
 
 @contextlib.contextmanager
@@ -292,7 +327,7 @@ def march_work(o, d, tmn, tmx, ta):
         hit_steps = group.pop("hit_steps")
         slot = torch.clamp(decided, max=hit_steps.shape[0] - 1)
         work["brick_steps"] += int(hit_steps.gather(0, slot[None]).sum())
-        work["cell_steps"] += steps
+        work["cell_steps"] += int(steps.sum())
         return tuple(out)
 
     grid_walk.walk_cuda = grid_walk.walk_plain = walk
@@ -414,6 +449,7 @@ def check_fine(what, o, d, bricks, tmn, tmx, accel):
     args = (o, d, bricks, accel.fine, tmn, tmx)
     got = brick_fine.fine_cuda(*args, **kw)
     *want, steps = brick_fine.fine_plain(*args, **kw, count_steps=True)
+    steps = int(steps.sum())
     require(torch.equal(got[1], want[1]), f"{what}: K4 cells differ")
     require(torch.equal(got[0], want[0]), f"{what}: K4 t differ")
     ms = cuda_ms(lambda: brick_fine.fine_cuda(*args, **kw), 5)
@@ -510,6 +546,14 @@ def run(device):
     require((n_cube, cube.set_calls) == (12097, 12858), "cube64 invariants")
     k1_ms = cuda_ms(lambda: voxel_accum.voxel_accum_cuda(
         v_t, f_t, bb_min, vs, grid.dims), 5)
+    # the kernel alone: no zeroed volume, no sync for its counts
+    nx, ny, nz = grid.dims
+    k1_occ = torch.zeros((nz, ny, nx), dtype=torch.uint8, device=device)
+    k1_counts = torch.zeros((2,), dtype=torch.int64, device=device)
+    k1_kernel_ms = cuda_ms(lambda: voxel_accum.launch(
+        v_t, f_t, bb_min, vs, grid.dims, k1_occ, k1_counts), 5)
+    log(f"K1 voxelize ms: wrapper (zeroed volume, kernel, one sync) "
+        f"{k1_ms:.4f}, kernel alone {k1_kernel_ms:.4f}")
     k1_plain_ms = cuda_ms(lambda: voxelize_plain(
         v_t, f_t, bb_min, vs, grid.dims), 1)
     tri = v_t[f_t.long()]
@@ -547,8 +591,8 @@ def run(device):
         o, d, accel, tmn, tmx, ones), 1)
     log(f"K2 primary trace ms ({n} rays): kernel {k2_ms:.3f}, plain "
         f"{k2_plain_ms:.3f}")
-    k2_bsteps, k2_csteps, k2_bricks, lin_w = mega_work(o, d, tmn, tmx,
-                                                       accel)
+    k2_bray, k2_cray, k2_bricks, lin_w = mega_work(o, d, tmn, tmx, accel)
+    k2_bsteps, k2_csteps = int(k2_bray.sum()), int(k2_cray.sum())
     n_sb = accel.fine_sb.shape[0]
     k2_bytes = n * 45 + 4 * accel.l2.numel() + 64 * (n_sb + k2_bricks)
     n_w = int((lin_w != lin_k).sum())
@@ -557,6 +601,18 @@ def run(device):
         f"occupied bricks read, {n_w} rays with another cell than K2's")
     require(n_w <= MAX_DIFF_RAYS, "K2 work count: the counting walk "
             "does not follow K2")
+    # K2 timed on the primary rays of each step class alone
+    classes, k2_stats = k2_step_classes(k2_bray, k2_cray)
+    split = {}
+    for name, idx in classes.items():
+        sub = (o[idx].contiguous(), d[idx].contiguous(), accel,
+               tmn[idx].contiguous(), tmx[idx].contiguous(),
+               ones[idx].contiguous())
+        split[name] = [idx.numel(), round(cuda_ms(
+            lambda: mega_trace.trace_grid_mega_cuda(*sub), 5), 4)]
+    log(f"K2 primary steps per ray: {json.dumps(k2_stats)}")
+    log(f"K2 primary by step class [rays, kernel ms]: {json.dumps(split)}; "
+        f"all {n} rays {k2_ms:.4f} ms")
 
     surf = pipeline.surface_terms(scene, o, d, t_k, lin_k)
     so, sd, sdist = surf.world_pos, surf.l_vec.contiguous(), surf.light_dist
@@ -578,10 +634,21 @@ def run(device):
     k2s_plain_ms = cuda_ms(lambda: mega_trace.trace_grid_mega_plain(
         so, sd, accel, stmn, sdist, admit), 1)
     log(f"K2 shadow trace ms: kernel {k2s_ms:.3f}, plain {k2s_plain_ms:.3f}")
-    # K2's own work on the admitted shadow rays, counted as for primary
+    # the admitted shadow rays compacted on the host, against the masked
+    # launch of the whole frame
     adm = torch.nonzero(admit).squeeze(1)
-    s_bsteps, s_csteps, s_bricks, _ = mega_work(so[adm], sd[adm], stmn[adm],
-                                                sdist[adm], accel)
+    cargs = (so[adm].contiguous(), sd[adm].contiguous(), accel,
+             stmn[adm].contiguous(), sdist[adm].contiguous(),
+             admit[adm].contiguous())
+    c_t, c_lin, _ = mega_trace.trace_grid_mega_cuda(*cargs)
+    require(torch.equal(c_t, s_k[adm]) and torch.equal(c_lin, slin_k[adm]),
+            "K2 shadow: the compacted rays differ from the masked launch")
+    k2s_c_ms = cuda_ms(lambda: mega_trace.trace_grid_mega_cuda(*cargs), 5)
+    log(f"K2 shadow: {adm.numel()} admitted rays compacted {k2s_c_ms:.4f} "
+        f"ms, masked launch over {n} rays {k2s_ms:.4f} ms")
+    # K2's own work on the admitted shadow rays, counted as for primary
+    s_bray, s_cray, s_bricks, _ = mega_work(*cargs[:2], *cargs[3:5], accel)
+    s_bsteps, s_csteps = int(s_bray.sum()), int(s_cray.sum())
     k2s_bytes = n * 13 + adm.numel() * 32 + 4 * accel.l2.numel() \
         + 64 * (n_sb + s_bricks)
     k2s_b_ms, k2s_b_by = bound(k2s_bytes, s_bsteps * OPS_BRICK

@@ -1,34 +1,51 @@
 #!/usr/bin/env python3
-"""K3 grid_walk of two source trees, timed in turns on one card.
+"""K1, K2 or K3 of two source trees, timed in turns on one card.
 
 Each tree is a checkout of this repository (this one, and another commit
 unpacked with `git archive` into a directory that .gitignore lists).
 For each tree in the order A, B, B, A a child process imports that
-tree's voxelray_torch, builds its kernel library, builds chip_smoke.py's
-voxel scene (the 1,048,576-triangle torus knot at 512^3) and the bench
-camera's 1920x1080 rays in render_image's tile order, and times K3 with
-CUDA events on the staged walk's two inputs that chip_smoke.py checks:
-round 1 (fused init, k 5, every ray) and the resume (k 8, the rays that
-go on).  Each run prints one JSON line: the tree, the mean ms of REPS
-calls ROUNDS times over, a checksum of the outputs (equal across trees
-when their kernels agree) and ptxas's report for grid_walk_kernel.  The
-card's name and power limit come last.
+tree's voxelray_torch, builds its kernel library and chip_smoke.py's
+inputs (the 1,048,576-triangle torus knot, voxelized to 512^3, and the
+bench camera's 1920x1080 rays in render_image's tile order), and times
+one kernel with CUDA events:
 
-    python3 scripts/torch_k3_ab.py TREE_A TREE_B [OUT.json]
+  k1  voxel_accum on the knot at 512^3: the wrapper (zeroed volume,
+      launch, sync) and the kernel alone;
+  k2  mega_trace on the primary rays, on the frame's shadow pass (the
+      masked launch over every ray, and its admitted rays compacted),
+      and on the primary rays of each step class of
+      chip_smoke.k2_step_classes, which a first child on this checkout
+      counts (chip_smoke.mega_work) and saves for the others;
+  k3  grid_walk on the staged walk's two inputs that chip_smoke.py
+      checks: round 1 (fused init, k 5, every ray) and the resume (k 8,
+      the rays that go on).
+
+Each run prints one JSON line: the tree, the mean ms of REPS calls ROUNDS
+times over, a checksum of the outputs (equal across trees when their
+kernels agree) and ptxas's report for the kernel.  The card's name and
+power limit come last.
+
+    python3 scripts/torch_k3_ab.py [--kernel k1|k2|k3] TREE_A TREE_B [OUT.json]
 
 Needs one CUDA device and nvcc; imports no JAX.
 """
 from __future__ import annotations
 
+import argparse
+import hashlib
 import json
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
+REPO = Path(__file__).resolve().parents[1]
 MESH = dict(p=2, q=3, segments=1024, tube_segments=512)
 GRID_RES = 512
 WIDTH, HEIGHT = 1920, 1080
 REPS, ROUNDS = 50, 5
+ENTRY = {"k1": "voxel_accum_kernel", "k2": "mega_trace_kernel",
+         "k3": "grid_walk_kernel"}
 
 
 def ptxas_report(log, kernel):
@@ -43,17 +60,41 @@ def ptxas_report(log, kernel):
     return out
 
 
-def child(tree):
-    sys.path.insert(0, str(Path(tree).resolve()))
+def sha(*tensors):
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def timed(fn):
+    """ROUNDS means of REPS calls of fn, in device ms (after a warm-up)."""
+    import torch
+    out = []
+    fn()
+    for _ in range(ROUNDS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(REPS):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / REPS)
+    return out
+
+
+def inputs(tree):
+    """The knot, its grid parameters and the bench camera's tiled rays on
+    the card, from the tree's voxelray_torch (first on the path)."""
     import numpy as np
     import torch
     import voxelray_torch
     from voxelray_torch.io import meshes
-    from voxelray_torch.models.grids import GridBool
-    from voxelray_torch.models.scene import build_scene
     from voxelray_torch.ops import geometry
-    from voxelray_torch.ops.intersect import TMAX, TMIN, make_camera_rays
-    from voxelray_torch.ops.kernels import _build, grid_walk
+    from voxelray_torch.ops.intersect import make_camera_rays
+    from voxelray_torch.ops.kernels import _build
     from voxelray_torch.render import pipeline
     from voxelray_torch.render.camera import Camera
 
@@ -70,11 +111,120 @@ def child(tree):
     cam = Camera(eye=tuple(center + np.asarray([0.9, 0.55, -0.9]) * extent),
                  center=tuple(center))
     _, _, vi, pi = cam.matrices(WIDTH, HEIGHT)
-    accel = build_scene(grid=GridBool.from_mesh(v, f, vs, device=dev),
-                        device=dev).accel
     o, d = make_camera_rays(WIDTH, HEIGHT, vi, pi, device=dev)
     o = pipeline._tile_rays(o, HEIGHT, WIDTH).contiguous()
     d = pipeline._tile_rays(d, HEIGHT, WIDTH).contiguous()
+    return dev, v, f, bb_min, bb_max, vs, o, d
+
+
+def voxel_scene(dev, v, f, vs):
+    from voxelray_torch.models.grids import GridBool
+    from voxelray_torch.models.scene import build_scene
+    return build_scene(grid=GridBool.from_mesh(v, f, vs, device=dev),
+                       device=dev)
+
+
+def k1_kernel_alone(voxel_accum, v, f, origin, vs, dims):
+    """A call of the tree's K1 launch alone: no zeroed volume, no sync."""
+    import numpy as np
+    import torch
+    nx, ny, nz = dims
+    occ = torch.zeros((nz, ny, nx), dtype=torch.uint8, device=v.device)
+    counts = torch.zeros((2,), dtype=torch.int64, device=v.device)
+    if hasattr(voxel_accum, "launch"):
+        return lambda: voxel_accum.launch(v, f, origin, vs, dims, occ,
+                                          counts)
+    # a tree from before the in-kernel face check: no vertex count
+    fn = voxel_accum._lib()
+    org = np.asarray(origin, np.float32)
+    args = (v.data_ptr(), f.data_ptr(), int(f.shape[0]), *map(float, org),
+            float(np.float32(vs)), float(np.float32(vs * 0.5)), nx, ny, nz,
+            occ.data_ptr(), counts.data_ptr())
+    return lambda: fn(*args, torch.cuda.current_stream().cuda_stream)
+
+
+def child_k1(tree):
+    import torch
+    from voxelray_torch.ops import geometry
+    from voxelray_torch.ops.kernels import voxel_accum
+    dev, v, f, bb_min, bb_max, vs, _, _ = inputs(tree)
+    dims = geometry.grid_dims(bb_min, bb_max, vs)
+    v_t, f_t = torch.as_tensor(v, device=dev), torch.as_tensor(f, device=dev)
+    occ, calls = voxel_accum.voxel_accum_cuda(v_t, f_t, bb_min, vs, dims)
+    alone = k1_kernel_alone(voxel_accum, v_t, f_t, bb_min, vs, dims)
+    ms = {"wrapper": timed(lambda: voxel_accum.voxel_accum_cuda(
+              v_t, f_t, bb_min, vs, dims)),
+          "kernel alone": timed(alone)}
+    return {"triangles": len(f), "dims": list(dims), "ms": ms,
+            "checksum": [sha(occ), calls]}
+
+
+def k2_sets(tree):
+    """({name: K2 arguments}, checksum of the outputs) of the tree's
+    primary and shadow rays."""
+    import torch
+    from voxelray_torch.ops.intersect import TMAX, TMIN
+    from voxelray_torch.ops.kernels import mega_trace
+    from voxelray_torch.render import pipeline
+    dev, v, f, _, _, vs, o, d = inputs(tree)
+    scene = voxel_scene(dev, v, f, vs)
+    accel = scene.accel
+    n = o.shape[0]
+    tmn = torch.full((n,), float(TMIN), device=dev)
+    tmx = torch.full((n,), float(TMAX), device=dev)
+    ones = torch.ones((n,), dtype=torch.bool, device=dev)
+    t, lin, _ = mega_trace.trace_grid_mega_cuda(o, d, accel, tmn, tmx, ones)
+    surf = pipeline.surface_terms(scene, o, d, t, lin)
+    so, sd = surf.world_pos, surf.l_vec.contiguous()
+    sdist, admit = surf.light_dist, surf.hit & surf.facing
+    st, slin, _ = mega_trace.trace_grid_mega_cuda(so, sd, accel, tmn, sdist,
+                                                  admit)
+    adm = torch.nonzero(admit).squeeze(1)
+    sets = {"primary": (o, d, accel, tmn, tmx, ones),
+            "shadow, masked": (so, sd, accel, tmn, sdist, admit),
+            "shadow, compacted": (so[adm].contiguous(), sd[adm].contiguous(),
+                                  accel, tmn[adm].contiguous(),
+                                  sdist[adm].contiguous(),
+                                  admit[adm].contiguous())}
+    return sets, sha(t, lin, st, slin)
+
+
+def child_prep(path):
+    """On this checkout: each primary ray's K2 steps, saved as
+    chip_smoke.k2_step_classes' classes."""
+    import torch
+    sys.path[:0] = [str(REPO)]
+    from chip_smoke import k2_step_classes, mega_work
+    sets, _ = k2_sets(REPO)
+    o, d, accel, tmn, tmx, _ = sets["primary"]
+    bsteps, csteps, _, _ = mega_work(o, d, tmn, tmx, accel)
+    classes, stats = k2_step_classes(bsteps, csteps)
+    torch.save({k: x.cpu() for k, x in classes.items()}, path)
+    print(json.dumps({"primary steps per ray": stats}), flush=True)
+    return 0
+
+
+def child_k2(tree, classes_path):
+    import torch
+    from voxelray_torch.ops.kernels import mega_trace
+    sets, checksum = k2_sets(tree)
+    prim = sets["primary"]
+    for name, idx in torch.load(classes_path).items():
+        idx = idx.to(prim[0].device)
+        sets[f"primary, {name}"] = tuple(
+            x if i == 2 else x[idx].contiguous() for i, x in enumerate(prim))
+    ms = {name: timed(lambda: mega_trace.trace_grid_mega_cuda(*args))
+          for name, args in sets.items()}
+    return {"rays": {k: a[0].shape[0] for k, a in sets.items()}, "ms": ms,
+            "checksum": checksum}
+
+
+def child_k3(tree):
+    import torch
+    from voxelray_torch.ops.intersect import TMAX, TMIN
+    from voxelray_torch.ops.kernels import grid_walk
+    dev, v, f, _, _, vs, o, d = inputs(tree)
+    accel = voxel_scene(dev, v, f, vs).accel
     n = o.shape[0]
     tmn = torch.full((n,), float(TMIN), device=dev)
     tmx = torch.full((n,), float(TMAX), device=dev)
@@ -87,64 +237,72 @@ def child(tree):
     resume = (o[go], d[go], None, tmx[go], cell[go].contiguous(),
               torch.ones_like(go, dtype=torch.int32), accel.coarse, l2)
     hits2, cell2, cont2 = grid_walk.walk_cuda(*resume, **kw, k_hits=8)
-    torch.cuda.synchronize()
+    ms = {"round 1, k 5": timed(lambda: grid_walk.walk_cuda(
+              *first, **kw, k_hits=5)),
+          "resume, k 8": timed(lambda: grid_walk.walk_cuda(
+              *resume, **kw, k_hits=8))}
+    return {"rays": [n, int(go.numel())], "ms": ms,
+            "checksum": [int(x.long().sum()) for x in (hits, cell, cont,
+                                                       hits2, cell2, cont2)]}
 
-    def timed(args, k):
-        grid_walk.walk_cuda(*args, **kw, k_hits=k)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(REPS):
-            grid_walk.walk_cuda(*args, **kw, k_hits=k)
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / REPS
 
-    ms = {"round 1, k 5": [], "resume, k 8": []}
-    for _ in range(ROUNDS):
-        ms["round 1, k 5"].append(timed(first, 5))
-        ms["resume, k 8"].append(timed(resume, 8))
-    print(json.dumps({
-        "tree": str(tree), "rays": [n, int(go.numel())], "ms": ms,
-        "checksum": [int(x.long().sum()) for x in (hits, cell, cont, hits2,
-                                                   cell2, cont2)],
-        "ptxas_grid_walk_kernel": ptxas_report(_build.build_log(),
-                                               "grid_walk_kernel")}))
+def child(kernel, tree, classes_path):
+    sys.path[:0] = [str(Path(tree).resolve())]
+    from voxelray_torch.ops.kernels import _build
+    row = (child_k1(tree) if kernel == "k1" else
+           child_k2(tree, classes_path) if kernel == "k2" else
+           child_k3(tree))
+    row = {"tree": str(tree), "kernel": kernel, **row,
+           f"ptxas_{ENTRY[kernel]}": ptxas_report(_build.build_log(),
+                                                  ENTRY[kernel])}
+    print(json.dumps(row))
     return 0
 
 
+def run(cmd):
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        print(proc.stdout + proc.stderr, file=sys.stderr)
+        raise SystemExit(1)
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def main():
-    if len(sys.argv) == 3 and sys.argv[1] == "--child":
-        return child(sys.argv[2])
-    if len(sys.argv) not in (3, 4):
-        print(__doc__, file=sys.stderr)
-        return 2
+    if len(sys.argv) >= 2 and sys.argv[1] == "--prep":
+        return child_prep(sys.argv[2])
+    if len(sys.argv) >= 2 and sys.argv[1] == "--child":
+        return child(sys.argv[2], sys.argv[3], sys.argv[4])
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernel", choices=sorted(ENTRY), default="k3")
+    ap.add_argument("tree_a")
+    ap.add_argument("tree_b")
+    ap.add_argument("out", nargs="?")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("torch_k3_ab: no CUDA device", file=sys.stderr)
         return 2
-    a, b = sys.argv[1], sys.argv[2]
     rows = []
-    for tree in (a, b, b, a):
-        proc = subprocess.run([sys.executable, __file__, "--child", tree],
-                              capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            print(proc.stdout + proc.stderr, file=sys.stderr)
-            return 1
-        row = json.loads(proc.stdout.strip().splitlines()[-1])
-        print(json.dumps(row), flush=True)
-        rows.append(row)
-    sums = {json.dumps(r["checksum"]) for r in rows}
+    with tempfile.TemporaryDirectory() as tmp:
+        classes = str(Path(tmp) / "k2_classes.pt")
+        if args.kernel == "k2":
+            rows.append(run([sys.executable, __file__, "--prep", classes]))
+            print(json.dumps(rows[-1]), flush=True)
+        for tree in (args.tree_a, args.tree_b, args.tree_b, args.tree_a):
+            rows.append(run([sys.executable, __file__, "--child",
+                             args.kernel, tree, classes]))
+            print(json.dumps(rows[-1]), flush=True)
+    sums = {json.dumps(r["checksum"]) for r in rows if "checksum" in r}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"outputs equal across trees: {len(sums) == 1}")
     print(f"card: {smi}")
-    if len(sys.argv) == 4:
-        out = Path(sys.argv[3]).resolve()
+    if args.out:
+        out = Path(args.out).resolve()
         out.parent.mkdir(parents=True, exist_ok=True)
-        out.write_text(json.dumps({"runs": rows, "card": smi}, indent=1))
+        out.write_text(json.dumps({"kernel": args.kernel, "runs": rows,
+                                   "card": smi}, indent=1))
     return 0 if len(sums) == 1 else 1
 
 

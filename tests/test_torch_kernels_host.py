@@ -7,12 +7,13 @@ standing in for the CUDA runtime, csrc/ on the include path for the
 shared brick_walk.cuh) and each kernel runs thread by thread on the CPU.
 Shared memory is one host array that the host program fills before the
 threads run, so running them one at a time never reads a word before it
-is written.  Both sides use IEEE float32 without contraction, as on the
-card, so this holds the kernels' logic (windows, SAT, walk, near-tie
-probes) to the plain versions without a GPU.  K1's hit count is a warp
-reduction the host build cannot emulate, so only its occupancy is
-compared here (chip_smoke.py compares set_calls on the card).  Skips
-where g++ is missing.
+is written.  Every warp is one lane wide (K1 and K2 take their warp
+width from VOXELRAY_WARP, which SHIM sets to 1), so warp-wide steps (K1's
+window scan and hit reduction, K2's and tri_march's ray fetch) are exact
+and K1's set_calls is compared too.  Both sides use IEEE float32 without
+contraction, as on the card, so this holds the kernels' logic (windows,
+SAT, walk, near-tie probes, ray schedules) to the plain versions without
+a GPU.  Skips where g++ is missing.
 """
 import ctypes
 import re
@@ -27,7 +28,7 @@ import torch
 from voxelray_torch.io import meshes
 from voxelray_torch.ops import geometry
 from voxelray_torch.ops.intersect import TMAX, TMIN, make_camera_rays
-from voxelray_torch.ops.kernels import brick_fine, tri_march
+from voxelray_torch.ops.kernels import brick_fine, mega_trace, tri_march
 from voxelray_torch.ops.kernels.brick_fine import fine_plain
 from voxelray_torch.ops.kernels.grid_walk import walk_plain
 from voxelray_torch.ops.kernels.mega_trace import trace_grid_mega_plain
@@ -45,9 +46,10 @@ CSRC = HERE.parent / "voxelray_torch" / "csrc"
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # The CUDA subset csrc/*.cu uses, for a host build.  Each "thread" runs to
-# completion one after another.  Warp shuffles cannot be emulated this
-# way: __shfl_down_sync returns 0, so only per-lane results (not K1's
-# warp-reduced hit count) are meaningful.
+# completion one after another, as a warp of one lane: K1 and K2 see a
+# warp width of 1 (lane 0); tri_march takes threadIdx.x & 31 as its lane,
+# which its host launcher sets as host_lane.  Shuffles return the lane's own
+# value, ballots its own bit.
 SHIM = '''
 #include <math.h>
 #include <stdint.h>
@@ -57,14 +59,18 @@ SHIM = '''
 using std::max;
 using std::min;
 
+#define VOXELRAY_WARP 1
 #define __global__
 #define __device__
 #define __forceinline__ inline
 #define __restrict__
+#define __shared__ static
 #define __syncthreads()
+#define __syncwarp()
 #define __launch_bounds__(...)
 
 static uint32_t host_shared[1 << 16];
+static unsigned host_lane = 0;
 
 struct HostDim3 {
   unsigned x = 0, y = 0, z = 0;
@@ -78,20 +84,20 @@ inline float __int_as_float(int i) {
   memcpy(&f, &i, 4);
   return f;
 }
-inline unsigned long long __shfl_down_sync(unsigned, unsigned long long,
-                                           int) {
-  return 0;
-}
 template <class T>
 inline T atomicAdd(T* p, T v) {
   const T old = *p;
   *p += v;
   return old;
 }
-// a "warp" of one lane: the running thread
-inline int __shfl_sync(unsigned, int v, int) { return v; }
+template <class T>
+inline T __shfl_sync(unsigned, T v, int) { return v; }
+template <class T>
+inline T __shfl_up_sync(unsigned, T v, int) { return v; }
+template <class T>
+inline T __shfl_down_sync(unsigned, T v, int) { return v; }
 inline unsigned __ballot_sync(unsigned, int p) {
-  return p ? 1u << (threadIdx.x & 31) : 0u;
+  return p ? 1u << host_lane : 0u;
 }
 inline bool __all_sync(unsigned, int p) { return p != 0; }
 inline int __ffs(unsigned x) { return __builtin_ffs(x); }
@@ -103,45 +109,44 @@ typedef void* cudaStream_t;
 DRIVERS = {
     "voxel_accum": ('''
 extern "C" void host_launch(const float* v, const int* f, int n_tri,
-                            float ogx, float ogy, float ogz, float vs,
-                            float half, int nx, int ny, int nz,
-                            uint8_t* occ, unsigned long long* calls) {
-  blockDim.x = 256;
-  gridDim.x = (n_tri * 32 + 255) / 256;
+                            int n_vert, float ogx, float ogy, float ogz,
+                            float vs, float half, int nx, int ny, int nz,
+                            uint8_t* occ, unsigned long long* counts) {
+  // one-lane warps, one round (one triangle) each
+  blockDim.x = kThreads;
+  gridDim.x = (n_tri + kThreads - 1) / kThreads;
   for (unsigned b = 0; b < gridDim.x; ++b)
     for (unsigned t = 0; t < blockDim.x; ++t) {
       blockIdx.x = b;
       threadIdx.x = t;
-      voxel_accum_kernel(v, f, n_tri, ogx, ogy, ogz, vs, half, nx, ny, nz,
-                         occ, calls);
+      voxel_accum_kernel(v, f, n_tri, n_vert, ogx, ogy, ogz, vs, half, nx,
+                         ny, nz, occ, counts);
     }
 }
-''', [P, P, I] + [F] * 5 + [I] * 3 + [P, P]),
+''', [P, P, I, I] + [F] * 5 + [I] * 3 + [P, P]),
     "mega_trace": ('''
-extern "C" void host_launch(const float* o, const float* d,
-                            const float* t_min, const float* t_max,
-                            const uint8_t* admit, const uint32_t* l2,
-                            const uint32_t* fine_sb, int n, int nx, int ny,
-                            int nz, int bx, int by, int bz, float ogx,
-                            float ogy, float ogz, float vs, float half,
-                            float bw, float* t_out, int* lin_out,
-                            int* alive_out) {
-  Grid g;
-  g.nx = nx; g.ny = ny; g.nz = nz; g.bx = bx; g.by = by; g.bz = bz;
-  g.sbx = (bx + 7) / 8;
-  g.sby = (by + 7) / 8;
-  g.ogx = ogx; g.ogy = ogy; g.ogz = ogz; g.vs = vs; g.half = half; g.bw = bw;
-  blockDim.x = 128;
-  gridDim.x = (n + 127) / 128;
-  for (unsigned b = 0; b < gridDim.x; ++b)
-    for (unsigned t = 0; t < blockDim.x; ++t) {
-      blockIdx.x = b;
-      threadIdx.x = t;
-      mega_trace_kernel(o, d, t_min, t_max, admit, l2, fine_sb, n, g, t_out,
-                        lin_out, alive_out);
-    }
+extern "C" void host_launch(
+    const void* o, const void* d, const void* t_min, const void* t_max,
+    const void* admit, const void* l2, const void* fine_sb, int n, int nx,
+    int ny, int nz, int bx, int by, int bz, float ogx, float ogy, float ogz,
+    float vs, float half, float bw, void* t_out, void* lin_out,
+    void* alive_out, void* next_ray, int stripes) {
+  const TraceArgs a = trace_args(o, d, t_min, t_max, admit, l2, fine_sb, n,
+                                 nx, ny, nz, bx, by, bz, ogx, ogy, ogz, vs,
+                                 half, bw, t_out, lin_out, alive_out,
+                                 next_ray, stripes);
+  // one block of one-lane warps: the first thread takes every ray from
+  // the counters, stripe after stripe, brick step by brick step; the
+  // others find them exhausted
+  blockDim.x = kThreads;
+  gridDim.x = 1;
+  blockIdx.x = 0;
+  for (unsigned t = 0; t < blockDim.x; ++t) {
+    threadIdx.x = t;
+    mega_trace_kernel(a);
+  }
 }
-''', [P] * 7 + [I] * 7 + [F] * 6 + [P] * 3),
+''', [P] * 7 + [I] * 7 + [F] * 6 + [P] * 4 + [I]),
     "grid_walk": ('''
 extern "C" void host_launch(const float* o, const float* d,
                             const float* t_min, const float* t_max,
@@ -219,6 +224,7 @@ extern "C" void host_launch(
   blockIdx.x = 0;
   for (unsigned t = 0; t < blockDim.x; ++t) {
     threadIdx.x = t;
+    host_lane = t & 31;
     tri_march_kernel(a);
   }
 }
@@ -271,28 +277,70 @@ def _mesh_grid(name, res):
     return v, f, bb_min, bb_max, vs, geometry.grid_dims(bb_min, bb_max, vs)
 
 
+def _host_voxelize(fn, v, f, bb_min, vs, dims):
+    """K1 built for the host: (occ, set_calls, faces out of range)."""
+    nx, ny, nz = dims
+    occ = np.zeros((nz, ny, nx), np.uint8)
+    counts = np.zeros(2, np.uint64)
+    fn(v.ctypes.data, f.ctypes.data, len(f), len(v), *map(float, bb_min),
+       float(np.float32(vs)), float(np.float32(vs * 0.5)), nx, ny, nz,
+       occ.ctypes.data, counts.ctypes.data)
+    return occ, int(counts[0]), int(counts[1])
+
+
 @pytest.mark.parametrize("name,res", [("icosphere", 64), ("knot", 128),
                                       ("cube", 64)])
 def test_host_k1_occupancy_matches_plain(host_kernels, name, res):
+    """Occupancy and set_calls (the per-warp hit reduction is exact with
+    one-lane warps) bit-equal to voxelize_plain."""
     v, f, bb_min, _, vs, dims = _mesh_grid(name, res)
-    nx, ny, nz = dims
-    occ = np.zeros((nz, ny, nx), np.uint8)
-    calls = np.zeros(1, np.uint64)
-    host_kernels["voxel_accum"](
-        v.ctypes.data, f.ctypes.data, len(f), *map(float, bb_min),
-        float(np.float32(vs)), float(np.float32(vs * 0.5)), nx, ny, nz,
-        occ.ctypes.data, calls.ctypes.data)
-    ref, _ = voxelize_plain(torch.from_numpy(v), torch.from_numpy(f),
-                            bb_min, vs, dims)
-    assert occ.sum() > 0
+    occ, calls, bad = _host_voxelize(host_kernels["voxel_accum"], v, f,
+                                     bb_min, vs, dims)
+    ref, calls_p = voxelize_plain(torch.from_numpy(v), torch.from_numpy(f),
+                                  bb_min, vs, dims)
+    assert occ.sum() > 0 and bad == 0
+    assert np.array_equal(occ, ref.numpy())
+    assert calls == calls_p
+
+
+def test_host_k1_mixed_windows_match_plain(host_kernels):
+    """The slot-to-cell index math on windows of 8 cells, one tall window
+    of thousands of cells, a degenerate and a collinear triangle, and
+    triangles with a NaN or an infinite vertex (empty windows),
+    interleaved: occupancy and set_calls equal voxelize_plain.  (A
+    one-lane warp takes one triangle per round; the card's 32-triangle
+    rounds are held to plain by chip_smoke.py and the CUDA-marked
+    tests.)"""
+    rng = np.random.default_rng(7)
+    vs, dims, origin = 0.1, (32, 30, 24), np.zeros(3, np.float32)
+    c = rng.uniform(0.2, 2.2, (300, 3)).astype(np.float32)
+    tris = [c[:, None] + rng.uniform(-0.02, 0.02, (300, 3, 3))]
+    special = np.asarray([
+        [[0.15, 0.15, 0.1], [2.9, 0.4, 1.2], [0.5, 2.8, 2.2]],   # tall
+        [[1.0, 1.0, 1.0], [1.0, 1.0, 1.0], [1.2, 1.3, 1.1]],     # degenerate
+        [[0.5, 0.5, 0.5], [1.0, 1.0, 1.0], [1.5, 1.5, 1.5]],     # collinear
+        [[np.nan, 0.3, 0.3], [0.4, 0.4, 0.4], [0.3, 0.5, 0.3]],
+        [[0.3, 0.3, 0.3], [np.inf, 0.4, 0.4], [0.3, 0.5, 0.3]]])
+    tris = np.concatenate(tris + [special]).astype(np.float32)
+    order = rng.permutation(len(tris))
+    v = np.ascontiguousarray(tris[order].reshape(-1, 3))
+    f = np.arange(len(v), dtype=np.int32).reshape(-1, 3)
+    occ, calls, bad = _host_voxelize(host_kernels["voxel_accum"], v, f,
+                                     origin, vs, dims)
+    ref, calls_p = voxelize_plain(torch.from_numpy(v), torch.from_numpy(f),
+                                  origin, vs, dims)
+    assert bad == 0 and calls == calls_p > 1000
     assert np.array_equal(occ, ref.numpy())
 
 
 def _host_trace(fn, o, d, tmn, tmx, admit, accel):
+    """K2 built for the host; its outputs start as garbage, so every ray
+    must be written."""
     n = len(o)
-    t = np.empty(n, np.float32)
-    lin = np.empty(n, np.int32)
-    alive = np.empty(n, np.int32)
+    t = np.full(n, 7.0, np.float32)
+    lin = np.full(n, 7, np.int32)
+    alive = np.full(n, 7, np.int32)
+    next_ray = np.zeros(mega_trace.STRIPES * 32, np.int32)
     l2 = np.ascontiguousarray(accel.l2.numpy())
     fine_sb = np.ascontiguousarray(accel.fine_sb.numpy())
     vs = np.float32(accel.voxel_size)
@@ -300,7 +348,8 @@ def _host_trace(fn, o, d, tmn, tmx, admit, accel):
        admit.ctypes.data, l2.ctypes.data, fine_sb.ctypes.data, n,
        *accel.dims, *accel.bdims, *accel.origin_key, float(vs),
        float(np.float32(0.5) * vs), float(np.float32(accel.voxel_size * 8)),
-       t.ctypes.data, lin.ctypes.data, alive.ctypes.data)
+       t.ctypes.data, lin.ctypes.data, alive.ctypes.data,
+       next_ray.ctypes.data, mega_trace.STRIPES)
     return t, lin, alive
 
 
@@ -347,6 +396,37 @@ def test_host_k2_matches_plain(host_kernels, name, res, eye_scale):
                                        bb_min, vs, diff, t, lin, tp, lp)
             assert adj["adjudication_ok"], adj
         assert hit.sum() > 100 or kind == "bounded"
+
+
+@pytest.mark.parametrize("name,res", [("icosphere", 144), ("knot", 128)])
+def test_host_k2_sparse_admit_matches_plain(host_kernels, name, res):
+    """A shadow-like pass: ~5% of the rays admitted, scattered, with per-ray
+    t_min / t_max.  The fetch hands only admitted rays to lanes and writes
+    the miss (+inf, -1, alive 0) of every other ray itself; admitted rays
+    match trace_grid_mega_plain bit for bit."""
+    v, f, bb_min, bb_max, vs, dims = _mesh_grid(name, res)
+    occ, _ = voxelize_plain(torch.from_numpy(v), torch.from_numpy(f),
+                            bb_min, vs, dims)
+    accel = build_accel(occ, bb_min, vs)
+    rng = np.random.default_rng(res + 1)
+    ext = float(max(bb_max - bb_min))
+    n = 6000
+    o = (bb_min + rng.uniform(-0.2, 1.2, (n, 3)) * ext).astype(np.float32)
+    d = rng.normal(size=(n, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    tmn = rng.uniform(0.001, 0.3 * ext, n).astype(np.float32)
+    tmx = (tmn + rng.uniform(0.0, 1.5 * ext, n)).astype(np.float32)
+    admit = rng.random(n) < 0.05
+    t, lin, alive = _host_trace(host_kernels["mega_trace"], o, d, tmn, tmx,
+                                admit.astype(np.uint8), accel)
+    tp, lp, _ = trace_grid_mega_plain(
+        torch.from_numpy(o), torch.from_numpy(d), accel,
+        torch.from_numpy(tmn), torch.from_numpy(tmx),
+        torch.from_numpy(admit))
+    assert not alive.any()
+    assert np.array_equal(lin, lp.numpy()) and np.array_equal(t, tp.numpy())
+    assert np.isinf(t[~admit]).all() and (lin[~admit] == -1).all()
+    assert 0 < (lin >= 0).sum() < admit.sum()
 
 
 def _edge_scene(rng, n_grid=64, vs=0.125, origin=(-1.37, 0.213, -2.9),

@@ -257,6 +257,27 @@ def test_kernels_match_plain_versions_on_cuda(cuda):
     assert torch.equal(lin, lin_p)
     same = lin >= 0
     assert torch.equal(t[same], t_p[same])
+    # a sparse admit mask: the kernel writes every other ray's miss itself
+    admit = torch.from_numpy(np.random.default_rng(0).random(n) < 0.05)
+    args = args[:5] + (admit.to(cuda),)
+    t, lin, alive = mega_trace.trace_grid_mega_cuda(*args)
+    t_p, lin_p, _ = mega_trace.trace_grid_mega_plain(*args)
+    assert torch.equal(lin, lin_p) and int(alive.sum()) == 0
+    assert torch.equal(t[lin >= 0], t_p[lin >= 0])
+    assert bool(torch.isinf(t[~args[5]]).all())
+
+
+@pytest.mark.cuda
+def test_voxel_accum_cuda_raises_on_an_out_of_range_face(cuda):
+    """K1 checks the face indices itself; the wrapper raises on the count
+    of out-of-range faces it reads back with the hit total."""
+    v, f, bb_min, _, vs, dims = _small_scene()
+    vt = torch.from_numpy(v).to(cuda)
+    for bad in (len(v), -1):
+        fb = torch.from_numpy(f).to(cuda)
+        fb[len(f) // 2, 1] = bad
+        with pytest.raises(ValueError, match="out of range"):
+            voxel_accum.voxel_accum_cuda(vt, fb, bb_min, vs, dims)
 
 
 @pytest.mark.cuda

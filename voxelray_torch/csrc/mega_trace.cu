@@ -7,7 +7,8 @@
 // mask and per-ray t_min / t_max make the same kernel the shadow any-hit.
 // What is ported is the walk, not the TPU's SIMD-block scheduling: there
 // is no "serve the B smallest pending superbricks" per (24, 128) block, no
-// DMA into VMEM and no mux over tile rows.  One thread follows one ray.
+// DMA into VMEM and no mux over tile rows.  One lane follows one ray at a
+// time.
 //
 // Per ray, in the expression shapes of the Pallas kernel:
 //   1. init (_fused_init): clip to the brick grid, fast-forward to t_min,
@@ -37,19 +38,32 @@
 // (a defensive invariant: the wrapper reports the count as `unresolved`).
 //
 // What bounds it on the H100: divergent, latency-bound integer and float
-// walking per thread.  Memory is light: the L2 table is a few words, the
+// walking per lane.  Memory is light: the L2 table is a few words, the
 // fine_sb table is 18.9 MB at 512^3 and stays in the 50 MB L2 cache, and
-// the ray state lives in registers.  The design keeps it that way: rays
-// arrive in the 8x128 tile order render_image produces, so a warp's 32
-// rays are 32 neighbouring pixels that walk nearly the same bricks, and
-// a brick's occupancy words are read on demand through the read-only path.
+// the ray state lives in registers.  On the bench frame three primary
+// rays in four miss the grid, the others take ~32 brick and cell steps on
+// average with a tail past 300, and a shadow pass admits ~6% of the
+// frame's rays.  The design: persistent warps (as many as fit on the
+// card) take rays in the 8x128 tile order render_image produces, a chunk
+// of 32 neighbouring pixels at a time, so a warp's lanes walk nearly the
+// same bricks and the warps in flight nearby ones; a lane takes its next
+// ray as soon as its ray ends (the walk is resumed one brick step at a
+// time), so no lane idles behind the longest ray of its warp.  At a fetch
+// the warp reads its chunk's admit bytes and hands only admitted rays to
+// lanes; a ray not admitted gets its miss (t = +inf, lin = -1) written
+// there, without a host-side compaction or sync.  The chunks are dealt to
+// 32 counters in turn, each in its own cache line: on one counter a
+// frame's ~65K fetches queue on one L2 line.  A brick's occupancy words
+// are read on demand through the read-only path.
 //
 // Numerics: built with --fmad=false and without fast math (see
 // ops/kernels/_build.py), so every product and sum rounds separately, as
 // in the plain PyTorch DDA (ops/traverse.py).  The hit t is the hit_aabb
 // expression of that DDA's _dda_final_t term for term, so where both find
 // the same cell, t is bit-equal.  min/max propagate NaN like
-// torch.minimum / jnp.minimum.  A float that is floored and cast to an
+// torch.minimum / jnp.minimum (on the card one PTX min.NaN / max.NaN each;
+// only the payload of an intermediate NaN differs from the host build's,
+// and no NaN reaches an output).  A float that is floored and cast to an
 // int only steers a live ray, and every such index is clamped to the
 // current superbrick or brick, so no result depends on how a NaN or an
 // infinity converts.
@@ -68,12 +82,32 @@ constexpr int kOccRow = 64 * 128;     // row 64: brick occupancy words
 // direction components: a crossing t carries the rounding of its plane
 // coordinate, amplified by 1/|d| on grazing axes.
 constexpr float kTieUlps = 16.0f;
+// Lanes per warp: 32 on the card; the host test build runs one-lane warps.
+#ifndef VOXELRAY_WARP
+#define VOXELRAY_WARP 32
+#endif
+constexpr int kWarp = VOXELRAY_WARP;
+constexpr int kThreads = 128;
+// ints between two stripe counters: one 128-byte line each
+constexpr int kCounterStride = 32;
 
 __device__ __forceinline__ float jmin(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
   return (isnan(a) || isnan(b)) ? __int_as_float(0x7fc00000) : fminf(a, b);
+#endif
 }
 __device__ __forceinline__ float jmax(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
   return (isnan(a) || isnan(b)) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+#endif
 }
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return min(max(x, lo), hi);
@@ -355,31 +389,58 @@ __device__ float brick_step(const Ray& r, const Grid& g,
   return tmin;
 }
 
-__global__ void mega_trace_kernel(
-    const float* __restrict__ o, const float* __restrict__ d,
-    const float* __restrict__ t_min, const float* __restrict__ t_max,
-    const uint8_t* __restrict__ admit, const uint32_t* __restrict__ l2,
-    const uint32_t* __restrict__ fine_sb, int n, Grid g,
-    float* __restrict__ t_out, int* __restrict__ lin_out,
-    int* __restrict__ alive_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float inf = __int_as_float(0x7f800000);
+// Everything one trace reads and writes.  o, d: (n, 3); t_min, t_max,
+// admit: (n,); l2, fine_sb: the accel's tables.  Outputs t, lin, alive
+// (n,); next_ray holds the zeroed counters, kCounterStride ints apart, of
+// the stripes of chunks from which the warps take their rays (chunks = the
+// chunks of kWarp rays).
+struct TraceArgs {
+  const float *o, *d, *t_min, *t_max;
+  const uint8_t* admit;
+  const uint32_t *l2, *fine_sb;
+  int n;
+  Grid g;
+  float* t_out;
+  int *lin_out, *alive_out;
+  int* next_ray;
+  int stripes, chunks;
+};
+
+// One ray's walk between brick steps: the ray, its nearest hit so far,
+// the current brick and the brick moves left.
+struct Walk {
   Ray r;
-  r.ox = o[3 * i]; r.oy = o[3 * i + 1]; r.oz = o[3 * i + 2];
-  r.dx = d[3 * i]; r.dy = d[3 * i + 1]; r.dz = d[3 * i + 2];
-  r.t_lo = t_min[i];
-  r.t_hi = t_max[i];
+  Hit hit;
+  int cx, cy, cz, moves;
+};
+
+__device__ __forceinline__ void write_out(const TraceArgs& a, int i,
+                                          float t, int lin, int alive) {
+  a.t_out[i] = t;
+  a.lin_out[i] = lin;
+  a.alive_out[i] = alive;
+}
+
+// 1. init (_fused_init) of admitted ray i: clip to the brick grid,
+// fast-forward to t_min, entry brick.  Returns false where the ray misses
+// the grid or its [t_min, t_max] (w.hit is then the miss).
+__device__ __forceinline__ bool walk_start(const TraceArgs& a, int i,
+                                           Walk& w) {
+  const Grid& g = a.g;
+  const float inf = __int_as_float(0x7f800000);
+  Ray& r = w.r;
+  r.ox = a.o[3 * i]; r.oy = a.o[3 * i + 1]; r.oz = a.o[3 * i + 2];
+  r.dx = a.d[3 * i]; r.dy = a.d[3 * i + 1]; r.dz = a.d[3 * i + 2];
+  r.t_lo = a.t_min[i];
+  r.t_hi = a.t_max[i];
   r.inv_x = 1.0f / r.dx; r.inv_y = 1.0f / r.dy; r.inv_z = 1.0f / r.dz;
   r.sx = r.dx >= 0.0f ? 1 : -1;
   r.sy = r.dy >= 0.0f ? 1 : -1;
   r.sz = r.dz >= 0.0f ? 1 : -1;
   r.fx = r.sx > 0; r.fy = r.sy > 0; r.fz = r.sz > 0;
+  w.hit.t = inf;
+  w.hit.lin = -1;
 
-  Hit hit = {inf, -1};
-  int alive = 0;
-
-  // 1. init (_fused_init)
   const float gmx = g.ogx + static_cast<float>(g.bx) * g.bw;
   const float gmy = g.ogy + static_cast<float>(g.by) * g.bw;
   const float gmz = g.ogz + static_cast<float>(g.bz) * g.bw;
@@ -400,103 +461,205 @@ __global__ void mega_trace_kernel(
   const float t_start = lo + 1e-7f;
   const bool ok = (t_exit > jmax(t_enter, 0.0f)) && (t_start <= r.t_hi) &&
                   (t_start <= t_exit + 1e-7f);
+  if (!ok) return false;
+  const float px = r.ox + r.dx * t_start;
+  const float py = r.oy + r.dy * t_start;
+  const float pz = r.oz + r.dz * t_start;
+  w.cx = clampi(floor_or((px - g.ogx) / g.bw, 0), 0, g.bx - 1);
+  w.cy = clampi(floor_or((py - g.ogy) / g.bw, 0), 0, g.by - 1);
+  w.cz = clampi(floor_or((pz - g.ogz) / g.bw, 0), 0, g.bz - 1);
+  w.moves = g.bx + g.by + g.bz + 3;
+  return true;
+}
 
-  if (ok && admit[i]) {
-    const float px = r.ox + r.dx * t_start;
-    const float py = r.oy + r.dy * t_start;
-    const float pz = r.oz + r.dz * t_start;
-    int cx = clampi(floor_or((px - g.ogx) / g.bw, 0), 0, g.bx - 1);
-    int cy = clampi(floor_or((py - g.ogy) / g.bw, 0), 0, g.by - 1);
-    int cz = clampi(floor_or((pz - g.ogz) / g.bw, 0), 0, g.bz - 1);
-    int moves = g.bx + g.by + g.bz + 3;
-    bool done = false;
-    while (!done) {
-      const int scx = cx >> 3, scy = cy >> 3, scz = cz >> 3;
-      const int sb = scx + g.sbx * (scy + g.sby * scz);
-      const bool sb_occ = (__ldg(l2 + (sb >> 5)) >> (sb & 31)) & 1u;
-      if (!sb_occ) {
-        if (--moves < 0) {
-          alive = 1;
-          break;
+// One brick of the walk.  Returns true when the ray is done: an accepted
+// cell, the grid's exit or t_max, a probed hit nearer than anything ahead,
+// or the move cap (which sets `alive`).
+__device__ __forceinline__ bool walk_brick(const TraceArgs& a, Walk& w,
+                                           int& alive) {
+  const Grid& g = a.g;
+  const Ray& r = w.r;
+  const float inf = __int_as_float(0x7f800000);
+  const int scx = w.cx >> 3, scy = w.cy >> 3, scz = w.cz >> 3;
+  const int sb = scx + g.sbx * (scy + g.sby * scz);
+  const bool sb_occ = (__ldg(a.l2 + (sb >> 5)) >> (sb & 31)) & 1u;
+  // 3-5. in an occupied superbrick, an occupied brick's per-voxel walk;
+  // the first accept retires the ray
+  if (sb_occ && brick_occupied(g, a.fine_sb, w.cx, w.cy, w.cz) &&
+      fine_brick(r, g, a.fine_sb, w.cx, w.cy, w.cz, w.hit))
+    return true;
+  if (--w.moves < 0) {
+    alive = 1;
+    return true;
+  }
+  if (!sb_occ) {
+    // 2. empty superbrick: a conservative skip to the last brick the ray
+    // touches there, then the exact brick step below
+    float tsx = (g.ogx + static_cast<float>((scx + r.fx) * 8) * g.bw -
+                 r.ox) * r.inv_x;
+    float tsy = (g.ogy + static_cast<float>((scy + r.fy) * 8) * g.bw -
+                 r.oy) * r.inv_y;
+    float tsz = (g.ogz + static_cast<float>((scz + r.fz) * 8) * g.bw -
+                 r.oz) * r.inv_z;
+    if (r.dx == 0.0f) tsx = inf;
+    if (r.dy == 0.0f) tsy = inf;
+    if (r.dz == 0.0f) tsz = inf;
+    const float t_ex = jmin(tsx, jmin(tsy, tsz));
+    int lx = floor_or((r.ox + r.dx * t_ex - g.ogx) / g.bw, w.cx + r.sx);
+    int ly = floor_or((r.oy + r.dy * t_ex - g.ogy) / g.bw, w.cy + r.sy);
+    int lz = floor_or((r.oz + r.dz * t_ex - g.ogz) / g.bw, w.cz + r.sz);
+    lx = clampi(lx - r.sx, scx * 8, scx * 8 + 7);
+    ly = clampi(ly - r.sy, scy * 8, scy * 8 + 7);
+    lz = clampi(lz - r.sz, scz * 8, scz * 8 + 7);
+    w.cx = r.sx > 0 ? max(lx, w.cx) : min(lx, w.cx);
+    w.cy = r.sy > 0 ? max(ly, w.cy) : min(ly, w.cy);
+    w.cz = r.sz > 0 ? max(lz, w.cz) : min(lz, w.cz);
+  }
+  // 6. one exact brick step; a ray that leaves its superbrick resumes the
+  // superbrick walk at its next brick
+  const float tmin = brick_step(r, g, a.fine_sb, w.cx, w.cy, w.cz, w.hit);
+  return !(in_bricks(g, w.cx, w.cy, w.cz) && tmin <= r.t_hi) ||
+         w.hit.t <= tmin;
+}
+
+// Persistent warps, launched as many as fit on the card at once.  The
+// rays come in chunks of kWarp consecutive rays; chunk k belongs to
+// stripe k % a.stripes, and each stripe has its own counter, so that the
+// warps' atomics spread over that many words while all stripes advance
+// through the frame side by side (each counter in its own 128-byte line:
+// in one line the stripes gain nothing).  A warp takes chunks from its own
+// stripe, then from the next ones that have chunks left.  Each lane reads
+// one admit byte of the chunk and writes its ray's miss if the ray is not
+// admitted; the warp hands the admitted rays to its idle lanes in ray
+// order, fetching chunks until every idle lane has a ray or none is left.
+// After every brick step, the lanes whose ray is done take the next rays.
+__global__ void __launch_bounds__(kThreads) mega_trace_kernel(TraceArgs a) {
+  const float inf = __int_as_float(0x7f800000);
+  const int lane = threadIdx.x % kWarp;
+  const unsigned below = (1u << lane) - 1u;
+  Walk w;
+  int i = -1;            // this lane's ray: -1 none, a.n once none is left
+  int base = 0;          // the warp's chunk: rays [base, base + kWarp)
+  unsigned pending = 0;  // its admitted rays not yet handed out
+  int stripe = (blockIdx.x * (kThreads / kWarp) + threadIdx.x / kWarp) %
+               a.stripes;         // the stripe the warp takes chunks from
+  int left = a.stripes;  // stripes not yet found handed out
+  for (;;) {
+    const bool need = i < 0;
+    unsigned want = __ballot_sync(0xffffffffu, need);
+    while (want != 0u && (pending != 0u || left > 0)) {
+      if (pending == 0u) {
+        // the stripe's next chunk, or the next stripe's
+        int got = -1;
+        if (lane == 0) {
+          int* ctr = a.next_ray + stripe * kCounterStride;
+          // a plain read first: a handed-out stripe costs no atomic
+          if (*static_cast<volatile int*>(ctr) * a.stripes + stripe <
+              a.chunks)
+            got = atomicAdd(ctr, 1) * a.stripes + stripe;
         }
-        // 2. empty superbrick: conservative skip + one exact brick step
-        float tsx = (g.ogx + static_cast<float>((scx + r.fx) * 8) * g.bw -
-                     r.ox) * r.inv_x;
-        float tsy = (g.ogy + static_cast<float>((scy + r.fy) * 8) * g.bw -
-                     r.oy) * r.inv_y;
-        float tsz = (g.ogz + static_cast<float>((scz + r.fz) * 8) * g.bw -
-                     r.oz) * r.inv_z;
-        if (r.dx == 0.0f) tsx = inf;
-        if (r.dy == 0.0f) tsy = inf;
-        if (r.dz == 0.0f) tsz = inf;
-        const float t_ex = jmin(tsx, jmin(tsy, tsz));
-        int lx = floor_or((r.ox + r.dx * t_ex - g.ogx) / g.bw, cx + r.sx);
-        int ly = floor_or((r.oy + r.dy * t_ex - g.ogy) / g.bw, cy + r.sy);
-        int lz = floor_or((r.oz + r.dz * t_ex - g.ogz) / g.bw, cz + r.sz);
-        lx = clampi(lx - r.sx, scx * 8, scx * 8 + 7);
-        ly = clampi(ly - r.sy, scy * 8, scy * 8 + 7);
-        lz = clampi(lz - r.sz, scz * 8, scz * 8 + 7);
-        cx = r.sx > 0 ? max(lx, cx) : min(lx, cx);
-        cy = r.sy > 0 ? max(ly, cy) : min(ly, cy);
-        cz = r.sz > 0 ? max(lz, cz) : min(lz, cz);
-        const float tmin = brick_step(r, g, fine_sb, cx, cy, cz, hit);
-        done = !(in_bricks(g, cx, cy, cz) && tmin <= r.t_hi) ||
-               hit.t <= tmin;
+        got = __shfl_sync(0xffffffffu, got, 0);
+        if (got < 0 || got >= a.chunks) {
+          stripe = stripe + 1 == a.stripes ? 0 : stripe + 1;
+          --left;
+          continue;
+        }
+        base = got * kWarp;
+        const int c = base + lane;
+        const bool adm = c < a.n && a.admit[c] != 0;
+        if (c < a.n && !adm) write_out(a, c, inf, -1, 0);
+        pending = __ballot_sync(0xffffffffu, adm);
         continue;
       }
-      // 3. transit the occupied superbrick brick by brick
-      while (true) {
-        // 4-5. resolve an occupied brick; the first accept retires
-        if (brick_occupied(g, fine_sb, cx, cy, cz) &&
-            fine_brick(r, g, fine_sb, cx, cy, cz, hit)) {
-          done = true;
-          break;
-        }
-        if (--moves < 0) {
-          alive = 1;
-          done = true;
-          break;
-        }
-        const float tmin = brick_step(r, g, fine_sb, cx, cy, cz, hit);
-        // grid exit, t_max, or a probed hit nearer than anything ahead
-        if (!(in_bricks(g, cx, cy, cz) && tmin <= r.t_hi) || hit.t <= tmin) {
-          done = true;
-          break;
-        }
-        // 6. left the superbrick: resume the superbrick walk
-        if ((cx >> 3) != scx || (cy >> 3) != scy || (cz >> 3) != scz) break;
+      // the k-th lane of `want` takes the k-th admitted ray of `pending`
+      const int take = min(__popc(want), __popc(pending));
+      const int k = __popc(want & below);
+      if (((want >> lane) & 1u) && k < take) {
+        unsigned m = pending;
+        for (int j = 0; j < k; ++j) m &= m - 1u;
+        i = base + __ffs(m) - 1;
+      }
+      for (int j = 0; j < take; ++j) {
+        want &= want - 1u;
+        pending &= pending - 1u;
       }
     }
+    if (need) {
+      if (i < 0) {
+        i = a.n;
+      } else if (!walk_start(a, i, w)) {
+        write_out(a, i, inf, -1, 0);
+        i = -1;
+      }
+    }
+    if (__all_sync(0xffffffffu, i >= a.n)) break;
+    int alive = 0;
+    if (i >= 0 && i < a.n && walk_brick(a, w, alive)) {
+      write_out(a, i, w.hit.t, w.hit.lin, alive);
+      i = -1;
+    }
   }
-  t_out[i] = hit.t;
-  lin_out[i] = hit.lin;
-  alive_out[i] = alive;
+}
+
+// The kernel's arguments from the C entry point's (shared with the host
+// build's launcher in tests/test_torch_kernels_host.py).
+TraceArgs trace_args(const void* o, const void* d, const void* t_min,
+                     const void* t_max, const void* admit, const void* l2,
+                     const void* fine_sb, int n, int nx, int ny, int nz,
+                     int bx, int by, int bz, float ogx, float ogy, float ogz,
+                     float vs, float half, float bw, void* t_out,
+                     void* lin_out, void* alive_out, void* next_ray,
+                     int stripes) {
+  TraceArgs a;
+  a.o = static_cast<const float*>(o);
+  a.d = static_cast<const float*>(d);
+  a.t_min = static_cast<const float*>(t_min);
+  a.t_max = static_cast<const float*>(t_max);
+  a.admit = static_cast<const uint8_t*>(admit);
+  a.l2 = static_cast<const uint32_t*>(l2);
+  a.fine_sb = static_cast<const uint32_t*>(fine_sb);
+  a.n = n;
+  a.g.nx = nx; a.g.ny = ny; a.g.nz = nz;
+  a.g.bx = bx; a.g.by = by; a.g.bz = bz;
+  a.g.sbx = (bx + 7) / 8;
+  a.g.sby = (by + 7) / 8;
+  a.g.ogx = ogx; a.g.ogy = ogy; a.g.ogz = ogz;
+  a.g.vs = vs; a.g.half = half; a.g.bw = bw;
+  a.t_out = static_cast<float*>(t_out);
+  a.lin_out = static_cast<int*>(lin_out);
+  a.alive_out = static_cast<int*>(alive_out);
+  a.next_ray = static_cast<int*>(next_ray);
+  a.stripes = stripes;
+  a.chunks = (n + kWarp - 1) / kWarp;
+  return a;
 }
 
 }  // namespace
 
+// next_ray: stripes * 32 zeroed ints on the device (a counter every 128
+// bytes).  Launches as many blocks as fit on the card at once (no more
+// than the rays need).
 extern "C" int mega_trace_launch(
     const void* o, const void* d, const void* t_min, const void* t_max,
     const void* admit, const void* l2, const void* fine_sb, int n, int nx,
     int ny, int nz, int bx, int by, int bz, float ogx, float ogy, float ogz,
     float vs, float half, float bw, void* t_out, void* lin_out,
-    void* alive_out, void* stream) {
+    void* alive_out, void* next_ray, int stripes, void* stream) {
   if (n <= 0) return 0;
-  Grid g;
-  g.nx = nx; g.ny = ny; g.nz = nz;
-  g.bx = bx; g.by = by; g.bz = bz;
-  g.sbx = (bx + 7) / 8;
-  g.sby = (by + 7) / 8;
-  g.ogx = ogx; g.ogy = ogy; g.ogz = ogz;
-  g.vs = vs; g.half = half; g.bw = bw;
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  mega_trace_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(o), static_cast<const float*>(d),
-      static_cast<const float*>(t_min), static_cast<const float*>(t_max),
-      static_cast<const uint8_t*>(admit), static_cast<const uint32_t*>(l2),
-      static_cast<const uint32_t*>(fine_sb), n, g,
-      static_cast<float*>(t_out), static_cast<int*>(lin_out),
-      static_cast<int*>(alive_out));
+  const TraceArgs a = trace_args(o, d, t_min, t_max, admit, l2, fine_sb, n,
+                                 nx, ny, nz, bx, by, bz, ogx, ogy, ogz, vs,
+                                 half, bw, t_out, lin_out, alive_out,
+                                 next_ray, stripes);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, mega_trace_kernel, kThreads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = min((n + kThreads - 1) / kThreads, sms * per_sm);
+  mega_trace_kernel<<<blocks, kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,18 +12,27 @@
 // straight into the occupancy volume.
 //
 // What bounds it on the H100: SAT arithmetic.  At the bench size (1.05M
-// triangles, 512^3) each triangle's window holds ~12-38 cells, so ~40M
-// SAT evaluations of ~130 float ops each; the occupancy writes are
-// scattered bytes into a 134 MB volume, and the triangle reads are
-// ~25 MB.  Neither memory stream comes near the card's bandwidth.
+// triangles, 512^3) a triangle's window holds ~36 cells on average (8 at
+// the least), so ~38M SAT evaluations of up to ~350 float ops each, many
+// of which exit early; the occupancy writes are scattered bytes into a
+// 134 MB volume, and the triangle reads are ~25 MB.  Neither memory
+// stream comes near the card's bandwidth.
 //
-// What the design does about it: one warp per triangle (grid-stride over
-// triangles), the 32 lanes striding over the window cells in the
-// _chunk_hits unravel order (x fastest), so each lane runs independent
-// SAT arithmetic and the warp's stores land on neighbouring bytes.  A hit
-// stores 1 to its occupancy byte: every writer stores the same value, so
-// the race is benign.  Hits are counted per lane, reduced per warp with
-// shuffles, and added once per warp to a 64-bit counter.  There is no
+// What the design does about it: the work is the flat list of (triangle,
+// cell) slots, laid across the warp's lanes with no lane left idle inside
+// a window.  A warp takes 32 consecutive triangles per round, one per
+// lane: each lane loads its face (coalesced) and vertices, checks them
+// and computes its window once, and stages them in shared memory; a
+// shuffle scan of the window sizes gives each triangle's first slot.  The
+// warp then walks the round's slots 32 at a time (64-bit running total:
+// one window can hold 512^3 cells); each lane advances to the triangle
+// that owns its slot and finds its cell with 32-bit index math (x
+// fastest, the _chunk_hits unravel order).  A hit stores 1 to its
+// occupancy byte: every writer stores the same value, so the race is
+// benign.  Hits are counted per lane, reduced per warp with shuffles and
+// added once per warp to a 64-bit counter; a face whose vertex index is
+// out of range is skipped and counted in a second word, which the
+// wrapper reads in the same sync as the hit total.  There is no
 // window-size limit, so no fallback path.
 //
 // Numerics: built with --fmad=false (see ops/kernels/_build.py) and
@@ -37,6 +46,13 @@
 namespace {
 
 constexpr float kEps = 1e-8f;
+// Lanes per warp: 32 on the card; the host test build runs one-lane warps.
+#ifndef VOXELRAY_WARP
+#define VOXELRAY_WARP 32
+#endif
+constexpr int kWarp = VOXELRAY_WARP;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / kWarp;  // warps per block
 
 struct Tri {
   float p0x, p0y, p0z, p1x, p1y, p1z, p2x, p2y, p2z;
@@ -61,14 +77,14 @@ __device__ __forceinline__ bool box_axis(float a, float b, float c, float h) {
   return (mn > h) || (mx < -h);
 }
 
-// sat.py tri_box_overlap for one cell center (all inputs finite).
-__device__ __forceinline__ bool tri_box_overlap(
-    float cx, float cy, float cz, float h, float v0x, float v0y, float v0z,
-    float v1x, float v1y, float v1z, float v2x, float v2y, float v2z) {
+// sat.py tri_box_overlap for one cell center (all inputs finite); v holds
+// the triangle's vertices v0, v1, v2.
+__device__ __forceinline__ bool tri_box_overlap(float cx, float cy, float cz,
+                                                float h, const float* v) {
   Tri p;
-  p.p0x = v0x - cx; p.p0y = v0y - cy; p.p0z = v0z - cz;
-  p.p1x = v1x - cx; p.p1y = v1y - cy; p.p1z = v1z - cz;
-  p.p2x = v2x - cx; p.p2y = v2y - cy; p.p2z = v2z - cz;
+  p.p0x = v[0] - cx; p.p0y = v[1] - cy; p.p0z = v[2] - cz;
+  p.p1x = v[3] - cx; p.p1y = v[4] - cy; p.p1z = v[5] - cz;
+  p.p2x = v[6] - cx; p.p2y = v[7] - cy; p.p2z = v[8] - cz;
   const float e0x = p.p1x - p.p0x, e0y = p.p1y - p.p0y, e0z = p.p1z - p.p0z;
   const float e1x = p.p2x - p.p1x, e1y = p.p2y - p.p1y, e1z = p.p2z - p.p1z;
   const float e2x = p.p0x - p.p2x, e2y = p.p0y - p.p2y, e2z = p.p0z - p.p2z;
@@ -103,89 +119,142 @@ __device__ __forceinline__ bool tri_box_overlap(
   return !((nl1 >= kEps) && (fabsf(s) > r));
 }
 
-__global__ void voxel_accum_kernel(const float* __restrict__ v,
-                                   const int* __restrict__ f, int n_tri,
-                                   float ogx, float ogy, float ogz, float vs,
-                                   float half, int nx, int ny, int nz,
-                                   uint8_t* __restrict__ occ,
-                                   unsigned long long* __restrict__ calls) {
-  const int lane = threadIdx.x & 31;
-  const long long warp =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const long long n_warps =
-      (static_cast<long long>(gridDim.x) * blockDim.x) >> 5;
-  unsigned long long hits = 0;
+// A warp's round of kWarp triangles, staged in shared memory: triangle j's
+// vertices, its window's first cell and x, y extents, and its first slot
+// in the round (first[kWarp] is the round's slot total).
+struct Round {
+  float v[kWarp][9];
+  int start[kWarp][3];
+  int wx[kWarp], wy[kWarp];
+  long long first[kWarp + 1];
+};
 
-  for (long long t = warp; t < n_tri; t += n_warps) {
-    const int i0 = __ldg(f + 3 * t), i1 = __ldg(f + 3 * t + 1),
-              i2 = __ldg(f + 3 * t + 2);
-    const float v0x = __ldg(v + 3 * i0), v0y = __ldg(v + 3 * i0 + 1),
-                v0z = __ldg(v + 3 * i0 + 2);
-    const float v1x = __ldg(v + 3 * i1), v1y = __ldg(v + 3 * i1 + 1),
-                v1z = __ldg(v + 3 * i1 + 2);
-    const float v2x = __ldg(v + 3 * i2), v2y = __ldg(v + 3 * i2 + 1),
-                v2z = __ldg(v + 3 * i2 + 2);
-    // a triangle with a non-finite vertex gets an empty window
-    if (!(isfinite(v0x) && isfinite(v0y) && isfinite(v0z) && isfinite(v1x) &&
-          isfinite(v1y) && isfinite(v1z) && isfinite(v2x) && isfinite(v2y) &&
-          isfinite(v2z)))
-      continue;
-    // window_bounds: float divide, truncation toward zero, +2, clamp
-    const float tminx = fminf(v0x, fminf(v1x, v2x));
-    const float tminy = fminf(v0y, fminf(v1y, v2y));
-    const float tminz = fminf(v0z, fminf(v1z, v2z));
-    const float tmaxx = fmaxf(v0x, fmaxf(v1x, v2x));
-    const float tmaxy = fmaxf(v0y, fmaxf(v1y, v2y));
-    const float tmaxz = fmaxf(v0z, fmaxf(v1z, v2z));
-    const int sx = max(0, static_cast<int>((tminx - ogx) / vs));
-    const int sy = max(0, static_cast<int>((tminy - ogy) / vs));
-    const int sz = max(0, static_cast<int>((tminz - ogz) / vs));
-    const int ex = min(nx, static_cast<int>((tmaxx - ogx) / vs) + 2);
-    const int ey = min(ny, static_cast<int>((tmaxy - ogy) / vs) + 2);
-    const int ez = min(nz, static_cast<int>((tmaxz - ogz) / vs) + 2);
-    const long long wx = max(ex - sx, 0), wy = max(ey - sy, 0),
+__global__ void __launch_bounds__(kThreads) voxel_accum_kernel(
+    const float* __restrict__ v, const int* __restrict__ f, int n_tri,
+    int n_vert, float ogx, float ogy, float ogz, float vs, float half, int nx,
+    int ny, int nz, uint8_t* __restrict__ occ,
+    unsigned long long* __restrict__ counts) {
+  __shared__ Round s_round[kWarps];
+  const int lane = threadIdx.x % kWarp;
+  Round& rd = s_round[threadIdx.x / kWarp];
+  const long long warp =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
+  const long long n_warps =
+      static_cast<long long>(gridDim.x) * blockDim.x / kWarp;
+  const long long n_rounds = (n_tri + kWarp - 1) / kWarp;
+  unsigned long long hits = 0, bad = 0;
+
+  for (long long round = warp; round < n_rounds; round += n_warps) {
+    // this lane's triangle: face, vertices, window (size 0 if none)
+    const long long t = round * kWarp + lane;
+    long long cap = 0;
+    if (t < n_tri) {
+      const int i0 = __ldg(f + 3 * t), i1 = __ldg(f + 3 * t + 1),
+                i2 = __ldg(f + 3 * t + 2);
+      if (i0 < 0 || i0 >= n_vert || i1 < 0 || i1 >= n_vert || i2 < 0 ||
+          i2 >= n_vert) {
+        ++bad;
+      } else {
+        float* p = rd.v[lane];
+        p[0] = __ldg(v + 3 * i0); p[1] = __ldg(v + 3 * i0 + 1);
+        p[2] = __ldg(v + 3 * i0 + 2);
+        p[3] = __ldg(v + 3 * i1); p[4] = __ldg(v + 3 * i1 + 1);
+        p[5] = __ldg(v + 3 * i1 + 2);
+        p[6] = __ldg(v + 3 * i2); p[7] = __ldg(v + 3 * i2 + 1);
+        p[8] = __ldg(v + 3 * i2 + 2);
+        // a triangle with a non-finite vertex gets an empty window
+        if (isfinite(p[0]) && isfinite(p[1]) && isfinite(p[2]) &&
+            isfinite(p[3]) && isfinite(p[4]) && isfinite(p[5]) &&
+            isfinite(p[6]) && isfinite(p[7]) && isfinite(p[8])) {
+          // window_bounds: float divide, truncation toward zero, +2, clamp
+          const float tminx = fminf(p[0], fminf(p[3], p[6]));
+          const float tminy = fminf(p[1], fminf(p[4], p[7]));
+          const float tminz = fminf(p[2], fminf(p[5], p[8]));
+          const float tmaxx = fmaxf(p[0], fmaxf(p[3], p[6]));
+          const float tmaxy = fmaxf(p[1], fmaxf(p[4], p[7]));
+          const float tmaxz = fmaxf(p[2], fmaxf(p[5], p[8]));
+          const int sx = max(0, static_cast<int>((tminx - ogx) / vs));
+          const int sy = max(0, static_cast<int>((tminy - ogy) / vs));
+          const int sz = max(0, static_cast<int>((tminz - ogz) / vs));
+          const int ex = min(nx, static_cast<int>((tmaxx - ogx) / vs) + 2);
+          const int ey = min(ny, static_cast<int>((tmaxy - ogy) / vs) + 2);
+          const int ez = min(nz, static_cast<int>((tmaxz - ogz) / vs) + 2);
+          const int wx = max(ex - sx, 0), wy = max(ey - sy, 0),
                     wz = max(ez - sz, 0);
-    const long long cap = wx * wy * wz;
-    for (long long k = lane; k < cap; k += 32) {
-      const int dx = static_cast<int>(k % wx);
-      const int dy = static_cast<int>((k / wx) % wy);
-      const int dz = static_cast<int>(k / (wx * wy));
-      const int cx = sx + dx, cy = sy + dy, cz = sz + dz;
+          cap = static_cast<long long>(wx) * wy * wz;
+          rd.start[lane][0] = sx;
+          rd.start[lane][1] = sy;
+          rd.start[lane][2] = sz;
+          rd.wx[lane] = wx;
+          rd.wy[lane] = wy;
+        }
+      }
+    }
+    // exclusive scan of the window sizes over the warp
+    long long incl = cap;
+#pragma unroll
+    for (int off = 1; off < kWarp; off <<= 1) {
+      const long long y = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += y;
+    }
+    rd.first[lane] = incl - cap;
+    if (lane == kWarp - 1) rd.first[kWarp] = incl;
+    __syncwarp();
+    // the round's slots, kWarp at a time: slot k of the round belongs to
+    // the triangle j with first[j] <= k < first[j + 1], which only moves
+    // forward as the lane's k grows
+    const long long total = rd.first[kWarp];
+    int j = 0;
+    for (long long k = lane; k < total; k += kWarp) {
+      while (k >= rd.first[j + 1]) ++j;
+      // a window holds fewer than 2^31 cells (the wrapper checks the grid)
+      const unsigned q = static_cast<unsigned>(k - rd.first[j]);
+      const unsigned wx = rd.wx[j], wy = rd.wy[j];
+      const unsigned row = q / wx;
+      const int cx = rd.start[j][0] + static_cast<int>(q - row * wx);
+      const int cy = rd.start[j][1] + static_cast<int>(row % wy);
+      const int cz = rd.start[j][2] + static_cast<int>(row / wy);
       const float ccx = ogx + (static_cast<float>(cx) + 0.5f) * vs;
       const float ccy = ogy + (static_cast<float>(cy) + 0.5f) * vs;
       const float ccz = ogz + (static_cast<float>(cz) + 0.5f) * vs;
-      if (tri_box_overlap(ccx, ccy, ccz, half, v0x, v0y, v0z, v1x, v1y, v1z,
-                          v2x, v2y, v2z)) {
+      if (tri_box_overlap(ccx, ccy, ccz, half, rd.v[j])) {
         occ[static_cast<long long>(cx) +
             static_cast<long long>(nx) *
                 (cy + static_cast<long long>(ny) * cz)] = 1;
         ++hits;
       }
     }
+    __syncwarp();  // the next round overwrites the staged triangles
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+  for (int off = kWarp / 2; off > 0; off >>= 1) {
     hits += __shfl_down_sync(0xffffffffu, hits, off);
-  if (lane == 0 && hits) atomicAdd(calls, hits);
+    bad += __shfl_down_sync(0xffffffffu, bad, off);
+  }
+  if (lane == 0) {
+    if (hits) atomicAdd(counts, hits);
+    if (bad) atomicAdd(counts + 1, bad);
+  }
 }
 
 }  // namespace
 
-// Face indices must be in range: the wrapper checks them.
+// counts: two zeroed 64-bit words, the SAT hit total and the number of
+// faces skipped for a vertex index outside [0, n_vert).
 extern "C" int voxel_accum_launch(const void* v, const void* f, int n_tri,
-                                  float ogx, float ogy, float ogz, float vs,
-                                  float half, int nx, int ny, int nz,
-                                  void* occ, void* calls, void* stream) {
+                                  int n_vert, float ogx, float ogy,
+                                  float ogz, float vs, float half, int nx,
+                                  int ny, int nz, void* occ, void* counts,
+                                  void* stream) {
   if (n_tri <= 0) return 0;
-  const int threads = 256;  // 8 triangles in flight per block
-  const long long warps_needed = n_tri;
-  long long blocks = (warps_needed * 32 + threads - 1) / threads;
+  const long long rounds = (n_tri + kWarp - 1) / kWarp;
+  long long blocks = (rounds + kWarps - 1) / kWarps;
   if (blocks > 132 * 64) blocks = 132 * 64;  // grid-stride beyond this
-  voxel_accum_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+  voxel_accum_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(v), static_cast<const int*>(f), n_tri, ogx,
-      ogy, ogz, vs, half, nx, ny, nz, static_cast<uint8_t*>(occ),
-      static_cast<unsigned long long*>(calls));
+      static_cast<const float*>(v), static_cast<const int*>(f), n_tri, n_vert,
+      ogx, ogy, ogz, vs, half, nx, ny, nz, static_cast<uint8_t*>(occ),
+      static_cast<unsigned long long*>(counts));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -49,8 +49,8 @@ def fine_plain(o, d, bricks, fine, t_min, t_max, *, dims, bdims,
                origin_key, voxel_size, count_steps=False, per_hit=False):
     """Plain version.  o, d: (N, 3) float32; bricks (K, N) int32; fine
     (16, NB) int32 words; t_min, t_max (N,) float32.  Returns (t, lin),
-    and with count_steps=True also the cell steps summed over rays and
-    slots: the kernel's per-thread steps on the same inputs; with
+    and with count_steps=True also each ray's cell steps over its slots,
+    (N,) int64: the kernel's per-thread steps on the same inputs; with
     per_hit=True too, last, the (N,) int64 slot at which each ray's hit
     was decided (K where it was not)."""
     nx, ny, _ = dims
@@ -114,7 +114,7 @@ def fine_plain(o, d, bricks, fine, t_min, t_max, *, dims, bdims,
         best_lin = torch.where(take, g[0] + nx * (g[1] + ny * g[2]),
                                best_lin)
 
-    steps = torch.zeros((), dtype=torch.int64, device=dev)
+    steps = torch.zeros((n,), dtype=torch.int64, device=dev)
     decided = torch.full((n,), bricks.shape[0], dtype=torch.int64,
                          device=dev)
     for s in range(bricks.shape[0]):
@@ -150,7 +150,7 @@ def fine_plain(o, d, bricks, fine, t_min, t_max, *, dims, bdims,
             if not bool(act.any()):
                 break
             if count_steps:
-                steps += act.sum()
+                steps += act
             lin_local = loc[0] + BRICK * (loc[1] + BRICK * loc[2])
             # lanes that stepped out of the brick are inactive: clamp
             # their word index so the gather stays in range
@@ -209,7 +209,7 @@ def fine_plain(o, d, bricks, fine, t_min, t_max, *, dims, bdims,
                    & (loc[1] < BRICK) & (loc[2] >= 0) & (loc[2] < BRICK))
             act = act & inb & (tmn <= t_max)
         decided = torch.where(done & (decided > s), s, decided)
-    out = (best_t, best_lin) + ((int(steps),) if count_steps else ())
+    out = (best_t, best_lin) + ((steps,) if count_steps else ())
     return out + (decided,) if per_hit else out
 
 

@@ -29,6 +29,10 @@ __all__ = ["build_fine_sb", "trace_grid_mega", "trace_grid_mega_cuda",
 
 BRICK = 8
 TILE_ROWS = 72  # 64 word rows + occupancy row 64 + 7 alignment spares
+# The kernel's chunks of 32 rays are dealt to this many counters in turn,
+# each in its own 128-byte line (32 ints), so that a frame's ~65K fetches
+# do not queue on one word (PERF.md)
+STRIPES = 32
 
 launches = 0
 
@@ -90,7 +94,7 @@ def _lib():
     lib = load_library()
     fn = lib.mega_trace_launch
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 7 + [ci] * 7 + [cf] * 6 + [vp] * 4
+    fn.argtypes = [vp] * 7 + [ci] * 7 + [cf] * 6 + [vp] * 4 + [ci, vp]
     fn.restype = ci
     return fn
 
@@ -126,6 +130,9 @@ def trace_grid_mega_cuda(o, d, accel, t_min, t_max, admit):
             or l2.numel() * 32 < n_sb:
         raise ValueError("trace_grid_mega_cuda: accel tables do not match "
                          f"bdims {accel.bdims}")
+    if n >= 2 ** 30:
+        raise ValueError(f"trace_grid_mega_cuda: {n} rays exceed int32 "
+                         "ray indexing")
     nx, ny, nz = accel.dims
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     lin = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -134,6 +141,7 @@ def trace_grid_mega_cuda(o, d, accel, t_min, t_max, admit):
         return t, lin, alive
     vs = np.float32(accel.voxel_size)
     ogx, ogy, ogz = accel.origin_key
+    next_ray = torch.zeros((STRIPES * 32,), dtype=torch.int32, device=dev)
     fn = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -143,7 +151,8 @@ def trace_grid_mega_cuda(o, d, accel, t_min, t_max, admit):
                  bz, ogx, ogy, ogz, float(vs),
                  float(np.float32(0.5) * vs),
                  float(np.float32(accel.voxel_size * BRICK)),
-                 t.data_ptr(), lin.data_ptr(), alive.data_ptr(), stream)
+                 t.data_ptr(), lin.data_ptr(), alive.data_ptr(),
+                 next_ray.data_ptr(), STRIPES, stream)
     check(err, "mega_trace_launch")
     launches += 1
     return t, lin, alive

@@ -8,7 +8,9 @@ the device (no host plan).
 
 `voxel_accum` launches the kernel for CUDA tensors and runs the plain
 PyTorch version (`voxelize_plain`) for CPU tensors; any other device
-raises.  `launches` counts kernel launches only.
+raises.  `launches` counts kernel launches only.  The kernel checks the
+face indices itself; the wrapper reads its hit total and its count of
+out-of-range faces in one sync and raises if that count is not 0.
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ import torch
 from ..voxelize import voxelize_plain
 from ._build import check, load_library
 
-__all__ = ["voxel_accum", "voxel_accum_cuda", "voxelize_plain", "launches"]
+__all__ = ["voxel_accum", "voxel_accum_cuda", "launch", "voxelize_plain",
+           "launches"]
 
 launches = 0
 
@@ -32,7 +35,7 @@ _c_float = ctypes.c_float
 def _lib():
     lib = load_library()
     fn = lib.voxel_accum_launch
-    fn.argtypes = [_c_void, _c_void, _c_int,
+    fn.argtypes = [_c_void, _c_void, _c_int, _c_int,
                    _c_float, _c_float, _c_float, _c_float, _c_float,
                    _c_int, _c_int, _c_int, _c_void, _c_void, _c_void]
     fn.restype = _c_int
@@ -42,7 +45,6 @@ def _lib():
 def voxel_accum_cuda(v, f, origin, voxel_size, dims):
     """Launch K1.  v (V, 3) float32 and f (F, 3) int32, contiguous, on one
     CUDA device; returns (occ (Z, Y, X) uint8, set_calls int)."""
-    global launches
     if not (v.is_cuda and f.is_cuda and v.device == f.device):
         raise ValueError("voxel_accum_cuda needs v and f on one CUDA device")
     if v.dtype != torch.float32 or v.dim() != 2 or v.shape[1] != 3:
@@ -56,25 +58,36 @@ def voxel_accum_cuda(v, f, origin, voxel_size, dims):
     nx, ny, nz = (int(x) for x in dims)
     if nx * ny * nz >= 2**31:
         raise ValueError(f"grid {dims} exceeds int32 cell indexing")
-    n_tri, n_vert = int(f.shape[0]), int(v.shape[0])
+    if f.shape[0] >= 2 ** 31:
+        raise ValueError(f"{f.shape[0]} faces exceed int32 indexing")
     occ = torch.zeros((nz, ny, nx), dtype=torch.uint8, device=v.device)
-    calls = torch.zeros((), dtype=torch.int64, device=v.device)
-    if n_tri == 0 or occ.numel() == 0:
+    counts = torch.zeros((2,), dtype=torch.int64, device=v.device)
+    if f.shape[0] == 0 or occ.numel() == 0:
         return occ, 0
-    if int(f.min()) < 0 or int(f.max()) >= n_vert:
-        raise ValueError("face index out of range")
+    launch(v, f, origin, voxel_size, dims, occ, counts)
+    calls, bad = counts.tolist()
+    if bad:
+        raise ValueError(f"{bad} faces index a vertex out of range")
+    return occ, calls
+
+
+def launch(v, f, origin, voxel_size, dims, occ, counts):
+    """Launch K1 on checked arguments (see voxel_accum_cuda): ORs the
+    mesh's occupancy into occ (Z, Y, X) uint8 and adds the hit total and
+    the number of out-of-range faces to counts (2,) int64."""
+    global launches
+    nx, ny, nz = (int(x) for x in dims)
     org = np.asarray(origin, np.float32)
     fn = _lib()
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(v.data_ptr(), f.data_ptr(), n_tri,
-                 float(org[0]), float(org[1]), float(org[2]),
-                 float(np.float32(voxel_size)),
+        err = fn(v.data_ptr(), f.data_ptr(), int(f.shape[0]),
+                 int(v.shape[0]), float(org[0]), float(org[1]),
+                 float(org[2]), float(np.float32(voxel_size)),
                  float(np.float32(voxel_size * 0.5)),
-                 nx, ny, nz, occ.data_ptr(), calls.data_ptr(), stream)
+                 nx, ny, nz, occ.data_ptr(), counts.data_ptr(), stream)
     check(err, "voxel_accum_launch")
     launches += 1
-    return occ, int(calls)
 
 
 def voxel_accum(v, f, origin, voxel_size, dims):
