@@ -12,7 +12,13 @@ Drives the port's paths the way a user calls them, at the bench's size:
   * the triangle path: the same knot as a triangle model
     (build_scene(models=[...]) builds the triangle accel on the card) and
     a 1920x1080 frame with shadow rays, whose tri-grid march is one
-    tri_march launch per trace (K3 and K4 are not launched there).
+    tri_march launch per trace (K3 and K4 are not launched there);
+  * the encodings (phase 8): the 512^3 grid's AABBs extracted (GridBool
+    .get_aabbs and get_aabbs_fixed), GridAabbStruct, GridVec and the
+    octree built on the card (build ms, memory_usage_bytes), and gate 3's
+    octree scene rendered with backend="octree", its primary trace held
+    against K2's; then a brute AABB trace of sampled rays against K2 and
+    save_grid / load_grid round trips.
 
 Each path runs once with the kernels' launch counters set to 0 just
 before it and read just after.  Then every kernel is held against its
@@ -171,7 +177,7 @@ def compare_traces(what, o, d, occ, origin, vs, t_k, lin_k, t_p, lin_p):
     return len(idx), err
 
 
-def time_frames(scene, mats, **kw):
+def time_frames(scene, mats, backend="fast", **kw):
     """{shadows: ms per WIDTHxHEIGHT frame} over the orbit cameras, after
     one warm-up pass; kw go to render_image."""
     import torch
@@ -181,7 +187,7 @@ def time_frames(scene, mats, **kw):
         def frames():
             for mvi, mpi in mats:
                 pipeline.render_image(scene, mvi, mpi, width=WIDTH,
-                                      height=HEIGHT, backend="fast",
+                                      height=HEIGHT, backend=backend,
                                       shadows=shadows, **kw)
         frames()
         torch.cuda.synchronize()
@@ -463,6 +469,221 @@ def check_fine(what, o, d, bricks, tmn, tmx, accel):
         f"cell steps; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{b_ms:.5f} ms by {b_by}")
     return got, ms, plain_ms, steps, nbytes
+
+
+def wall_ms(fn):
+    """(fn's result, wall ms of one call with the device synced)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def numpy_aabbs(occ_np, origin, vs):
+    """The numpy float32 aabbs_from_linear of np.flatnonzero: the rows
+    the extraction must give bit for bit."""
+    import numpy as np
+    nz, ny, nx = occ_np.shape
+    lin = np.flatnonzero(occ_np.reshape(-1))
+    x, y, z = lin % nx, (lin // nx) % ny, lin // (nx * ny)
+    v = np.float32(vs)
+    h = np.float32(0.5) * v
+    org = np.asarray(origin, np.float32)
+    c = [org[i] + (a.astype(np.float32) + np.float32(0.5)) * v
+         for i, a in enumerate((x, y, z))]
+    return np.stack([c[0] - h, c[1] - h, c[2] - h, c[0] + h, c[1] + h,
+                     c[2] + h], axis=-1)
+
+
+def check_extraction(grid, occ_np, smi):
+    """GridBool.get_aabbs and get_aabbs_fixed (capacity 1 << 20, word and
+    group capacities from the counts plus 10%, rounded up to 8192, as
+    bench.py:296-303 sizes them): count equal to the occupied cells, rows
+    bit-equal to numpy's.  Returns the exact rows."""
+    import numpy as np
+    import torch
+    from voxelray_torch.ops import aabbs as ops_aabbs
+    occ = grid.occupancy()
+    n_occ = int(occ_np.sum())
+    nzw = ops_aabbs.count_nonzero_words(occ)
+    nzg = ops_aabbs.count_nonzero_groups(occ)
+    wcap = -(-int(nzw * 1.1) // 8192) * 8192
+    gcap = -(-int(nzg * 1.1) // 8192) * 8192
+    want = torch.from_numpy(numpy_aabbs(occ_np, grid.origin,
+                                        grid.voxel_size))
+    exact = grid.get_aabbs()
+    fixed, count = grid.get_aabbs_fixed(capacity=1 << 20, word_capacity=wcap,
+                                        group_capacity=gcap)
+    log(f"AABB extraction: {n_occ} occupied cells, count {int(count)}, "
+        f"{nzw} nonzero words (word_capacity {wcap}), {nzg} nonzero groups "
+        f"(group_capacity {gcap})")
+    require(int(count) == n_occ == exact.shape[0],
+            "extraction count differs from the occupied cells")
+    require(torch.equal(exact.cpu(), want), "get_aabbs rows differ from "
+            "numpy's aabbs_from_linear of np.flatnonzero")
+    require(torch.equal(fixed[:n_occ].cpu(), want),
+            "get_aabbs_fixed rows differ from numpy's")
+    require(not bool(fixed[n_occ:].any()), "get_aabbs_fixed: rows past "
+            "count are not zero")
+    fixed_ms = cuda_ms(lambda: grid.get_aabbs_fixed(
+        capacity=1 << 20, word_capacity=wcap, group_capacity=gcap), 10)
+    exact_ms = cuda_ms(grid.get_aabbs, 10)
+    log(f"AABB extraction ms (CUDA events, mean of 10): get_aabbs_fixed "
+        f"{fixed_ms:.4f} (compaction of the words, no host sync), get_aabbs "
+        f"{exact_ms:.4f} (torch.nonzero over the unpacked occupancy, one "
+        f"sync); {exact.shape[0] * 24} bytes of rows [{smi}]")
+    return exact
+
+
+def build_encodings(grid, v, f, vs, device, smi):
+    """GridBool (K1), GridAabbStruct, GridVec and Octree from the mesh on
+    the card, each with its build ms and memory_usage_bytes (the
+    reference Benchmaker's build ms / bytes), held to GridBool."""
+    import torch
+    from voxelray_torch.models.grids import (GridAabbStruct, GridBool,
+                                             GridVec)
+    from voxelray_torch.models.octree import Octree
+    occ = grid.occupancy()
+    builds = {}
+    for name, cls in (("bool", GridBool), ("aabbstruct", GridAabbStruct),
+                      ("vec", GridVec), ("octree", Octree)):
+        enc, ms = wall_ms(lambda: cls.from_mesh(v, f, vs, device=device))
+        builds[name] = enc
+        log(f"encoding {name}: build {ms:.1f} ms, memory_usage_bytes "
+            f"{enc.memory_usage_bytes()} [{smi}]")
+        require(torch.equal(enc.occupancy(), occ),
+                f"{name}: occupancy differs from GridBool's")
+    gs, gv, tree = builds["aabbstruct"], builds["vec"], builds["octree"]
+    require(torch.equal(builds["bool"].words, grid.words),
+            "GridBool rebuilt with other words")
+    require(torch.equal(gs.get_aabbs(), grid.get_aabbs()),
+            "GridAabbStruct AABBs differ from GridBool's")
+    require(gv.aabbs.shape[0] == gv.set_calls == tree.n_items
+            == tree.set_calls == grid.set_calls,
+            f"item counts {gv.aabbs.shape[0]} / {tree.n_items} differ from "
+            f"K1's set_calls {grid.set_calls}")
+    require((tree.bits_per_axis, tree.map_bits) == (9, 8),
+            f"octree bits {tree.bits_per_axis}, map_bits {tree.map_bits}")
+    log(f"octree: {tree.n_items} items, {tree.n_nodes} nodes, bits "
+        f"{tree.bits_per_axis}, map_bits {tree.map_bits}; GridVec "
+        f"{gv.aabbs.shape[0]} boxes; GridAabbStruct {gs.used.shape[0]} "
+        "cells")
+    return gv, tree
+
+
+def octree_frame(tree, gv, mats, o, d, occ_np, device, smi):
+    """The gate-3 scene (occupancy from the tree, GridVec's list, the
+    tree; voxelray_tpu/utils/gates.py:61-80): its primary trace on the
+    bench camera's rays against K2's on the same scene, and frames with
+    backend "octree" over the orbit cameras.  Returns K2's (t, lin)."""
+    from voxelray_torch.models.scene import build_scene
+    from voxelray_torch.ops import octree_traverse
+    from voxelray_torch.ops.traverse_fast import trace_grid_fast
+    octree_traverse.cut_rays = 0
+    oscene, build_ms = wall_ms(lambda: build_scene(
+        grid=tree, aabbs=gv.get_aabbs(), octree=tree, device=device))
+    log(f"octree scene: build_scene {build_ms:.1f} ms, {oscene.n_voxels} "
+        "boxes")
+    t_k, lin_k = trace_grid_fast(o, d, oscene.accel)
+    (t_o, lin_o, steps), trace_ms = wall_ms(
+        lambda: octree_traverse.trace_octree(o, d, tree, return_stats=True))
+    log(f"octree primary trace ({o.shape[0]} rays): {trace_ms:.1f} ms, "
+        f"{steps} steps ({trace_ms / max(steps, 1):.3f} ms a step), rays "
+        f"cut by max_outer {octree_traverse.cut_rays} [{smi}]")
+    compare_traces("octree primary vs K2", o, d, occ_np, tree.origin,
+                   tree.voxel_size, t_o, lin_o, t_k, lin_k)
+    log_frames("octree (backend octree)",
+               time_frames(oscene, mats, backend="octree"), smi)
+    from scripts.torch_frame_profile import profile_frame
+    from voxelray_torch.render import pipeline
+    for shadows in (True, False):
+        prof = profile_frame(lambda: pipeline.render_image(
+            oscene, *mats[0], width=WIDTH, height=HEIGHT, backend="octree",
+            shadows=shadows), ())
+        log(f"octree frame shadows={shadows} under torch.profiler: wall "
+            f"{prof['wall_ms']:.1f} ms, device busy "
+            f"{prof['device_busy_ms']:.1f} ms, idle share "
+            f"{prof['device_idle_share']:.3f}, "
+            f"{prof['device_launches']} device launches [{smi}]")
+    log(f"octree: rays cut by max_outer over every octree trace "
+        f"{octree_traverse.cut_rays}")
+    require(octree_traverse.cut_rays == 0, "octree rays cut by max_outer")
+    return t_k, lin_k
+
+
+def brute_check(boxes, o, d, t_k, lin_k, occ_lin, device, smi):
+    """The brute AABB trace on N_BRUTE sampled bench rays over the
+    extracted boxes against K2: hit mask and cell equal, t within rtol
+    2e-6."""
+    import numpy as np
+    import torch
+    from voxelray_torch.ops.traverse import trace_aabbs_brute
+    n = o.shape[0]
+    rng = np.random.default_rng(1)
+    hit_idx = torch.nonzero(torch.isfinite(t_k)).squeeze(1).cpu().numpy()
+    idx = np.concatenate([rng.choice(hit_idx, N_BRUTE // 2, replace=False),
+                          rng.choice(n, N_BRUTE // 2, replace=False)])
+    idx_t = torch.as_tensor(idx, device=device)
+    (tb, pid), ms = wall_ms(lambda: trace_aabbs_brute(o[idx_t], d[idx_t],
+                                                      boxes))
+    tk, lk = t_k[idx_t], lin_k[idx_t]
+    hb, hk = torch.isfinite(tb), torch.isfinite(tk)
+    cell = torch.where(hb, occ_lin[torch.clamp(pid, min=0).long()], -1)
+    t_err = float(((tb[hb] - tk[hb]).abs() / tk[hb].abs()).max()) \
+        if bool(hb.any()) else 0.0
+    log(f"AABB brute check ({N_BRUTE} rays x {boxes.shape[0]} boxes): "
+        f"{ms:.1f} ms, hits brute {int(hb.sum())} K2 {int(hk.sum())}, same "
+        f"cell {int((cell == lk.long())[hb].sum())}, max rel t err {t_err} "
+        f"[{smi}]")
+    require(bool((hb == hk).all()), "brute AABB and K2 hit masks differ")
+    require(bool((cell[hb] == lk[hb].long()).all()),
+            "brute AABB and K2 cells differ")
+    require(t_err <= 2e-6, "brute AABB t outside rtol 2e-6 of K2's")
+
+
+def check_roundtrip(grid, tree, device):
+    """save_grid / load_grid of the GridBool and the octree: every field
+    equal."""
+    import tempfile
+    import torch
+    from voxelray_torch.utils.checkpoint import load_grid, save_grid
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, g in (("grid", grid), ("octree", tree)):
+            path = os.path.join(tmp, f"{name}.npz")
+            save_grid(path, g)
+            back = load_grid(path, device=device)
+            for k, a in vars(g).items():
+                b = getattr(back, k)
+                same = (torch.equal(a, b) if torch.is_tensor(a)
+                        else bool((a == b).all()) if hasattr(a, "all")
+                        else a == b)
+                require(same, f"{name} round trip: field {k} differs")
+            log(f"save_grid / load_grid {name}: {os.path.getsize(path)} "
+                "bytes, every field equal")
+
+
+def run_encodings(grid, v, f, vs, mats, o, d, occ_np, device):
+    """Phase 8: AABB extraction, the four encodings (K1 voxelizes), the
+    octree frame against K2's trace, counted as one path; then the brute
+    AABB trace and the checkpoints."""
+    import torch
+    from voxelray_torch.ops.kernels import mega_trace, voxel_accum
+    smi = smi_line()
+    reset(voxel_accum, mega_trace)
+    torch.cuda.synchronize()
+    boxes = check_extraction(grid, occ_np, smi)
+    gv, tree = build_encodings(grid, v, f, vs, device, smi)
+    t_k, lin_k = octree_frame(tree, gv, mats, o, d, occ_np, device, smi)
+    torch.cuda.synchronize()
+    counts = counts_of(voxel_accum, mega_trace)
+    log(f"encodings path launches: {counts}")
+    require(counts["voxel_accum"] > 0, "phase 8: K1 was not launched")
+    require(counts["mega_trace"] > 0, "phase 8: K2 was not launched")
+    occ_lin = torch.nonzero(grid.occupancy().reshape(-1)).squeeze(1)
+    brute_check(boxes, o, d, t_k, lin_k, occ_lin, device, smi)
+    check_roundtrip(grid, tree, device)
 
 
 def run(device):
@@ -834,6 +1055,9 @@ def run(device):
         tri_counts["tri_march"], 0.0, tm_ms, tm_plain_ms, tm_bytes, tm_ops))
     log(f"tri_march on the triangle path: lap loop with K3/K4 "
         f"{tm_lap_ms:.4f} ms, tri_march {tm_ms:.4f} ms")
+
+    # ---- 8. AABB extraction, the other encodings, the octree frame -------
+    run_encodings(grid, v, f, vs, mats, o, d, occ_np, device)
     return rows, smi_line()
 
 

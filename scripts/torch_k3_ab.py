@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""K1, K2 or K3 of two source trees, timed in turns on one card.
+"""K1, K2, K3 or the voxel frame of two source trees, timed in turns on
+one card.
 
 Each tree is a checkout of this repository (this one, and another commit
 unpacked with `git archive` into a directory that .gitignore lists).
@@ -18,14 +19,18 @@ one kernel with CUDA events:
       counts (chip_smoke.mega_work) and saves for the others;
   k3  grid_walk on the staged walk's two inputs that chip_smoke.py
       checks: round 1 (fused init, k 5, every ray) and the resume (k 8,
-      the rays that go on).
+      the rays that go on);
+  frame  the voxel frame (render_image, backend "fast": K2 for the
+      primary and the shadow pass) from the bench camera, shadows on
+      and off: wall ms per frame (host clock, synchronized), and one
+      frame under torch.profiler for its device launches and busy ms.
 
 Each run prints one JSON line: the tree, the mean ms of REPS calls ROUNDS
 times over, a checksum of the outputs (equal across trees when their
 kernels agree) and ptxas's report for the kernel.  The card's name and
 power limit come last.
 
-    python3 scripts/torch_k3_ab.py [--kernel k1|k2|k3] TREE_A TREE_B [OUT.json]
+    python3 scripts/torch_k3_ab.py [--kernel k1|k2|k3|frame] TREE_A TREE_B [OUT.json]
 
 Needs one CUDA device and nvcc; imports no JAX.
 """
@@ -45,7 +50,7 @@ GRID_RES = 512
 WIDTH, HEIGHT = 1920, 1080
 REPS, ROUNDS = 50, 5
 ENTRY = {"k1": "voxel_accum_kernel", "k2": "mega_trace_kernel",
-         "k3": "grid_walk_kernel"}
+         "k3": "grid_walk_kernel", "frame": "mega_trace_kernel"}
 
 
 def ptxas_report(log, kernel):
@@ -85,18 +90,46 @@ def timed(fn):
     return out
 
 
+def wall_timed(fn):
+    """ROUNDS means of REPS calls of fn, in host ms with the device
+    synchronized (for calls that synchronize inside)."""
+    import time
+    import torch
+    out = []
+    fn()
+    for _ in range(ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REPS):
+            fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3 / REPS)
+    return out
+
+
+def bench_camera(v):
+    """The bench camera's (view_inv, proj_inv) and the mesh bounds."""
+    import numpy as np
+    from voxelray_torch.ops import geometry
+    from voxelray_torch.render.camera import Camera
+    bb_min, bb_max = geometry.mesh_bbox(v)
+    extent = float(max(bb_max - bb_min))
+    center = (bb_min + bb_max) * 0.5
+    cam = Camera(eye=tuple(center + np.asarray([0.9, 0.55, -0.9]) * extent),
+                 center=tuple(center))
+    _, _, vi, pi = cam.matrices(WIDTH, HEIGHT)
+    return vi, pi, bb_min, bb_max
+
+
 def inputs(tree):
     """The knot, its grid parameters and the bench camera's tiled rays on
     the card, from the tree's voxelray_torch (first on the path)."""
-    import numpy as np
     import torch
     import voxelray_torch
     from voxelray_torch.io import meshes
-    from voxelray_torch.ops import geometry
     from voxelray_torch.ops.intersect import make_camera_rays
     from voxelray_torch.ops.kernels import _build
     from voxelray_torch.render import pipeline
-    from voxelray_torch.render.camera import Camera
 
     pkg = Path(voxelray_torch.__file__).resolve()
     if Path(tree).resolve() not in pkg.parents:
@@ -104,13 +137,8 @@ def inputs(tree):
     dev = torch.device("cuda", 0)
     _build.load_library()
     v, f = meshes.torus_knot(**MESH)
-    bb_min, bb_max = geometry.mesh_bbox(v)
+    vi, pi, bb_min, bb_max = bench_camera(v)
     vs = float(max(bb_max - bb_min)) / GRID_RES
-    extent = float(max(bb_max - bb_min))
-    center = (bb_min + bb_max) * 0.5
-    cam = Camera(eye=tuple(center + np.asarray([0.9, 0.55, -0.9]) * extent),
-                 center=tuple(center))
-    _, _, vi, pi = cam.matrices(WIDTH, HEIGHT)
     o, d = make_camera_rays(WIDTH, HEIGHT, vi, pi, device=dev)
     o = pipeline._tile_rays(o, HEIGHT, WIDTH).contiguous()
     d = pipeline._tile_rays(d, HEIGHT, WIDTH).contiguous()
@@ -246,12 +274,32 @@ def child_k3(tree):
                                                        hits2, cell2, cont2)]}
 
 
+def child_frame(tree):
+    from scripts.torch_frame_profile import profile_frame
+    from voxelray_torch.render.pipeline import render_image
+    dev, v, f, _, _, vs, _, _ = inputs(tree)
+    vi, pi, _, _ = bench_camera(v)
+    scene = voxel_scene(dev, v, f, vs)
+    ms, prof, images = {}, {}, []
+    for shadows in (True, False):
+        def frame():
+            return render_image(scene, vi, pi, width=WIDTH, height=HEIGHT,
+                                backend="fast", shadows=shadows)
+        images.append(frame())
+        key = f"shadows {'on' if shadows else 'off'}"
+        ms[key] = wall_timed(frame)
+        p = profile_frame(frame, ())
+        prof[key] = {"device_launches": p["device_launches"],
+                     "device_busy_ms": p["device_busy_ms"]}
+    return {"ms": ms, "profiled": prof, "checksum": sha(*images)}
+
+
 def child(kernel, tree, classes_path):
     sys.path[:0] = [str(Path(tree).resolve())]
     from voxelray_torch.ops.kernels import _build
     row = (child_k1(tree) if kernel == "k1" else
            child_k2(tree, classes_path) if kernel == "k2" else
-           child_k3(tree))
+           child_k3(tree) if kernel == "k3" else child_frame(tree))
     row = {"tree": str(tree), "kernel": kernel, **row,
            f"ptxas_{ENTRY[kernel]}": ptxas_report(_build.build_log(),
                                                   ENTRY[kernel])}

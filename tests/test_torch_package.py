@@ -358,3 +358,47 @@ def test_tri_march_matches_the_lap_loop_on_cuda(cuda):
         assert torch.equal(got[0], want[0])
         assert torch.equal(got[2][hit], want[2][hit])
         assert torch.equal(got[3][hit], want[3][hit])
+
+
+@pytest.mark.cuda
+def test_aabb_extraction_on_cuda_matches_cpu(cuda):
+    """The word compaction on the card (bit-31 words included): rows and
+    count bit-equal to the CPU run, with and without the bounds."""
+    from voxelray_torch.models.grids import GridBool
+    rng = np.random.default_rng(5)
+    occ = torch.from_numpy((rng.random((9, 13, 29)) < 0.25).astype(np.uint8))
+    origin = np.float32([-1.3, 0.7, 2.1])
+    cpu = GridBool.from_occupancy(occ, origin, 0.07)
+    gpu = GridBool.from_occupancy(occ.to(cuda), origin, 0.07)
+    assert bool((cpu.words < 0).any())           # words with bit 31 set
+    assert torch.equal(gpu.get_aabbs().cpu(), cpu.get_aabbs())
+    for kw in ({}, {"word_capacity": 7}, {"group_capacity": 2},
+               {"byte_capacity": 11, "word_capacity": 40}):
+        a, c = cpu.get_aabbs_fixed(4096, **kw)
+        b, d = gpu.get_aabbs_fixed(4096, **kw)
+        assert int(c) == int(d) and torch.equal(b.cpu(), a), kw
+
+
+@pytest.mark.cuda
+def test_encodings_and_octree_walk_on_cuda_match_cpu(cuda):
+    """The hit stream, GridVec, the octree's int64 codes sorted on the
+    card, and the octree walk: equal to the CPU run."""
+    from voxelray_torch.models.grids import GridVec
+    from voxelray_torch.models.octree import Octree
+    from voxelray_torch.ops.octree_traverse import trace_octree
+    v, f = meshes.bunny_like(2)
+    gv_c = GridVec.from_mesh(v, f, 0.11, device="cpu")
+    gv_g = GridVec.from_mesh(v, f, 0.11, device=cuda)
+    assert torch.equal(gv_g.aabbs.cpu(), gv_c.aabbs)
+    t_c = Octree.from_mesh(v, f, 0.11, device="cpu")
+    t_g = Octree.from_mesh(v, f, 0.11, device=cuda)
+    assert t_g.codes.is_cuda and torch.equal(t_g.codes.cpu(), t_c.codes)
+    assert torch.equal(t_g.region_map.cpu(), t_c.region_map)
+    cam = Camera(eye=(2.5, 1.5, -2.5), center=(0.0, 0.0, 0.0))
+    _, _, vi, pi = cam.matrices(128, 64)
+    o, d = make_camera_rays(128, 64, vi, pi)
+    want = trace_octree(o, d, t_c)
+    got = trace_octree(o.to(cuda), d.to(cuda), t_g)
+    assert int(torch.isfinite(want[0]).sum()) > 500
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[0].cpu(), want[0])

@@ -71,14 +71,22 @@ def test_render_matches_jax(scenes, width, height, shadows):
 
 
 def test_render_scene_defaults(scenes):
-    """render_scene's default camera and light, dda vs fast in the port."""
+    """render_scene's default camera and light, dda vs fast in the port.
+    Backend "octree" on a scene without an octree takes the brute trace
+    over the scene's AABB list, as JAX's dispatch does: the same hits,
+    and pixels within 2e-5 (the box centre (min + max) / 2 may differ
+    from the cell centre by an ulp); an unknown backend raises."""
     _, scene, _ = scenes
     a = render_scene(scene, width=64, height=36, backend="dda")
     b = render_scene(scene, width=64, height=36, backend="fast")
     assert torch.equal(a, b)
     assert torch.isfinite(a).all() and float(a.min()) >= 0.0
-    with pytest.raises(NotImplementedError):
-        render_scene(scene, width=8, height=8, backend="octree")
+    c = render_scene(scene, width=64, height=36, backend="octree")
+    assert scene.octree is None and scene.n_voxels > 0
+    close = ((c - a).abs() <= 2e-5).all(-1)
+    assert float(close.float().mean()) >= 0.999
+    with pytest.raises(ValueError):
+        render_scene(scene, width=8, height=8, backend="raster")
 
 
 def _rand_unit(rng, n):

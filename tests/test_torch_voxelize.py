@@ -146,10 +146,18 @@ def test_gridbool_pack_round_trip_and_memory():
 
 
 def test_later_slices_raise():
+    """The encodings of the later slice are built now (AABBs included,
+    one per occupied cell); an unknown encoding raises, and without a
+    card the default device does."""
     v, f = meshes.cube(2.0)
     grid = build_grid("bool", v, f, 0.5, device="cpu")
-    with pytest.raises(NotImplementedError, match="AABB extraction"):
-        grid.get_aabbs()
+    n_occ = int(grid.occupancy().sum())
+    assert tuple(grid.get_aabbs().shape) == (n_occ, 6)
     for enc in ("aabbstruct", "vec", "octree"):
-        with pytest.raises(NotImplementedError):
-            build_grid(enc, v, f, 0.5)
+        g = build_grid(enc, v, f, 0.5, device="cpu")
+        assert torch.equal(g.occupancy(), grid.occupancy()), enc
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                build_grid(enc, v, f, 0.5)
+    with pytest.raises(ValueError):
+        build_grid("nope", v, f, 0.5, device="cpu")

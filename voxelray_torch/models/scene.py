@@ -12,15 +12,15 @@ tensors:
     its per-level placements, and the triangle accel (the "triangle
     BLAS", ops/tri_accel.py) once a mesh passes 256 triangles;
   * voxel geometry as the dense occupancy grid and its BrickAccel (the
-    "procedural BLAS", hello_vulkan.cpp:699-715);
+    "procedural BLAS", hello_vulkan.cpp:699-715), the flat AABB list the
+    brute backend traces, and optionally a Morton octree;
   * light defaults matching the app's startup values (lightPosition
     (10,55,8), intensity 1000, point light, hello_vulkan.h:84-91).
 
 Mesh materials are converted sRGB -> linear on load (pow 2.2,
 hello_vulkan.cpp:204-208); the voxel default material is uploaded raw.
 Every array is built with the JAX package's numpy expressions, so the
-tensors are bit-equal to its Scene's.  The explicit AABB list and the
-octree come with later slices and raise NotImplementedError.
+tensors are bit-equal to its Scene's.
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ import torch
 
 from ..io.objload import Material
 from ..io.textures import build_mip_chain, load_texture
+from ..ops.aabbs import extract_aabbs
 from ..ops.traverse_fast import build_accel
 from ..ops.tri_accel import build_tri_accel
 from ..utils.device import resolve_device
@@ -75,10 +76,12 @@ class Scene:
     materials: Any                  # float32[M, 20] packed rows
     textures: Any                   # float32[T, TH, TWA, 3] mip atlases
     tex_meta: Any                   # int32[T, LMAX, 4] (y0, x0, h, w)
+    voxel_aabbs: Any                # float32[N, 6] voxel boxes
     voxel_material: Any             # float32[20] (default MaterialObj)
     occ_flat: Any                   # uint8[X*Y*Z] dense occupancy
     grid_origin: Any                # float32[3]
     accel: Any                      # BrickAccel or None
+    octree: Any                     # models.octree.Octree or None
     tri_accel: Any                  # ops.tri_accel.TriAccel or None
     grid_dims: tuple
     grid_voxel_size: float
@@ -90,6 +93,10 @@ class Scene:
     @property
     def n_triangles(self):
         return int(self.tri_v0.shape[0])
+
+    @property
+    def n_voxels(self):
+        return int(self.voxel_aabbs.shape[0])
 
 
 def _triangle_streams(models, transforms):
@@ -226,20 +233,22 @@ def build_scene(models=None, grid=None, aabbs=None,
     """Assemble a Scene on `device` (default: the CUDA card).
 
     models: list of LoadedModel (io/objload.py render streams).
-    grid: a GridBool or a voxelize_mesh result dict (voxel geometry).
+    grid: a grid encoding (GridBool, GridAabbStruct, GridVec, Octree) or
+        a voxelize_mesh result dict: the voxel geometry.  An Octree given
+        as grid also serves as the scene's octree.
+    aabbs: the voxel boxes the brute backend traces, (N, 6); by default
+        the grid's occupied cells in linear order, extracted on the
+        device.
+    octree: the octree the "octree" backend walks.
     transforms: optional per-model 4x4 matrices, pre-applied to vertices
         and inverse-transposed to normals.
     tri_accel: "auto" builds the triangle accel once the meshes pass 256
         triangles (below that the brute trace is cheaper), True forces
         it, False/None keeps the brute trace.
     """
-    if octree is not None:
-        raise NotImplementedError(
-            "the octree is not ported yet: it comes with the octree slice")
-    if aabbs is not None:
-        raise NotImplementedError(
-            "explicit AABB lists are not ported yet: they come with the "
-            "AABB extraction slice")
+    from .octree import Octree
+    if octree is None and isinstance(grid, Octree):
+        octree = grid
     dev = resolve_device(device)
     models = models or []
     transforms = transforms or [None] * len(models)
@@ -259,6 +268,10 @@ def build_scene(models=None, grid=None, aabbs=None,
     occ = torch.as_tensor(occ).to(device=dev, dtype=torch.uint8)
     g_org = np.asarray(g_org, np.float32)
     accel = build_accel(occ, g_org, float(g_vs)) if occ.numel() else None
+    if aabbs is None:
+        aabbs = extract_aabbs({"occ": occ, "dims": g_dims, "origin": g_org,
+                               "voxel_size": g_vs})
+    aabbs = torch.as_tensor(aabbs).to(device=dev, dtype=torch.float32)
 
     n_tri = len(streams["tri_v0"])
     ta = None
@@ -274,8 +287,9 @@ def build_scene(models=None, grid=None, aabbs=None,
         **{k: as_t(v) for k, v in streams.items()},
         tri_lod=as_t(tri_lod), materials=as_t(materials),
         textures=as_t(tex_stack), tex_meta=as_t(tex_meta),
+        voxel_aabbs=aabbs.reshape(-1, 6),
         voxel_material=as_t((voxel_material or Material()).as_row()),
         occ_flat=occ.reshape(-1), grid_origin=as_t(g_org),
-        accel=accel, tri_accel=ta,
+        accel=accel, octree=octree, tri_accel=ta,
         grid_dims=tuple(int(x) for x in g_dims),
         grid_voxel_size=float(g_vs))

@@ -1,9 +1,10 @@
 """Exhaustive traversal: the Amanatides-Woo DDA over a dense grid, and
-the brute-force triangle trace.
+the brute-force AABB and triangle traces.
 
 Counterpart of trace_grid_dda / any_hit_grid_dda /
-trace_grid_dda_chunked and trace_triangles_brute /
-any_hit_triangles_brute in voxelray_tpu/ops/traverse.py.  Hit semantics
+trace_grid_dda_chunked, trace_aabbs_brute / any_hit_aabbs_brute and
+trace_triangles_brute / any_hit_triangles_brute in
+voxelray_tpu/ops/traverse.py.  Hit semantics
 (the VK_KHR_ray_tracing report/accept rules the reference's shaders rely
 on): a voxel is hit at the slab t0 iff
 
@@ -33,6 +34,7 @@ from .geometry import div_scalar
 from .intersect import TMAX, TMIN, hit_aabb, hit_triangles
 
 __all__ = ["trace_grid_dda", "any_hit_grid_dda", "trace_grid_dda_chunked",
+           "trace_aabbs_brute", "any_hit_aabbs_brute",
            "trace_triangles_brute", "any_hit_triangles_brute"]
 
 
@@ -193,6 +195,45 @@ def trace_grid_dda_chunked(origins, dirs, occ_flat, grid_origin, *, dims,
         return (torch.full(batch, float("inf"), device=o.device),
                 torch.full(batch, -1, dtype=torch.int32, device=o.device))
     return torch.cat(ts).reshape(batch), torch.cat(lins).reshape(batch)
+
+
+def trace_aabbs_brute(origins, dirs, aabbs, t_min=TMIN, t_max=TMAX):
+    """Nearest voxel hit by the slab test of every box: the semantic
+    reference, for any AABB soup (GridVec's duplicates included).
+
+    origins/dirs: (..., 3); aabbs: (N, 6) [min | max] on the same device;
+    t_min/t_max scalars or per ray.  Returns (t, prim_id), t = +inf /
+    prim_id = -1 on a miss.  Ties go to the lowest box index, so of
+    duplicate boxes the first copy is reported.  Boxes are taken in
+    chunks of about 2^24 ray-box pairs.
+    """
+    batch = origins.shape[:-1]
+    dev = origins.device
+    o = origins.reshape(-1, 3).to(torch.float32)[:, None, :]
+    d = dirs.reshape(-1, 3).to(torch.float32)[:, None, :]
+    n, m = o.shape[0], aabbs.shape[0]
+    best_t = torch.full((n,), float("inf"), device=dev)
+    best_id = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    tmn = _per_ray(t_min, n, dev)[:, None]
+    tmx = _per_ray(t_max, n, dev)[:, None]
+    chunk = max(256, (1 << 24) // max(n, 1))
+    for c0 in range(0, m, chunk):
+        box = aabbs[c0:c0 + chunk]
+        t0 = hit_aabb(box[:, 0:3], box[:, 3:6], o, d)
+        ok = (t0 > 0.0) & (t0 >= tmn) & (t0 <= tmx)
+        t0 = torch.where(ok, t0, torch.full_like(t0, float("inf")))
+        arg = torch.argmin(t0, dim=1, keepdim=True)
+        tb = t0.gather(1, arg)[:, 0]
+        better = tb < best_t
+        best_id = torch.where(better, arg[:, 0].to(torch.int32) + c0, best_id)
+        best_t = torch.where(better, tb, best_t)
+    return best_t.reshape(batch), best_id.reshape(batch)
+
+
+def any_hit_aabbs_brute(origins, dirs, aabbs, t_min=TMIN, t_max=TMAX):
+    """Shadow predicate over every box; t_max may be per ray."""
+    t, _ = trace_aabbs_brute(origins, dirs, aabbs, t_min=t_min, t_max=t_max)
+    return torch.isfinite(t)
 
 
 def trace_triangles_brute(origins, dirs, v0, v1, v2, t_min=TMIN, t_max=TMAX):

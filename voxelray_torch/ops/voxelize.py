@@ -26,8 +26,8 @@ from ..utils.device import resolve_device
 from .geometry import div_scalar, grid_dims, mesh_bbox
 from .sat import tri_box_overlap
 
-__all__ = ["window_bounds", "voxelize_plain", "tri_cell_pairs",
-           "voxelize_mesh"]
+__all__ = ["window_bounds", "voxelize_plain", "hit_stream",
+           "tri_cell_pairs", "voxelize_hits", "voxelize_mesh"]
 
 
 def window_bounds(tri_min, tri_max, origin, voxel_size, dims):
@@ -113,13 +113,14 @@ def voxelize_plain(v, f, origin, voxel_size, dims):
     return occ.reshape(nz, ny, nx), int(calls)
 
 
-def tri_cell_pairs(tri, origin, voxel_size, dims):
-    """Every (triangle, cell) SAT hit inside the triangle's clamped window.
+def hit_stream(tri, origin, voxel_size, dims):
+    """Every (triangle, cell) SAT hit in serial emission order.
 
-    The pair listing the triangle accel is built from: the JAX package
-    gets the same set from plan_buckets + voxelize_dense(with_hit_mask)
-    (voxelray_tpu/ops/tri_accel.py:95-121).  tri: (F, 3, 3) float32.
-    Returns (tri_id, lin) int64 tensors sorted by (lin, tri_id).
+    The order of the reference's setVoxel calls (VoxelBuilder.hpp:
+    164-196): triangle order, then z outer, y, x inner within each
+    triangle's clamped window, duplicates kept: the order of
+    `_window_hits`' slot list.  tri: (F, 3, 3) float32.  Returns
+    (tri_id, lin) int64 tensors; their length is set_calls.
     """
     ts, lins = [], []
     for t, lin, hit in _window_hits(tri, origin, voxel_size, dims):
@@ -128,10 +129,57 @@ def tri_cell_pairs(tri, origin, voxel_size, dims):
     if not ts:
         empty = torch.zeros((0,), dtype=torch.int64, device=tri.device)
         return empty, empty.clone()
-    t, lin = torch.cat(ts), torch.cat(lins)
+    return torch.cat(ts), torch.cat(lins)
+
+
+def tri_cell_pairs(tri, origin, voxel_size, dims):
+    """Every (triangle, cell) SAT hit inside the triangle's clamped window.
+
+    The pair listing the triangle accel is built from: the JAX package
+    gets the same set from plan_buckets + voxelize_dense(with_hit_mask)
+    (voxelray_tpu/ops/tri_accel.py:95-121).  tri: (F, 3, 3) float32.
+    Returns (tri_id, lin) int64 tensors sorted by (lin, tri_id).
+    """
+    t, lin = hit_stream(tri, origin, voxel_size, dims)
     # a triangle lists each cell of its window once, so the keys are unique
     order = torch.argsort(lin * tri.shape[0] + t)
     return t[order], lin[order]
+
+
+def _mesh_grid(vertices, faces, voxel_size, bb_min, bb_max):
+    """Host-side mesh arrays, grid origin and dims (the reference's math;
+    a mesh without vertices gets an empty grid at the origin)."""
+    v = np.asarray(vertices, dtype=np.float32).reshape(-1, 3)
+    f = np.asarray(faces).reshape(-1, 3)
+    if not len(v):
+        return v, f, np.zeros(3, np.float32), (0, 0, 0)
+    if bb_min is None or bb_max is None:
+        bb_min, bb_max = mesh_bbox(v)
+    bb_min = np.asarray(bb_min, dtype=np.float32)
+    bb_max = np.asarray(bb_max, dtype=np.float32)
+    return v, f, bb_min, grid_dims(bb_min, bb_max, voxel_size)
+
+
+def voxelize_hits(vertices, faces, voxel_size, *, bb_min=None, bb_max=None,
+                  device=None):
+    """The hit stream of a numpy mesh on `device` (default: the card).
+
+    Counterpart of voxelize_dense(with_hit_mask=True)
+    (voxelray_tpu/ops/voxelize.py:267) as GridVec.from_mesh and
+    Octree.from_mesh read it.  Returns a dict with tri and lin (int64,
+    serial emission order, see hit_stream), set_calls, dims, origin and
+    voxel_size.
+    """
+    device = resolve_device(device)
+    v, f, origin, dims = _mesh_grid(vertices, faces, voxel_size, bb_min,
+                                    bb_max)
+    out = {"dims": dims, "origin": origin, "voxel_size": float(voxel_size)}
+    if 0 in dims or not len(f):
+        empty = torch.zeros((0,), dtype=torch.int64, device=device)
+        return {**out, "tri": empty, "lin": empty.clone(), "set_calls": 0}
+    tri = torch.as_tensor(v[f.astype(np.int64)], device=device)
+    t, lin = hit_stream(tri, origin, voxel_size, dims)
+    return {**out, "tri": t, "lin": lin, "set_calls": int(lin.shape[0])}
 
 
 def voxelize_mesh(vertices, faces, voxel_size, *, bb_min=None, bb_max=None,

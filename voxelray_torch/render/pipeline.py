@@ -5,10 +5,13 @@ reference's raygen -> closest hit -> shadow ray -> miss -> post chain):
 
   raygen (raytrace.rgen:39-67)
     -> nearest hit over { triangles, voxels }: triangles through the
-       tri-grid march when the scene has a triangle accel (the staged
-       walk K3 + K4), else the brute trace; voxels with backend "fast"
-       (the megakernel K2, or the staged walk with fast_opts
-       {"mega": False}) or "dda" (the exhaustive DDA)
+       tri-grid march when the scene has a triangle accel (the
+       tri_march kernel), else the brute trace; voxels with backend
+       "octree" (the octree walk) when the scene has an octree, "fast"
+       (the megakernel K2, or the staged walk K3 + K4 with fast_opts
+       {"mega": False}) when it has a brick accel, "dda" (the exhaustive
+       DDA) when it has an occupancy grid, and otherwise the brute trace
+       over the scene's AABB list (backend "brute")
     -> triangle CH (raytrace.rchit): interpolated normal, texture-
        modulated diffuse (base mip level), attenuation 1 -> shadow ray
        if dot(N,L) > 0 -> 0.3 if shadowed else specular
@@ -18,11 +21,10 @@ reference's raygen -> closest hit -> shadow ray -> miss -> post chain):
     -> miss: clearColor * 0.8 (raytrace.rmiss:37)
   post: pow(rgba, 1/2.2) (post.frag:35-36)
 
-With backend "fast" the shadow pass traces only the rays of pixels that
-hit something facing the light (the admit mask); the others' shadow
-results could not change the image.  Fast-backend rays travel in 8x128
-tile order when the frame tiles, so a warp of a kernel walks neighbouring
-pixels.
+The shadow pass traces only the rays of pixels that hit something facing
+the light (the admit mask); the others' shadow results could not change
+the image.  Fast-backend rays travel in 8x128 tile order when the frame
+tiles, so a warp of a kernel walks neighbouring pixels.
 """
 from __future__ import annotations
 
@@ -31,7 +33,9 @@ from typing import NamedTuple
 import torch
 
 from ..ops.intersect import TMAX, TMIN, make_camera_rays
-from ..ops.traverse import (any_hit_grid_dda, any_hit_triangles_brute,
+from ..ops.octree_traverse import any_hit_octree, trace_octree
+from ..ops.traverse import (any_hit_aabbs_brute, any_hit_grid_dda,
+                            any_hit_triangles_brute, trace_aabbs_brute,
                             trace_grid_dda, trace_triangles_brute)
 from ..ops.traverse_fast import any_hit_grid_fast, trace_grid_fast
 from ..ops.tri_accel import any_hit_triangles_grid, trace_triangles_grid
@@ -42,14 +46,12 @@ from ..models.scene import Light, Scene
 __all__ = ["render_rays", "render_image", "render_scene", "Surface",
            "surface_terms"]
 
-_BACKENDS = ("fast", "dda")
+_BACKENDS = ("fast", "dda", "brute", "octree")
 
 
 def _check_backend(backend):
     if backend not in _BACKENDS:
-        raise NotImplementedError(
-            f"backend '{backend}' is not ported yet; the port has "
-            f"{_BACKENDS}")
+        raise ValueError(f"unknown backend '{backend}'; one of {_BACKENDS}")
 
 
 def _sample_texture(textures, tex_meta, layer, uv):
@@ -103,70 +105,110 @@ def _fast_opts(scene: Scene, opts):
     return opts
 
 
+def _voxel_route(scene: Scene, backend):
+    """The voxel traversal a backend takes on this scene, in the JAX
+    package's dispatch order (pipeline.py:112-200): the octree walk, the
+    brick accel, the dense DDA, else the brute trace over voxel_aabbs."""
+    if backend == "octree" and scene.octree is not None:
+        return "octree"
+    if backend == "fast" and scene.accel is not None:
+        return "fast"
+    if backend == "dda" and scene.occ_flat.shape[0] > 0:
+        return "dda"
+    return "brute"
+
+
 def _trace_voxels(scene: Scene, origins, dirs, t_min, t_max, backend,
                   fast_opts=None):
-    if scene.accel is None:
-        shape = origins.shape[:-1]
-        return (torch.full(shape, float("inf"), device=origins.device),
-                torch.full(shape, -1, dtype=torch.int32,
-                           device=origins.device))
-    if backend == "fast":
+    """Nearest voxel hit (t, id): id is a cell's linear index, or on the
+    brute route the index of the hit box in voxel_aabbs."""
+    route = _voxel_route(scene, backend)
+    if route == "octree":
+        return trace_octree(origins, dirs, scene.octree, t_min=t_min,
+                            t_max=t_max)
+    if route == "fast":
         return trace_grid_fast(origins, dirs, scene.accel, t_min=t_min,
                                t_max=t_max, **_fast_opts(scene, fast_opts))
-    return trace_grid_dda(origins, dirs, scene.occ_flat, scene.grid_origin,
-                          dims=scene.grid_dims,
-                          voxel_size=scene.grid_voxel_size, t_min=t_min,
-                          t_max=t_max)
+    if route == "dda":
+        return trace_grid_dda(origins, dirs, scene.occ_flat,
+                              scene.grid_origin, dims=scene.grid_dims,
+                              voxel_size=scene.grid_voxel_size, t_min=t_min,
+                              t_max=t_max)
+    return trace_aabbs_brute(origins, dirs, scene.voxel_aabbs, t_min=t_min,
+                             t_max=t_max)
 
 
 def _any_hit(scene: Scene, origins, dirs, t_min, t_max, backend, admit,
              fast_opts=None, shadow_opts=None):
     """Occlusion of the shadow rays.  With an admit mask only the admitted
-    rays are traced; the others come back unoccluded."""
+    rays are traced (K2 reads the mask itself, the other traces take the
+    admitted rays compacted); the others come back unoccluded."""
+    route = _voxel_route(scene, backend)
     occluded = torch.zeros(origins.shape[:-1], dtype=torch.bool,
                            device=origins.device)
-    if scene.n_triangles:
-        o, d, tmx = origins, dirs, t_max
-        if admit is not None:
-            sel = torch.nonzero(admit.reshape(-1)).squeeze(1)
-            o, d = o.reshape(-1, 3)[sel], d.reshape(-1, 3)[sel]
-            tmx = tmx.reshape(-1)[sel]
-        if scene.tri_accel is not None:
-            occ_t = any_hit_triangles_grid(o, d, scene.tri_accel,
-                                           t_min=t_min, t_max=tmx)
-        else:
-            occ_t = any_hit_triangles_brute(o, d, scene.tri_v0,
-                                            scene.tri_v1, scene.tri_v2,
-                                            t_min=t_min, t_max=tmx)
-        if admit is not None:
-            occluded.reshape(-1)[sel] = occ_t
-        else:
-            occluded = occ_t
-    if scene.accel is None:
-        return occluded
-    if backend == "fast":
+    if route == "fast":
         # shadow coverage has its own defaults: of fast_opts only the
         # layout knob two_level carries over (pipeline.py:170-190)
         opts = {k: v for k, v in (fast_opts or {}).items()
                 if k == "two_level"}
         opts.update(_fast_opts(scene, shadow_opts))
-        return occluded | any_hit_grid_fast(origins, dirs, scene.accel,
-                                            t_min=t_min, t_max=t_max,
-                                            admit=admit, **opts)
-    return occluded | any_hit_grid_dda(
-        origins, dirs, scene.occ_flat, scene.grid_origin,
-        dims=scene.grid_dims, voxel_size=scene.grid_voxel_size, t_min=t_min,
-        t_max=t_max)
+        occluded = any_hit_grid_fast(origins, dirs, scene.accel,
+                                     t_min=t_min, t_max=t_max, admit=admit,
+                                     **opts)
+    if route == "brute" and not scene.n_voxels:
+        route = None
+    if not scene.n_triangles and route in ("fast", None):
+        return occluded
+    o, d = origins.reshape(-1, 3), dirs.reshape(-1, 3)
+    tmx = t_max.reshape(-1)
+    if admit is not None:
+        sel = torch.nonzero(admit.reshape(-1)).squeeze(1)
+        o, d, tmx = o[sel], d[sel], tmx[sel]
+    hit = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+    if scene.n_triangles:
+        if scene.tri_accel is not None:
+            hit |= any_hit_triangles_grid(o, d, scene.tri_accel,
+                                          t_min=t_min, t_max=tmx)
+        else:
+            hit |= any_hit_triangles_brute(o, d, scene.tri_v0, scene.tri_v1,
+                                           scene.tri_v2, t_min=t_min,
+                                           t_max=tmx)
+    if route == "octree":
+        hit |= any_hit_octree(o, d, scene.octree, t_min=t_min, t_max=tmx)
+    elif route == "dda":
+        hit |= any_hit_grid_dda(o, d, scene.occ_flat, scene.grid_origin,
+                                dims=scene.grid_dims,
+                                voxel_size=scene.grid_voxel_size,
+                                t_min=t_min, t_max=tmx)
+    elif route == "brute":
+        hit |= any_hit_aabbs_brute(o, d, scene.voxel_aabbs, t_min=t_min,
+                                   t_max=tmx)
+    if admit is not None:
+        occluded.reshape(-1)[sel] |= hit
+        return occluded
+    return occluded | hit.reshape(occluded.shape)
 
 
-def _voxel_center_of_hit(scene: Scene, hit_id):
-    """Cell center of the hit cell (the (min+max)/2 the voxel CH
-    computes, raytrace2.rchit:57-60)."""
-    nx, ny, _ = scene.grid_dims
+def _voxel_center_of_hit(scene: Scene, hit_id, backend):
+    """Centre of the hit voxel, the (min+max)/2 the voxel CH computes
+    (raytrace2.rchit:57-60): of the cell `hit_id` on the grid routes, of
+    the box `hit_id` of voxel_aabbs on the brute route."""
+    route = _voxel_route(scene, backend)
+    if route == "brute":
+        box = scene.voxel_aabbs[torch.clamp(hit_id, min=0).long()]
+        return (box[..., 0:3] + box[..., 3:6]) * 0.5
+    if route == "octree":
+        tree = scene.octree
+        org = torch.as_tensor(tree.origin, device=hit_id.device)
+        dims, vs = tree.dims, tree.voxel_size
+    else:
+        org, dims, vs = (scene.grid_origin, scene.grid_dims,
+                         scene.grid_voxel_size)
+    nx, ny, _ = dims
     lin = torch.clamp(hit_id, min=0).long()
     idx = torch.stack([lin % nx, (lin // nx) % ny, lin // (nx * ny)],
                       dim=-1).to(torch.float32)
-    return scene.grid_origin + (idx + 0.5) * scene.grid_voxel_size
+    return org + (idx + 0.5) * vs
 
 
 class Surface(NamedTuple):
@@ -185,12 +227,15 @@ class Surface(NamedTuple):
 
 
 def surface_terms(scene: Scene, origins, dirs, t_vox, vox_id,
-                  light: Light = Light(), tri=None) -> Surface:
+                  light: Light = Light(), tri=None,
+                  backend="dda") -> Surface:
     """Closest-hit terms of a traced batch (pipeline.py:217-276).
 
     tri: the triangle trace (t, tri_id, u, v), or None for no triangle
-    hits.  The frame's shadow query is (world_pos, l_vec, TMIN,
-    light_dist) for the rays with hit & facing.
+    hits.  backend: the one the voxel trace took, which says whether
+    vox_id is a cell or a box of voxel_aabbs.  The frame's shadow query
+    is (world_pos, l_vec, TMIN, light_dist) for the rays with hit &
+    facing.
     """
     shape = origins.shape[:-1]
     dev = origins.device
@@ -216,9 +261,9 @@ def surface_terms(scene: Scene, origins, dirs, t_vox, vox_id,
                                     min=1e-20)
     else:
         n_tri = torch.zeros_like(world_pos)
-    if scene.accel is not None:
-        n_vox = shading.cube_normal(world_pos,
-                                    _voxel_center_of_hit(scene, vox_id))
+    if scene.n_voxels or scene.occ_flat.shape[0]:
+        n_vox = shading.cube_normal(
+            world_pos, _voxel_center_of_hit(scene, vox_id, backend))
     else:
         n_vox = torch.zeros_like(world_pos)
     normal = torch.where(vox_hit[..., None], n_vox, n_tri)
@@ -259,11 +304,12 @@ def render_rays(scene: Scene, origins, dirs, light: Light = Light(),
            if scene.n_triangles else None)
     t_vox, vox_id = _trace_voxels(scene, origins, dirs, t_min, t_max,
                                   backend, fast_opts)
-    s = surface_terms(scene, origins, dirs, t_vox, vox_id, light, tri)
+    s = surface_terms(scene, origins, dirs, t_vox, vox_id, light, tri,
+                      backend)
     if shadows:
-        admit = (s.hit & s.facing) if backend == "fast" else None
         shadowed = _any_hit(scene, s.world_pos, s.l_vec, TMIN, s.light_dist,
-                            backend, admit, fast_opts, shadow_opts)
+                            backend, s.hit & s.facing, fast_opts,
+                            shadow_opts)
         shadowed = torch.where(s.facing, shadowed, torch.ones_like(shadowed))
     else:
         # shadows disabled: every facing surface counts as lit
