@@ -18,7 +18,14 @@ Drives the port's paths the way a user calls them, at the bench's size:
     octree built on the card (build ms, memory_usage_bytes), and gate 3's
     octree scene rendered with backend="octree", its primary trace held
     against K2's; then a brute AABB trace of sampled rays against K2 and
-    save_grid / load_grid round trips.
+    save_grid / load_grid round trips;
+  * the front end (phase 9): `python -m voxelray_torch.cli`'s main in
+    this process on the knot at 512^3 with the ground plane, one
+    1920x1080 frame (counted: K1 and K2), bit-equal to render_scene on
+    the same grid and plane, then its raster and octree AOV modes; gates
+    1-5 at scale 1; K1's 512^3 grid against the serial C++ voxelizer
+    (voxelray_torch/native); render_aov fast against dda on the voxel
+    frame.
 
 Each path runs once with the kernels' launch counters set to 0 just
 before it and read just after.  Then every kernel is held against its
@@ -59,6 +66,10 @@ PIXEL_ATOL = 2e-5
 PIXEL_FRAC = 0.999
 TRI_RTOL, TRI_ATOL = 3e-6, 1e-7
 N_BRUTE = 4096
+# phase 9: the CLI's knot at knot512's voxel size, bunny at vec256's
+CLI_MESH, CLI_VS, BUNNY_VS = "knot1m", 4.3 / 512, 2.8 / 256
+GATE_SCALE = 1.0
+SMALL_W, SMALL_H = 1280, 720
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, fp32 FLOP/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 # fp32 operations per step, counted from the kernels' expressions:
@@ -686,6 +697,192 @@ def run_encodings(grid, v, f, vs, mats, o, d, occ_np, device):
     check_roundtrip(grid, tree, device)
 
 
+def cli_main(args):
+    """voxelray_torch.cli.main(args) in this process: (rc, wall ms)."""
+    from voxelray_torch import cli
+    return wall_ms(lambda: cli.main(args))
+
+
+def check_cli(v, f, kmods, device, tmp, smi):
+    """The CLI at full size: the knot voxelized to 512^3 with the ground
+    plane, one 1920x1080 frame with shadows through the default backend
+    (fast), counted; its image against render_scene on a scene built
+    directly from the same grid and plane; then --mode raster and the
+    octree AOV on bunny at 2.8/256, 1280x720."""
+    import numpy as np
+    import torch
+    from voxelray_torch import cli
+    from voxelray_torch.models.grids import GridBool
+    from voxelray_torch.models.scene import build_scene
+    from voxelray_torch.render import raster
+    from voxelray_torch.render.camera import Camera
+    from voxelray_torch.render.pipeline import render_scene
+    dev = ["--device", str(device)]
+    out = os.path.join(tmp, "cli.npy")
+    reset(*kmods)
+    rc, ms = cli_main([CLI_MESH, str(CLI_VS), "--width", str(WIDTH),
+                       "--height", str(HEIGHT), "--out", out] + dev)
+    counts = counts_of(*kmods)
+    log(f"CLI {CLI_MESH} {CLI_VS} {WIDTH}x{HEIGHT} (voxelize, scene with the "
+        f"plane, one frame, shadows): rc {rc}, {ms:.1f} ms wall, launches "
+        f"{counts}")
+    require(rc == 0, "the CLI failed")
+    require(counts["voxel_accum"] >= 1, "CLI: K1 was not launched")
+    require(counts["mega_trace"] >= 2, "CLI: K2 was not launched twice")
+    scene = build_scene(models=[cli._ground_plane()],
+                        grid=GridBool.from_mesh(v, f, CLI_VS, device=device),
+                        device=device)
+    route = ("the triangle accel" if scene.tri_accel is not None else
+             "the brute triangle trace (no accel under 256 triangles)")
+    log(f"CLI scene: {scene.n_triangles} plane triangles through {route}, "
+        f"tri_march launches {counts['tri_march']}")
+    ref = render_scene(scene, Camera(), width=WIDTH, height=HEIGHT,
+                       backend="fast", shadows=True).cpu().numpy()
+    img = np.load(out)
+    require(img.shape == (HEIGHT, WIDTH, 4), f"CLI image {img.shape}")
+    require(np.array_equal(img, ref), "the CLI frame differs from "
+            "render_scene on the same grid and plane")
+    frame_ms = cuda_ms(lambda: render_scene(
+        scene, Camera(), width=WIDTH, height=HEIGHT, backend="fast",
+        shadows=True), 5)
+    log(f"CLI frame: bit-equal to render_scene; {frame_ms:.3f} ms a frame, "
+        f"{WIDTH * HEIGHT / frame_ms / 1e3:.2f} Mrays/s (mean of 5) [{smi}]")
+
+    small = ["--width", str(SMALL_W), "--height", str(SMALL_H)] + dev
+    out = os.path.join(tmp, "raster.npy")
+    rc, ms = cli_main(["bunny", str(BUNNY_VS), "--mode", "raster", "--out",
+                       out] + small)
+    img = np.load(out)
+    require(rc == 0 and img.shape == (SMALL_H, SMALL_W, 4), "CLI raster")
+    require(bool(np.isfinite(img).all()), "CLI raster: non-finite pixels")
+    bg = np.float32(1.0)
+    covered = int((img[..., :3] != bg).any(-1).sum())
+    require(covered > 0, "CLI raster drew nothing")
+    pscene = build_scene(models=[cli._ground_plane()], device=device)
+    r_ms = cuda_ms(lambda: raster.rasterize_scene(
+        pscene, Camera(), width=SMALL_W, height=SMALL_H), 5)
+    log(f"CLI raster bunny {SMALL_W}x{SMALL_H}: rc {rc}, {ms:.1f} ms wall, "
+        f"{covered} covered pixels; rasterize_scene {r_ms:.3f} ms (mean of "
+        f"5) [{smi}]")
+    out = os.path.join(tmp, "aov.npy")
+    rc, ms = cli_main(["bunny", str(BUNNY_VS), "--encoding", "octree",
+                       "--backend", "octree", "--aov", "--out", out] + small)
+    aov = np.load(out)
+    hit = np.isfinite(aov[..., 0])
+    norm = np.linalg.norm(aov[hit][:, 1:], axis=-1)
+    log(f"CLI octree AOV bunny {SMALL_W}x{SMALL_H}: rc {rc}, {ms:.1f} ms "
+        f"wall, {int(hit.sum())} hit pixels, |normal| in "
+        f"[{norm.min() if hit.any() else 0}, "
+        f"{norm.max() if hit.any() else 0}] [{smi}]")
+    require(rc == 0 and aov.shape == (SMALL_H, SMALL_W, 4), "CLI AOV")
+    require(hit.any() and np.allclose(norm, 1.0, atol=1e-5),
+            "CLI AOV: no hits or normals not unit")
+    torch.cuda.synchronize()
+
+
+def check_gates(device, smi):
+    """Gates 1-5 at scale 1 on the card, each timed (wall)."""
+    import numpy as np
+    from voxelray_torch.io import meshes
+    from voxelray_torch.native import voxelize_native
+    from voxelray_torch.utils.gates import run_gate
+    res = {}
+    for name in ("cube64", "bunny128", "vec256", "knot512", "deform8"):
+        res[name], ms = wall_ms(lambda: run_gate(name, scale=GATE_SCALE,
+                                                 device=device))
+        shown = {k: x for k, x in res[name].items() if k != "occupancy"}
+        log(f"gate {name} (scale {GATE_SCALE}): {ms:.1f} ms wall, {shown} "
+            f"[{smi}]")
+    g = res["cube64"]
+    require(g["bit_exact"] and g["set_calls_match"], "gate 1 not bit-exact")
+    require(res["bunny128"]["hit_fraction"] > 0.01, "gate 2 hit fraction")
+    g = res["vec256"]
+    require(g["backend"] == "octree" and g["normals_unit"], "gate 3")
+    g = res["knot512"]
+    require(g["frames"] == 8 and all(np.isfinite(g["frame_means"])),
+            "gate 4 frames")
+    g = res["deform8"]
+    require(g["devices"] == 1 and g["frames"] == 8, "gate 5 frames")
+    v, f = meshes.make_scene_mesh("bunny")
+    occ = g["occupancy"].cpu().numpy()
+    for i in (0, 7):
+        want, calls = voxelize_native(meshes.deformed(v, 2 * np.pi * i / 8),
+                                      f, g["voxel_size"], g["origin"],
+                                      g["dims"])
+        require(np.array_equal(occ[i], want)
+                and g["set_calls_per_frame"][i] == calls,
+                f"gate 5 frame {i} differs from voxelize_native")
+    require(not np.array_equal(occ[0], occ[7]), "gate 5: frames 0 and 7 "
+            "are equal")
+    log("gate 5: frames 0 and 7 bit-equal to voxelize_native, and differ")
+
+
+def check_k1_native(grid, v, f, vs, occ_np, k1_ms, smi):
+    """K1's 512^3 grid against the serial C++ voxelizer."""
+    import numpy as np
+    from voxelray_torch.native import load_library, voxelize_native
+    load_library()
+    (occ_n, calls_n), ms = wall_ms(lambda: voxelize_native(
+        v, f, vs, grid.origin, grid.dims))
+    log(f"voxelize_native {len(f)} triangles to {grid.dims}: {ms:.1f} ms "
+        f"(one host thread), K1 {k1_ms:.4f} ms; occupied "
+        f"{int(occ_n.sum())}, set_calls {calls_n} [{smi}]")
+    require(np.array_equal(occ_n.astype(bool), occ_np),
+            "K1 occupancy differs from voxelize_native")
+    require(calls_n == grid.set_calls, "K1 set_calls differ from "
+            "voxelize_native")
+
+
+def check_aov_parity(scene, cam, occ_np, grid, device, smi):
+    """render_aov fast against dda on the voxel frame: hit masks equal,
+    depth within rtol 2e-6, every differing ray adjudicated (at most
+    MAX_DIFF_RAYS), normals unit."""
+    import numpy as np
+    import torch
+    from voxelray_torch.ops.intersect import make_camera_rays
+    from voxelray_torch.ops.traverse import trace_grid_dda
+    from voxelray_torch.ops.traverse_fast import trace_grid_fast
+    from voxelray_torch.render.pipeline import render_aov
+    (df, nf, hf), f_ms = wall_ms(lambda: render_aov(
+        scene, cam, width=WIDTH, height=HEIGHT, backend="fast"))
+    (dd, nd, hd), d_ms = wall_ms(lambda: render_aov(
+        scene, cam, width=WIDTH, height=HEIGHT, backend="dda"))
+    require(bool(torch.equal(hf, hd)), "AOV hit masks differ, fast vs dda")
+    far = hf & ~torch.isclose(df, dd, rtol=2e-6, atol=0.0)
+    unit = (torch.linalg.norm(nf[hf], dim=-1) - 1).abs().max()
+    log(f"AOV {WIDTH}x{HEIGHT} fast {f_ms:.1f} ms, dda {d_ms:.1f} ms: "
+        f"{int(hf.sum())} hit pixels, {int(far.sum())} with depth outside "
+        f"rtol 2e-6, max ||normal| - 1| {float(unit)} [{smi}]")
+    require(float(unit) <= 1e-5, "AOV normals not unit")
+    _, _, vi, pi = cam.matrices(WIDTH, HEIGHT)
+    o, d = make_camera_rays(WIDTH, HEIGHT, vi, pi, device=device)
+    o, d = o[far].contiguous(), d[far].contiguous()
+    t_f, lin_f = trace_grid_fast(o, d, scene.accel)
+    t_d, lin_d = trace_grid_dda(o, d, scene.occ_flat, scene.grid_origin,
+                                dims=scene.grid_dims,
+                                voxel_size=scene.grid_voxel_size)
+    n_diff, _ = compare_traces("AOV fast vs dda, pixels apart", o, d,
+                               occ_np, grid.origin, grid.voxel_size, t_f,
+                               lin_f, t_d, lin_d)
+    require(n_diff == int(far.sum()), "AOV: a depth apart with equal cells")
+
+
+def run_frontend(grid, v, f, vs, scene, cam, occ_np, k1_ms, kmods,
+                 device):
+    """Phase 9: the front end.  The CLI at full size, gates 1-5 at scale
+    1, K1's 512^3 grid against the serial C++ voxelizer, and the bench's
+    AOV parity of fast against dda on the voxel frame."""
+    import tempfile
+    smi = smi_line()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        check_cli(v, f, kmods, device, tmp, smi)
+    check_gates(device, smi)
+    check_k1_native(grid, v, f, vs, occ_np, k1_ms, smi)
+    check_aov_parity(scene, cam, occ_np, grid, device, smi)
+    log(f"phase 9 (front end): {time.time() - t0:.1f} s")
+
+
 def run(device):
     import numpy as np
     import torch
@@ -1058,6 +1255,10 @@ def run(device):
 
     # ---- 8. AABB extraction, the other encodings, the octree frame -------
     run_encodings(grid, v, f, vs, mats, o, d, occ_np, device)
+
+    # ---- 9. the front end: CLI, gates, the native oracle, AOV parity ----
+    run_frontend(grid, v, f, vs, scene, cam, occ_np, k1_kernel_ms, kmods,
+                 device)
     return rows, smi_line()
 
 
@@ -1079,7 +1280,10 @@ def main():
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.time()
     kernels, smi = run(torch.device("cuda", 0))
+    log(f"chip_smoke: {time.time() - t0:.1f} s, the kernels' build "
+        "included")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

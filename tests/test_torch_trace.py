@@ -25,12 +25,15 @@ from voxelray_tpu.ops.geometry import mesh_bbox
 from voxelray_tpu.ops.intersect import make_camera_rays as jmake_camera_rays
 from voxelray_tpu.ops.traverse import trace_grid_dda as jtrace_grid_dda
 from voxelray_tpu.render.camera import Camera
+from voxelray_torch.io.meshes import torus_knot
+from voxelray_torch.models.grids import GridBool
 from voxelray_torch.ops.intersect import make_camera_rays
-from voxelray_torch.ops.traverse import (trace_grid_dda,
+from voxelray_torch.ops.traverse import (trace_aabbs_brute, trace_grid_dda,
                                          trace_grid_dda_chunked)
 from voxelray_torch.ops.traverse_fast import (any_hit_grid_fast,
                                               build_accel, trace_grid_fast)
 from voxelray_torch.ops.voxelize import voxelize_mesh
+from voxelray_torch.utils.parity import adjudicate_hit_diffs
 
 torch.set_num_threads(2)
 W, H = 128, 64
@@ -192,7 +195,7 @@ def test_chunked_dda_matches_monolithic(scene):
     assert np.array_equal(t_c.numpy(), t.numpy())
 
 
-def test_staged_backend_is_not_ported(scene):
+def test_staged_backend_matches_the_megakernel(scene):
     """The staged backend (mega=False: kernels K3 grid_walk and K4
     brick_fine) is ported now: it gives the megakernel's cells and t,
     with nothing unresolved (tests/test_torch_staged.py holds it against
@@ -227,3 +230,65 @@ def test_zero_direction_component_is_traced():
     for tt, ll in ((t, lin), (t_m, lin_m)):
         assert ll.tolist() == [expect, expect]
         assert tt[0] == tt[1] and np.isfinite(float(tt[0]))
+
+
+def _brick_edge_rays(grid, ext, n, seed):
+    """Rays aimed at brick edges and corners of `grid` (two or three
+    coordinates on multiples of 8 cells; half of them with 1e-6-cell
+    noise), from 0.2 to 3 extents away."""
+    rng = np.random.default_rng(seed)
+    dims = np.asarray(grid.dims)
+    p = rng.integers(0, (dims + 7) // 8 + 1, (n, 3)).astype(np.float64) * 8
+    free = rng.integers(0, 4, n)            # the edge's axis; 3: a corner
+    for k in range(3):
+        m = free == k
+        p[m, k] = rng.uniform(0, dims[k], m.sum())
+    noise = rng.random(n) < 0.5
+    p[noise] += rng.uniform(-1e-6, 1e-6, (noise.sum(), 3))
+    target = grid.origin.astype(np.float64) \
+        + p * float(np.float32(grid.voxel_size))
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = target - d * rng.uniform(0.2, 3.0, (n, 1)) * ext
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+# Rays of _brick_edge_rays(seed 0) on which the DDA without the near-tie
+# rule walked past a sliver corner cell the oracle hits and reported a
+# cell 0.04-0.08 farther, outside the adjudication envelope.
+SLIVER_CORNER_RAYS = [2151, 6142, 7914, 14444, 17126, 17464]
+
+
+def test_dda_near_ties_match_the_oracle():
+    """The DDA's near-tie rule (K2's: tie break by the slab test, probes
+    of the tied neighbours and the cells between them) on rays aimed at
+    brick edges and corners of a knot: every ray that differs from the
+    brute oracle adjudicates, and on SLIVER_CORNER_RAYS the DDA hits the
+    oracle's cell and t."""
+    v, f = torus_knot(2, 3, 256, 32)
+    bb_min, bb_max = mesh_bbox(v)
+    ext = float(max(bb_max - bb_min))
+    g = GridBool.from_mesh(v, f, ext / 120, device="cpu")
+    assert g.dims == (115, 54, 121)
+    o, d = _brick_edge_rays(g, ext, 20000, 0)
+    pick = np.concatenate([np.arange(4000), SLIVER_CORNER_RAYS])
+    o, d = o[pick], d[pick]
+    ot, dt_ = torch.from_numpy(o), torch.from_numpy(d)
+    lins = torch.nonzero(g.occupancy().reshape(-1)).squeeze(1)
+    b_t, b_id = trace_aabbs_brute(ot, dt_, g.get_aabbs())
+    b_lin = torch.where(b_id >= 0, lins[b_id.clamp(min=0).long()], -1)
+    b_t, b_lin = b_t.numpy(), b_lin.numpy().astype(np.int32)
+    t, lin = (x.numpy() for x in trace_grid_dda(
+        ot, dt_, g.occupancy().reshape(-1), g.origin, dims=g.dims,
+        voxel_size=g.voxel_size))
+    diff = np.flatnonzero((np.isfinite(t) != np.isfinite(b_t))
+                          | (np.isfinite(t) & (lin != b_lin)))
+    adj = adjudicate_hit_diffs(o, d, g.occupancy().numpy().astype(bool),
+                               g.origin, g.voxel_size, diff, t, lin, b_t,
+                               b_lin)
+    print(f"{len(pick)} brick-edge rays: {adj}")
+    assert adj["adjudication_ok"], adj
+    assert np.isfinite(t).sum() > len(pick) // 4
+    n = len(SLIVER_CORNER_RAYS)
+    assert np.array_equal(lin[-n:], b_lin[-n:])
+    assert np.array_equal(t[-n:], b_t[-n:])

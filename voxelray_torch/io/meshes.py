@@ -4,14 +4,14 @@ The reference repo's .gitignore accidentally excludes its Wavefront meshes
 (SURVEY.md section 2.5), so the scenes it expects (cube, plane, bunny, a
 1M-triangle scan) must be generated.  These produce numpy (vertices, faces)
 pairs.  Copied from voxelray_tpu/io/meshes.py (numpy only) so the port
-imports no JAX; `deformed` comes with the parallel slice.
+imports no JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 
 __all__ = ["cube", "plane", "icosphere", "bunny_like", "torus_knot",
-           "make_scene_mesh"]
+           "deformed", "make_scene_mesh"]
 
 
 def cube(size: float = 2.0, center=(0.0, 0.0, 0.0)):
@@ -162,6 +162,18 @@ def torus_knot(p: int = 2, q: int = 3, segments: int = 512,
     f1 = np.stack([a, b, c], axis=-1).reshape(-1, 3)
     f2 = np.stack([a, c, d], axis=-1).reshape(-1, 3)
     return verts, np.concatenate([f1, f2]).astype(np.int32)
+
+
+def deformed(vertices, phase: float, amplitude: float = 0.15):
+    """Time-varying sinusoidal deformation for the re-voxelization config."""
+    v = np.asarray(vertices, dtype=np.float32)
+    out = v.copy()
+    out[:, 0] += amplitude * np.sin(2.5 * v[:, 1] + phase).astype(np.float32)
+    out[:, 1] += amplitude * np.cos(1.7 * v[:, 2]
+                                    + 0.8 * phase).astype(np.float32)
+    out[:, 2] += amplitude * np.sin(2.1 * v[:, 0]
+                                    - 0.6 * phase).astype(np.float32)
+    return out
 
 
 _REGISTRY = {

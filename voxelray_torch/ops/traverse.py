@@ -46,8 +46,8 @@ def _per_ray(x, n, device):
 
 
 def _dda_init(o, d, origin, dims, vs):
-    """Entry cell + boundary-crossing state for each ray:
-    (cell (N, 3) int32, t_next (N, 3), inside (N,))."""
+    """Entry state of each ray: (cell (N, 3) int32, inside (N,), t_in
+    (N,) = max(t_enter, 0), entry axis (N,), grid_max (3,))."""
     nx, ny, nz = dims
     dims_f = torch.tensor([nx, ny, nz], dtype=torch.float32, device=o.device)
     grid_max = origin + dims_f * vs
@@ -58,20 +58,18 @@ def _dda_init(o, d, origin, dims, vs):
     tf = torch.maximum(tbot, ttop)
     t_enter = torch.maximum(torch.maximum(tn[:, 0], tn[:, 1]), tn[:, 2])
     t_exit = torch.minimum(torch.minimum(tf[:, 0], tf[:, 1]), tf[:, 2])
+    enter_axis = torch.where(t_enter == tn[:, 0], 0,
+                             torch.where(t_enter == tn[:, 1], 1, 2))
+    t_in = torch.clamp(t_enter, min=0.0)
     # start marginally inside the first cell
-    t_start = torch.clamp(t_enter, min=0.0) + 1e-7
-    inside = t_exit > torch.clamp(t_enter, min=0.0)
+    t_start = t_in + 1e-7
+    inside = t_exit > t_in
     p = o + d * t_start[:, None]
     hi = torch.tensor([nx - 1, ny - 1, nz - 1], dtype=torch.int32,
                       device=o.device)
     cell = torch.minimum(torch.clamp(
         torch.floor(div_scalar(p - origin, vs)).to(torch.int32), min=0), hi)
-    step_pos = d >= 0
-    next_bound = origin + (cell + step_pos.to(torch.int32)) \
-        .to(torch.float32) * vs
-    t_next = torch.where(d != 0.0, (next_bound - o) * inv_d,
-                         torch.full_like(d, float("inf")))
-    return cell, t_next, inside
+    return cell, inside, t_in, enter_axis, grid_max
 
 
 def _dda_cell_hit_t(cell, o, d, origin, vs):
@@ -79,6 +77,19 @@ def _dda_cell_hit_t(cell, o, d, origin, vs):
     half = float(np.float32(0.5) * np.float32(vs))
     c = origin + (cell.to(torch.float32) + 0.5) * vs
     return hit_aabb(c - half, c + half, o, d)
+
+
+def _cell_slab(cell, o, inv, origin, vs):
+    """[t0, t1] of the cell AABB along the ray with inv = 1 / d
+    (hit_aabb's expression, without its predicate)."""
+    half = float(np.float32(0.5) * np.float32(vs))
+    c = origin + (cell.to(torch.float32) + 0.5) * vs
+    tb = inv * ((c - half) - o)
+    tt = inv * ((c + half) - o)
+    lo = torch.minimum(tt, tb)
+    hi = torch.maximum(tt, tb)
+    return (torch.maximum(lo[..., 0], torch.maximum(lo[..., 1], lo[..., 2])),
+            torch.minimum(hi[..., 0], torch.minimum(hi[..., 1], hi[..., 2])))
 
 
 def _dda_final_t(lin, o, d, origin, vs, dims):
@@ -92,6 +103,12 @@ def _dda_final_t(lin, o, d, origin, vs, dims):
     return torch.where(hit, t, torch.full_like(t, float("inf")))
 
 
+# Two crossing times count as tied when they lie within this many ulps of
+# the largest coordinate in play, over the direction components: the
+# megakernel's kTieUlps (csrc/mega_trace.cu).
+TIE_ULPS = 16.0
+
+
 def trace_grid_dda(origins, dirs, occ_flat, grid_origin, *, dims,
                    voxel_size, t_min=TMIN, t_max=TMAX, admit=None):
     """Nearest accepted occupied cell along each ray.
@@ -100,6 +117,17 @@ def trace_grid_dda(origins, dirs, occ_flat, grid_origin, *, dims,
     device; grid_origin: (3,) float32.  t_min/t_max: scalars or per-ray
     (...) tensors; admit: optional bool (...) mask (non-admitted rays
     miss).  Returns (t, lin) with t = +inf / lin = -1 on miss.
+
+    Near-ties repair the reference walk, as the megakernel does
+    (pick_axis / probe_cell in csrc/mega_trace.cu): where crossing times
+    lie within float noise of each other the ray passes next to an edge
+    or corner, and the reference's per-cell slab tests, which are not
+    watertight there, may accept a sliver on either side.  So the step
+    goes to the first tied neighbour (nearest axis first, then x, y, z)
+    that the slab test says the ray passes through, the other tied
+    neighbours are probed, and so are the cells behind the start cell's
+    entry faces; a probed hit retires the ray once the walk passes its t.
+    Crossing times are computed from the cell, not accumulated.
     """
     nx, ny, nz = dims
     batch = origins.shape[:-1]
@@ -121,44 +149,124 @@ def trace_grid_dda(origins, dirs, occ_flat, grid_origin, *, dims,
                 lin_out.reshape(batch))
     occ = occ_flat.reshape(-1)
 
-    cell, t_next, active = _dda_init(o, d, origin, dims, vs)
+    cell, active, t_in, enter_axis, grid_max = _dda_init(o, d, origin, dims,
+                                                         vs)
     if admit is not None:
         active = active & admit.reshape(-1).to(torch.bool)
-    step = torch.where(d >= 0, 1, -1).to(torch.int32)
-    t_delta = torch.where(d != 0.0, vs * torch.abs(1.0 / d),
-                          torch.full_like(d, float("inf")))
-    dims_t = torch.tensor([nx, ny, nz], dtype=torch.int32, device=dev)
+    inf = float("inf")
+    dims_t = torch.tensor([nx, ny, nz], device=dev)
+    eye = torch.eye(3, dtype=torch.int64, device=dev)
+    # the nonempty subsets m = 1..7 of the three axes, as cell offsets
+    masks = torch.arange(1, 8, device=dev)
+    subsets = (masks[:, None] >> torch.arange(3, device=dev)) & 1
 
-    # state of the active rays only; idx maps them back
+    # The active rays only, their constants packed so that dropping the
+    # retired rays costs two gathers: f = [o | d | 1/d | |1/d| | t_min,
+    # t_max, tie_eps], i = [ray index | step | far face]
     idx = torch.nonzero(active).squeeze(1)
-    s_o, s_d, s_cell, s_tn = o[idx], d[idx], cell[idx], t_next[idx]
-    s_step, s_td, s_tmn, s_tmx = step[idx], t_delta[idx], tmn[idx], tmx[idx]
+    o, d, cell = o[idx], d[idx], cell[idx].long()
+    inv = 1.0 / d
+    scale = torch.maximum(
+        o.abs().amax(dim=1),
+        torch.maximum(origin.abs().max(), grid_max.abs().max()))
+    f = torch.cat([o, d, inv, inv.abs(), tmn[idx, None], tmx[idx, None],
+                   ((TIE_ULPS * 2.0 ** -24) * scale)[:, None]], dim=1)
+    far = (d >= 0).long()
+    i = torch.cat([idx[:, None], 2 * far - 1, far], dim=1)
+    moving = d != 0.0
+    best_t = torch.full((idx.numel(),), inf, device=dev)
+    best_lin = torch.full((idx.numel(),), -1, dtype=torch.int64, device=dev)
+
+    def probe_around(rows, fr, cr, axes, skip, sign):
+        """For the active rays `rows` (their f rows fr, cells cr): test
+        the cells across every nonempty set of their `axes` ((R, 3) bool,
+        each crossed towards `sign` (R, 3)) but the set `skip` ((R,) bit
+        mask): the face neighbours and the edge and corner neighbours
+        between them.  The nearest accepted occupied cell (the first set
+        on equal t) replaces (best_t, best_lin) where it is nearer."""
+        bits = (axes.long() << torch.arange(3, device=dev)).sum(1)
+        want = ((bits[:, None] & masks) == masks) & (skip[:, None] != masks)
+        cells = cr[:, None, :] + subsets * sign[:, None, :]    # (R, 7, 3)
+        inb = ((cells >= 0) & (cells < dims_t)).all(dim=-1)
+        lin = cells[..., 0] + nx * (cells[..., 1] + ny * cells[..., 2])
+        occ_c = occ[torch.clamp(lin, 0, n_cells - 1)] > 0
+        t0, t1 = _cell_slab(cells, fr[:, None, 0:3], fr[:, None, 6:9],
+                            origin, vs)
+        ok = (want & inb & occ_c & (t1 > torch.clamp(t0, min=0.0))
+              & (t0 > 0.0) & (t0 >= fr[:, 12:13]) & (t0 <= fr[:, 13:14]))
+        t0 = torch.where(ok, t0, torch.full_like(t0, inf))
+        j = torch.argmin(t0, dim=1, keepdim=True)
+        tj, lj = t0.gather(1, j)[:, 0], lin.gather(1, j)[:, 0]
+        better = tj < best_t[rows]
+        best_t[rows] = torch.where(better, tj, best_t[rows])
+        best_lin[rows] = torch.where(better, lj, best_lin[rows])
+
+    def crossings(faces):
+        """Each axis' crossing t of the current cell's face `faces` (0:
+        min, 1: max), +inf on an axis the ray does not move along."""
+        t = (origin + (cell + faces).to(torch.float32) * vs - f[:, 0:3]) \
+            * f[:, 6:9]
+        return torch.where(moving, t, torch.full_like(t, inf))
+
+    # the start cell floors the entry point: where the ray crosses its
+    # entry faces within noise of the entry time, probe the cells behind
+    ainv = f[:, 9:12]
+    behind = moving & ((crossings(1 - far) - t_in[idx, None]).abs()
+                       <= f[:, 14:15] * (ainv + ainv.gather(
+                           1, enter_axis[idx, None])))
+    rows = torch.nonzero(behind.any(dim=1)).squeeze(1)
+    if rows.numel():
+        probe_around(rows, f[rows], cell[rows], behind[rows],
+                     torch.zeros_like(rows), -i[rows, 1:4])
+
     for _ in range(nx + ny + nz + 3):
-        if idx.numel() == 0:
+        if cell.shape[0] == 0:
             break
-        lin = s_cell[:, 0] + nx * (s_cell[:, 1] + ny * s_cell[:, 2])
-        occ_here = occ[torch.clamp(lin, 0, n_cells - 1).long()] > 0
-        t0 = _dda_cell_hit_t(s_cell, s_o, s_d, origin, vs)
-        ok = occ_here & (t0 > 0.0) & (t0 >= s_tmn) & (t0 <= s_tmx)
-        lin_out[idx[ok]] = lin[ok]
-        keep = ~ok
-        # step along the axis with the nearest boundary (ties: x, y, z)
-        tx, ty, tz = s_tn.unbind(1)
-        sx = (tx <= ty) & (tx <= tz)
-        sy = ~sx & (ty <= tz)
-        sz = ~(sx | sy)
-        t_cross = torch.where(sx, tx, torch.where(sy, ty, tz))
-        keep &= t_cross <= s_tmx
-        onehot = torch.stack([sx, sy, sz], dim=1)
-        s_cell = s_cell + torch.where(onehot, s_step, 0)
-        s_tn = torch.where(onehot, s_tn + s_td, s_tn)
-        keep &= ((s_cell >= 0) & (s_cell < dims_t)).all(dim=1)
-        if not bool(keep.all()):
-            k = torch.nonzero(keep).squeeze(1)
-            idx, s_o, s_d, s_cell, s_tn = (idx[k], s_o[k], s_d[k],
-                                           s_cell[k], s_tn[k])
-            s_step, s_td, s_tmn, s_tmx = (s_step[k], s_td[k], s_tmn[k],
-                                          s_tmx[k])
+        step, ainv = i[:, 1:4], f[:, 9:12]
+        lin = cell[:, 0] + nx * (cell[:, 1] + ny * cell[:, 2])
+        occ_here = occ[torch.clamp(lin, 0, n_cells - 1)] > 0
+        t0, t1 = _cell_slab(cell, f[:, 0:3], f[:, 6:9], origin, vs)
+        ok = (occ_here & (t1 > torch.clamp(t0, min=0.0)) & (t0 > 0.0)
+              & (t0 >= f[:, 12]) & (t0 <= f[:, 13]))
+        best_lin = torch.where(ok & (t0 < best_t), lin, best_lin)
+        best_t = torch.where(ok, torch.minimum(t0, best_t), best_t)
+        # the axis with the nearest crossing (ties: x, y, z)
+        t_next = crossings(i[:, 4:7])
+        t_cross = t_next.amin(dim=1)
+        axis = torch.where(t_next[:, 0] == t_cross, 0,
+                           torch.where(t_next[:, 1] == t_cross, 1, 2))
+        done = ok | (best_t <= t_cross)
+        # near-ties: the first neighbour the slab test passes through, and
+        # probes of the others
+        near = torch.isfinite(t_next) & (
+            t_next - t_cross[:, None]
+            <= f[:, 14:15] * (ainv + ainv.gather(1, axis[:, None])))
+        near |= eye[axis].bool()
+        tied = torch.nonzero(~done & (near.sum(dim=1) > 1)).squeeze(1)
+        if tied.numel():
+            ft, ct, st, nt, at = (f[tied], cell[tied], step[tied],
+                                  near[tied], axis[tied])
+            s0, s1 = _cell_slab(ct[:, None, :] + eye * st[:, None, :],
+                                ft[:, None, 0:3], ft[:, None, 6:9], origin,
+                                vs)                          # (T, 3)
+            pick = nt & (s1 > s0)
+            own = pick.gather(1, at[:, None])[:, 0]
+            first = torch.where(pick[:, 0], 0, torch.where(pick[:, 1], 1, 2))
+            at = torch.where(own | ~pick.any(dim=1), at, first)
+            axis[tied] = at
+            probe_around(tied, ft, ct, nt, 1 << at, st)
+        done |= t_cross > f[:, 13]
+        cell = cell + eye[axis] * step
+        done |= ~((cell >= 0) & (cell < dims_t)).all(dim=1)
+        if bool(done.any()):
+            fin = torch.nonzero(done).squeeze(1)
+            lin_out[i[fin, 0]] = best_lin[fin].to(torch.int32)
+            k = torch.nonzero(~done).squeeze(1)
+            f, i, cell, moving = f[k], i[k], cell[k], moving[k]
+            best_t, best_lin = best_t[k], best_lin[k]
+    lin_out[i[:, 0]] = best_lin.to(torch.int32)
+    o = origins.reshape(-1, 3).to(torch.float32)
+    d = dirs.reshape(-1, 3).to(torch.float32)
     t = _dda_final_t(lin_out, o, d, origin, vs, dims)
     return t.reshape(batch), lin_out.reshape(batch)
 

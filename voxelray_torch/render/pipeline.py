@@ -21,10 +21,12 @@ reference's raygen -> closest hit -> shadow ray -> miss -> post chain):
     -> miss: clearColor * 0.8 (raytrace.rmiss:37)
   post: pow(rgba, 1/2.2) (post.frag:35-36)
 
-The shadow pass traces only the rays of pixels that hit something facing
-the light (the admit mask); the others' shadow results could not change
-the image.  Fast-backend rays travel in 8x128 tile order when the frame
-tiles, so a warp of a kernel walks neighbouring pixels.
+render_aov returns the same traces' depth, normal and hit mask,
+unshaded.  The shadow pass traces only the rays of pixels that hit
+something facing the light (the admit mask); the others' shadow results
+could not change the image.  Fast-backend rays travel in 8x128 tile
+order when the frame tiles, so a warp of a kernel walks neighbouring
+pixels.
 """
 from __future__ import annotations
 
@@ -43,8 +45,8 @@ from . import shading
 from .camera import Camera
 from ..models.scene import Light, Scene
 
-__all__ = ["render_rays", "render_image", "render_scene", "Surface",
-           "surface_terms"]
+__all__ = ["render_rays", "render_image", "render_scene", "render_aov",
+           "Surface", "surface_terms"]
 
 _BACKENDS = ("fast", "dda", "brute", "octree")
 
@@ -54,36 +56,50 @@ def _check_backend(backend):
         raise ValueError(f"unknown backend '{backend}'; one of {_BACKENDS}")
 
 
-def _sample_texture(textures, tex_meta, layer, uv):
-    """Bilinear sample of each texture's base level with repeat
-    addressing; layer -1 -> white.  textures is the (T, TH, TWA, 3)
-    mip-atlas stack, tex_meta the (T, LMAX, 4) per-level (y0, x0, h, w)
-    placements: every texture samples with its own dims.  The base level
-    is what the reference's closest-hit stage reads (implicit-lod
-    texture() has no derivatives there)."""
+def _sample_texture(textures, tex_meta, layer, uv, lod=None):
+    """Bilinear/trilinear sample with repeat addressing; layer -1 ->
+    white.  textures is the (T, TH, TWA, 3) mip-atlas stack, tex_meta the
+    (T, LMAX, 4) per-level (y0, x0, h, w) placements: every texture
+    samples with its own dims.  lod=None samples the base level, which is
+    what the reference's closest-hit stage reads (implicit-lod texture()
+    has no derivatives there); a float lod tensor filters trilinearly
+    across the mip chain (the raster path's sampler)."""
     layer_c = torch.clamp(layer, 0, textures.shape[0] - 1).long()
+    lmax = tex_meta.shape[1]
     uvw = uv - torch.floor(uv)
-    meta = tex_meta[layer_c, 0].long()                      # (..., 4)
-    y0, x0, hh, ww = meta.unbind(-1)
-    u = uvw[..., 0] * ww.to(torch.float32) - 0.5
-    v = uvw[..., 1] * hh.to(torch.float32) - 0.5
-    xf = torch.floor(u)
-    yf = torch.floor(v)
-    fu = (u - xf)[..., None]
-    fv = (v - yf)[..., None]
-    xi = xf.long()
-    yi = yf.long()
 
-    def fetch(xa, ya):
-        # xi in [-1, w-1] and xi+1 in [0, w]: only the edges wrap
-        xa = torch.where(xa < 0, ww - 1, torch.where(xa >= ww, 0, xa))
-        ya = torch.where(ya < 0, hh - 1, torch.where(ya >= hh, 0, ya))
-        return textures[layer_c, ya + y0, xa + x0]
+    def level_sample(lv):
+        meta = tex_meta[layer_c, lv].long()                 # (..., 4)
+        y0, x0, hh, ww = meta.unbind(-1)
+        u = uvw[..., 0] * ww.to(torch.float32) - 0.5
+        v = uvw[..., 1] * hh.to(torch.float32) - 0.5
+        xf = torch.floor(u)
+        yf = torch.floor(v)
+        fu = (u - xf)[..., None]
+        fv = (v - yf)[..., None]
+        xi = xf.long()
+        yi = yf.long()
 
-    c = (fetch(xi, yi) * (1 - fu) * (1 - fv)
-         + fetch(xi + 1, yi) * fu * (1 - fv)
-         + fetch(xi, yi + 1) * (1 - fu) * fv
-         + fetch(xi + 1, yi + 1) * fu * fv)
+        def fetch(xa, ya):
+            # xi in [-1, w-1] and xi+1 in [0, w]: only the edges wrap
+            xa = torch.where(xa < 0, ww - 1, torch.where(xa >= ww, 0, xa))
+            ya = torch.where(ya < 0, hh - 1, torch.where(ya >= hh, 0, ya))
+            return textures[layer_c, ya + y0, xa + x0]
+
+        return (fetch(xi, yi) * (1 - fu) * (1 - fv)
+                + fetch(xi + 1, yi) * fu * (1 - fv)
+                + fetch(xi, yi + 1) * (1 - fu) * fv
+                + fetch(xi + 1, yi + 1) * fu * fv)
+
+    if lod is None:
+        c = level_sample(torch.zeros_like(layer_c))
+    else:
+        lod = torch.clamp(lod, 0.0, float(lmax - 1))
+        # a NaN lod samples level 0 and, through fl, gives a NaN colour
+        l0 = torch.floor(torch.nan_to_num(lod)).long()
+        l1 = torch.clamp(l0 + 1, max=lmax - 1)
+        fl = (lod - l0.to(torch.float32))[..., None]
+        c = level_sample(l0) * (1 - fl) + level_sample(l1) * fl
     return torch.where((layer >= 0)[..., None], c, torch.ones_like(c))
 
 
@@ -351,6 +367,19 @@ def _untile_rays(x, height, width):
     return t.permute(1, 2, 0, 3, 4).reshape(height, width, c)
 
 
+def _frame_rays(scene: Scene, view_inv, proj_inv, width, height, backend):
+    """The frame's camera rays on the scene's device, in tile order for
+    the fast backend when the frame tiles: (origins, dirs, untile), where
+    untile maps a per-ray (..., C) result back to (H, W, C)."""
+    origins, dirs = make_camera_rays(width, height, view_inv, proj_inv,
+                                     device=scene.device)
+    if backend != "fast" or not _can_tile(height, width):
+        return origins, dirs, lambda x: x
+    return (_tile_rays(origins, height, width),
+            _tile_rays(dirs, height, width),
+            lambda x: _untile_rays(x, height, width))
+
+
 def render_image(scene: Scene, view_inv, proj_inv, *, width, height,
                  light: Light = Light(), clear_color=(1.0, 1.0, 1.0, 1.0),
                  backend="dda", shadows=True, fast_opts=None,
@@ -358,17 +387,11 @@ def render_image(scene: Scene, view_inv, proj_inv, *, width, height,
     """Framebuffer (H, W, 4) float32 on the scene's device,
     gamma-corrected.  fast_opts / shadow_opts as in render_rays."""
     _check_backend(backend)
-    origins, dirs = make_camera_rays(width, height, view_inv, proj_inv,
-                                     device=scene.device)
-    tiled = backend == "fast" and _can_tile(height, width)
-    if tiled:
-        origins = _tile_rays(origins, height, width)
-        dirs = _tile_rays(dirs, height, width)
-    rgb = render_rays(scene, origins, dirs, light, clear_color,
-                      backend=backend, shadows=shadows, fast_opts=fast_opts,
-                      shadow_opts=shadow_opts)
-    if tiled:
-        rgb = _untile_rays(rgb, height, width)
+    origins, dirs, untile = _frame_rays(scene, view_inv, proj_inv, width,
+                                        height, backend)
+    rgb = untile(render_rays(scene, origins, dirs, light, clear_color,
+                             backend=backend, shadows=shadows,
+                             fast_opts=fast_opts, shadow_opts=shadow_opts))
     rgba = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
     return shading.gamma_post(rgba)
 
@@ -383,3 +406,31 @@ def render_scene(scene: Scene, camera: Camera = Camera(), *, width=1280,
     return render_image(scene, view_inv, proj_inv, width=width,
                         height=height, light=light, clear_color=clear_color,
                         backend=backend, shadows=shadows)
+
+
+def render_aov(scene: Scene, camera: Camera = Camera(), *, width=1280,
+               height=720, backend="dda"):
+    """Depth + normal + hit-mask buffers (the BASELINE config-3 output:
+    hit distance and surface normal per pixel, no shading), as
+    voxelray_tpu/render/pipeline.py:440-482 computes them.
+
+    Returns depth (H, W) float32 (+inf on a miss), normal (H, W, 3) (the
+    shading normal, zero on a miss; a voxel's normal is taken from the
+    cell or box the backend hit) and hit (H, W) bool, on the scene's
+    device.
+    """
+    _check_backend(backend)
+    _, _, view_inv, proj_inv = camera.matrices(width, height)
+    origins, dirs, untile = _frame_rays(scene, view_inv, proj_inv, width,
+                                        height, backend)
+    tri = (_trace_triangles(scene, origins, dirs, TMIN, TMAX)
+           if scene.n_triangles else None)
+    t_vox, vox_id = _trace_voxels(scene, origins, dirs, TMIN, TMAX, backend)
+    s = surface_terms(scene, origins, dirs, t_vox, vox_id, tri=tri,
+                      backend=backend)
+    t_hit = t_vox if tri is None else torch.where(s.vox_hit, t_vox, tri[0])
+    depth = torch.where(s.hit, t_hit, torch.full_like(t_hit, float("inf")))
+    normal = torch.where(s.hit[..., None], s.normal,
+                         torch.zeros_like(s.normal))
+    return (untile(depth[..., None])[..., 0], untile(normal),
+            untile(s.hit[..., None])[..., 0])
