@@ -25,10 +25,20 @@ Drives the port's paths the way a user calls them, at the bench's size:
     the same grid and plane, then its raster and octree AOV modes; gates
     1-5 at scale 1; K1's 512^3 grid against the serial C++ voxelizer
     (voxelray_torch/native); render_aov fast against dda on the voxel
-    frame.
+    frame;
+  * the multi-device layer (phase 10, parallel/comm.py) on a rehearsal
+    mesh of 4 entries on the one card and on make_mesh(), the real mesh:
+    voxelize_sharded (K1 per shard) of the knot less one triangle, so the
+    sentinel pad runs; render_sharded (K2 per row shard) of the frame;
+    render_zslab_sharded of the frame with the grid in 4 Z-slabs of 128
+    rows (each a build_accel_slab accel, K3 and K4 with a fine window),
+    its merged trace bit-equal to the monolithic staged walk's; the DDA
+    Z-slab render at gate 2's bunny (128^3, 1280x720); gate 5's mesh.
 
 Each path runs once with the kernels' launch counters set to 0 just
-before it and read just after.  Then every kernel is held against its
+before it and read just after (the K3 and K4 rows of the table count
+the Z-slab frame's launches).  A repeated device is a rehearsal: its
+times are not a multi-card speed.  Then every kernel is held against its
 plain PyTorch version on the same inputs on the card and timed beside it
 (tri_march against the lap loop over K3 and K4 it replaces, run with the
 kernels and fully plain, on the frame's primary and shadow rays), the
@@ -70,6 +80,10 @@ N_BRUTE = 4096
 CLI_MESH, CLI_VS, BUNNY_VS = "knot1m", 4.3 / 512, 2.8 / 256
 GATE_SCALE = 1.0
 SMALL_W, SMALL_H = 1280, 720
+# phase 10: frames of the sharded paths against render_image's; the DDA
+# Z-slab path at gate 2's bunny128 voxel size
+RTOL, ATOL = 2e-6, 1e-7
+BUNNY_DDA_VS = 2.8 / 128
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, fp32 FLOP/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 # fp32 operations per step, counted from the kernels' expressions:
@@ -462,7 +476,8 @@ def check_fine(what, o, d, bricks, tmn, tmx, accel):
     import torch
     from voxelray_torch.ops.kernels import brick_fine
     kw = dict(dims=accel.dims, bdims=accel.bdims,
-              origin_key=accel.origin_key, voxel_size=accel.voxel_size)
+              origin_key=accel.origin_key, voxel_size=accel.voxel_size,
+              fine_off=accel.fine_off)
     args = (o, d, bricks, accel.fine, tmn, tmx)
     got = brick_fine.fine_cuda(*args, **kw)
     *want, steps = brick_fine.fine_plain(*args, **kw, count_steps=True)
@@ -475,7 +490,8 @@ def check_fine(what, o, d, bricks, tmn, tmx, accel):
     n_bricks = int(torch.unique(bricks[bricks >= 0]).numel())
     nbytes = n * (32 + 4 * k) + n * 8 + 64 * n_bricks
     b_ms, b_by = bound(nbytes, steps * OPS_CELL)
-    log(f"{what}: K4 (k {k}, {n} rays, {n_bricks} distinct bricks) "
+    log(f"{what}: K4 (k {k}, {n} rays, {n_bricks} distinct bricks, fine "
+        f"window of {accel.fine.shape[1]} bricks from {accel.fine_off}) "
         f"bit-equal to plain; {int((got[1] >= 0).sum())} hits, {steps} "
         f"cell steps; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{b_ms:.5f} ms by {b_by}")
@@ -883,6 +899,283 @@ def run_frontend(grid, v, f, vs, scene, cam, occ_np, k1_ms, kmods,
     log(f"phase 9 (front end): {time.time() - t0:.1f} s")
 
 
+def wall_mean_ms(fn, reps):
+    """Mean wall ms of fn() over reps calls, the device synced, after one
+    warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def frames_close(what, img, ref):
+    """Frames with equal hit masks and within rtol 2e-6 / atol 1e-7:
+    returns the largest difference."""
+    import numpy as np
+    import torch
+    miss = float(np.float32(0.8) ** np.float32(1 / 2.2))
+    hit, hit_r = ((x[..., :3] != miss).any(-1) for x in (img, ref))
+    err = float((img - ref).abs().max())
+    log(f"{what}: {int(hit.sum())} hit pixels, max |difference| {err}")
+    require(bool(torch.equal(hit, hit_r)), f"{what}: hit masks differ")
+    require(bool(torch.allclose(img, ref, rtol=RTOL, atol=ATOL)),
+            f"{what}: outside rtol {RTOL} / atol {ATOL}")
+    return err
+
+
+def check_voxelize_sharded(v, f, bb_min, vs, dims, meshes_, k1_ms, smi):
+    """voxelize_sharded of the knot less one triangle (1,048,575: the
+    sentinel pad runs) on each mesh, counted, against K1 alone on the
+    same triangles; a shard of sentinel triangles adds nothing."""
+    import numpy as np
+    import torch
+    from voxelray_torch.ops.kernels import voxel_accum
+    from voxelray_torch.parallel.comm import voxelize_sharded
+    dev = meshes_[0][1].devices[0]
+    f_odd = f[:-1]
+    occ_k, calls_k = voxel_accum.voxel_accum_cuda(
+        torch.as_tensor(v, device=dev),
+        torch.as_tensor(f_odd.astype(np.int32), device=dev), bb_min, vs,
+        dims)
+    pad = torch.full((96, 3), float("inf"), device=dev)
+    occ0, calls0 = voxel_accum.voxel_accum_cuda(
+        pad, torch.arange(96, dtype=torch.int32, device=dev).reshape(-1, 3),
+        bb_min, vs, dims)
+    require(calls0 == 0 and not bool(occ0.any()),
+            "K1: sentinel triangles added occupancy or set_calls")
+    tri = v[f_odd]
+    for name, mesh in meshes_:
+        reset(voxel_accum)
+        torch.cuda.synchronize()
+        occ, calls = voxelize_sharded(tri, bb_min, mesh, dims=dims,
+                                      voxel_size=vs)
+        torch.cuda.synchronize()
+        launches = voxel_accum.launches
+        require(launches == mesh.size, f"voxelize_sharded on {name}: "
+                f"{launches} K1 launches for {mesh.size} shards")
+        require(bool(torch.equal(occ, occ_k)) and int(calls) == calls_k,
+                f"voxelize_sharded on {name} differs from K1 alone")
+        ms = wall_mean_ms(lambda: voxelize_sharded(
+            tri, bb_min, mesh, dims=dims, voxel_size=vs), 3)
+        log(f"voxelize_sharded, {name}: {len(tri)} triangles in "
+            f"{mesh.size} shards, K1 launches {launches}, occupancy and "
+            f"set_calls ({calls_k}) bit-equal to K1 alone; {ms:.2f} ms wall "
+            f"(mean of 3: host padding, copies and kernels), K1 kernel "
+            f"alone {k1_ms:.4f} ms [{smi}]")
+
+
+def check_render_sharded(scene, vi, pi, ref, meshes_, smi):
+    """render_sharded (backend fast, shadows on) on each mesh, counted,
+    against render_image's frame `ref`."""
+    import torch
+    from voxelray_torch.ops.kernels import mega_trace
+    from voxelray_torch.parallel.comm import render_sharded
+    from voxelray_torch.render import pipeline
+    kw = dict(width=WIDTH, height=HEIGHT, backend="fast", shadows=True)
+    ref_ms = cuda_ms(lambda: pipeline.render_image(scene, vi, pi, **kw), 3)
+    for name, mesh in meshes_:
+        reset(mega_trace)
+        torch.cuda.synchronize()
+        img = render_sharded(scene, vi, pi, mesh, **kw)
+        torch.cuda.synchronize()
+        launches = mega_trace.launches
+        require(launches > 0, f"render_sharded on {name}: K2 not launched")
+        frames_close(f"render_sharded, {name}, vs render_image", img, ref)
+        ms = cuda_ms(lambda: render_sharded(scene, vi, pi, mesh, **kw), 3)
+        rows = -(-HEIGHT // mesh.size)
+        log(f"render_sharded, {name}: {mesh.size} shards of {rows} rows "
+            f"({'tiled' if rows % 8 == 0 else 'not tiled'}), K2 launches "
+            f"{launches}; {ms:.3f} ms a frame, render_image {ref_ms:.3f} ms "
+            f"(mean of 3) [{smi}]")
+
+
+def check_zslab_fast(scene, grid, vi, pi, rays, k2_trace, img_k2, occ_np,
+                     rehearsal, real, kmods, smi):
+    """render_zslab_sharded, backend fast, with the grid in 4 slabs of 128
+    rows on the rehearsal mesh: per slab its build ms, fine-window bytes
+    and staged-trace ms with its K3/K4 launches; K3 and K4 held against
+    their plain versions on a slab with a fine window; the merged primary
+    trace bit-equal to the monolithic staged walk's and held to K2's; the
+    frame, counted, against render_image through the staged walk, and
+    against K2's frame; then the one-slab frame on make_mesh().  Returns
+    the Z-slab frame's launches."""
+    import numpy as np
+    import torch
+    from voxelray_torch.ops.kernels import brick_fine, grid_walk
+    from voxelray_torch.ops.traverse_fast import (build_accel_slab,
+                                                  trace_grid_fast)
+    from voxelray_torch.parallel.comm import (render_zslab_sharded,
+                                              split_zslabs, zslab_rows)
+    from voxelray_torch.render import pipeline
+    o, d, tmn, tmx = rays
+    nx, ny, nz = scene.grid_dims
+    zs, split_ms = wall_ms(lambda: split_zslabs(scene, rehearsal, "fast"))
+    log(f"Z-slab split of the {nx}x{ny}x{nz} grid over {rehearsal.size} "
+        f"slabs of {zs.nzs} rows (on the host, then one slab a device): "
+        f"{split_ms:.1f} ms [{smi}]")
+    require(zs.nzs == 128, f"slab height {zs.nzs}")
+    occ3 = scene.occ_flat.reshape(nz, ny, nx)
+    for i, sl in enumerate(zs.slabs):
+        z0, z1 = i * zs.nzs, (i + 1) * zs.nzs
+        again, b_ms = wall_ms(lambda: build_accel_slab(
+            zslab_rows(occ3, z0, z1), z0, nz, zs.origin, zs.voxel_size,
+            below=zslab_rows(occ3, z0 - 8, z0) if z0 else None,
+            above=zslab_rows(occ3, z1, z1 + 8) if z1 < nz else None))
+        require(all(torch.equal(getattr(again, k), getattr(sl, k))
+                    for k in ("coarse", "fine", "l2")),
+                f"slab {i}: rebuilt with other tables")
+        reset(grid_walk, brick_fine)
+        trace_grid_fast(o, d, sl)
+        torch.cuda.synchronize()
+        counts = counts_of(grid_walk, brick_fine)
+        t_ms = cuda_ms(lambda: trace_grid_fast(o, d, sl), 3)
+        log(f"slab {i} (rows {z0}-{z1 - 1}): build {b_ms:.2f} ms on the "
+            f"card, fine window {sl.fine.shape[1]} bricks from brick "
+            f"{sl.fine_off} ({sl.fine.numel() * 4} bytes), primary staged "
+            f"trace {t_ms:.3f} ms (mean of 3), launches {counts} [{smi}]")
+    (hits, _, _), *_ = check_walk("Z-slab 1 round 1", o, d, tmn, tmx,
+                                  zs.slabs[1], 5)
+    check_fine("Z-slab 1 round 1", o, d, hits, tmn, tmx, zs.slabs[1])
+    t_s, lin_s = trace_grid_fast(o, d, scene.accel, mega=False)
+    t_z, lin_z = zs.trace(o, d)
+    require(bool(torch.equal(lin_z, lin_s)) and bool(torch.equal(t_z, t_s)),
+            "the Z-slab merged trace differs from the monolithic staged "
+            "walk")
+    log(f"Z-slab merged primary trace: {int((lin_z >= 0).sum())} hits, "
+        "cells and t bit-equal to the monolithic staged walk")
+    compare_traces("Z-slab merged primary vs K2", o, d, occ_np, grid.origin,
+                   grid.voxel_size, t_z, lin_z, *k2_trace)
+    kw = dict(width=WIDTH, height=HEIGHT, shadows=True)
+    staged = dict(fast_opts={"mega": False}, shadow_opts={"mega": False})
+    reset(*kmods)
+    torch.cuda.synchronize()
+    img = render_zslab_sharded(scene, vi, pi, rehearsal, backend="fast",
+                               **kw)
+    torch.cuda.synchronize()
+    counts = counts_of(*kmods)
+    log(f"Z-slab frame (4 slabs, shadows on) launches: {counts}")
+    require(counts["grid_walk"] > 0 and counts["brick_fine"] > 0,
+            "the Z-slab frame did not launch K3 and K4")
+    ref = pipeline.render_image(scene, vi, pi, backend="fast", **staged,
+                                **kw)
+    frames_close("Z-slab frame vs render_image (staged walk)", img, ref)
+    miss = float(np.float32(0.8) ** np.float32(1 / 2.2))
+    close = float(((img - img_k2).abs() <= PIXEL_ATOL).all(-1).float()
+                  .mean())
+    same_hits = bool(torch.equal((img[..., :3] != miss).any(-1),
+                                 (img_k2[..., :3] != miss).any(-1)))
+    log(f"Z-slab frame vs K2's frame: hit masks equal {same_hits}, share "
+        f"of pixels within {PIXEL_ATOL}: {close}")
+    require(same_hits and close >= PIXEL_FRAC,
+            "the Z-slab frame fails the gate against K2's frame")
+    z_ms = wall_mean_ms(lambda: render_zslab_sharded(
+        scene, vi, pi, rehearsal, backend="fast", **kw), 3)
+    s_ms = wall_mean_ms(lambda: pipeline.render_image(
+        scene, vi, pi, backend="fast", **staged, **kw), 3)
+    img1 = render_zslab_sharded(scene, vi, pi, real, backend="fast", **kw)
+    frames_close(f"Z-slab frame on make_mesh() ({real.size} slab) vs "
+                 "render_image (staged walk)", img1, ref)
+    log(f"Z-slab frame {WIDTH}x{HEIGHT}, shadows on: {z_ms:.2f} ms wall "
+        f"(mean of 3, the split included), render_image through the staged "
+        f"walk {s_ms:.2f} ms [{smi}]")
+    return counts
+
+
+def check_zslab_dda(device, rehearsal, smi):
+    """The DDA Z-slab path at gate 2's size (bunny at 2.8/128,
+    1280x720): the merged trace bit-equal to trace_grid_dda's, and the
+    frame against render_image's dda frame."""
+    import torch
+    from voxelray_torch.io import meshes
+    from voxelray_torch.models.grids import GridBool
+    from voxelray_torch.models.scene import build_scene
+    from voxelray_torch.ops.intersect import make_camera_rays
+    from voxelray_torch.ops.traverse import trace_grid_dda
+    from voxelray_torch.parallel.comm import (render_zslab_sharded,
+                                              split_zslabs)
+    from voxelray_torch.render.camera import Camera
+    from voxelray_torch.render.pipeline import render_image
+    v, f = meshes.make_scene_mesh("bunny")
+    scene = build_scene(grid=GridBool.from_mesh(v, f, BUNNY_DDA_VS,
+                                                device=device),
+                        device=device)
+    _, _, vi, pi = Camera().matrices(SMALL_W, SMALL_H)
+    o, d = (x.reshape(-1, 3) for x in make_camera_rays(
+        SMALL_W, SMALL_H, vi, pi, device=device))
+    zs = split_zslabs(scene, rehearsal, "dda")
+    (t_z, lin_z), z_ms = wall_ms(lambda: zs.trace(o, d))
+    (t_m, lin_m), m_ms = wall_ms(lambda: trace_grid_dda(
+        o, d, scene.occ_flat, scene.grid_origin, dims=scene.grid_dims,
+        voxel_size=scene.grid_voxel_size))
+    require(bool(torch.equal(lin_z, lin_m)) and bool(torch.equal(t_z, t_m)),
+            "the DDA Z-slab merged trace differs from trace_grid_dda")
+    kw = dict(width=SMALL_W, height=SMALL_H, backend="dda", shadows=True)
+    img, f_ms = wall_ms(lambda: render_zslab_sharded(scene, vi, pi,
+                                                     rehearsal, **kw))
+    frames_close("DDA Z-slab frame vs render_image dda", img,
+                 render_image(scene, vi, pi, **kw))
+    log(f"DDA Z-slab, bunny {scene.grid_dims} in {zs.mesh.size} slabs of "
+        f"{zs.nzs} rows, {SMALL_W}x{SMALL_H}: merged trace "
+        f"({int((lin_z >= 0).sum())} hits) bit-equal to trace_grid_dda; "
+        f"trace {z_ms:.1f} ms against {m_ms:.1f} ms, frame {f_ms:.1f} ms "
+        f"wall [{smi}]")
+
+
+def check_gate5_mesh(device, other, smi):
+    """Gate 5 through its mesh (make_mesh(): every card), and its frames
+    dealt over the mesh `other`: the same occupancy and set_calls."""
+    import numpy as np
+    import torch
+    from voxelray_torch.io import meshes
+    from voxelray_torch.parallel.comm import voxelize_frames_sharded
+    from voxelray_torch.utils.gates import run_gate
+    res, ms = wall_ms(lambda: run_gate("deform8", scale=GATE_SCALE,
+                                       device=device))
+    require(res["devices"] == torch.cuda.device_count(),
+            f"gate 5 ran on {res['devices']} devices")
+    v, f = meshes.make_scene_mesh("bunny")
+    n = res["frames"]
+    fv = np.stack([meshes.deformed(v, 2 * np.pi * i / n) for i in range(n)])
+    occ, calls = voxelize_frames_sharded(fv, f, res["origin"], other,
+                                         dims=res["dims"],
+                                         voxel_size=res["voxel_size"])
+    require(bool(torch.equal(occ, res["occupancy"]))
+            and calls.tolist() == res["set_calls_per_frame"],
+            "gate 5's frames over the other mesh differ")
+    log(f"gate 5 through make_mesh() ({res['devices']} devices): {ms:.1f} "
+        f"ms wall; its {n} frames over the mesh "
+        f"{[str(x) for x in other.devices]}: bit-equal [{smi}]")
+
+
+def run_multidevice(v, f, grid, scene, vi, pi, rays, k2_trace, img_k2,
+                    occ_np, k1_ms, kmods, device):
+    """Phase 10: the multi-device layer on a rehearsal mesh of 4 entries
+    on the one card and on make_mesh().  Returns the Z-slab frame's
+    launches."""
+    import torch
+    from voxelray_torch.parallel.comm import make_mesh
+    smi = smi_line()
+    t0 = time.time()
+    rehearsal = make_mesh(devices=[device] * 4)
+    real = make_mesh()
+    require(real.size == torch.cuda.device_count(), "make_mesh() size")
+    meshes_ = (("rehearsal mesh of 4 on one card", rehearsal),
+               (f"make_mesh() ({real.size} card)", real))
+    check_voxelize_sharded(v, f, grid.origin, grid.voxel_size, grid.dims,
+                           meshes_, k1_ms, smi)
+    check_render_sharded(scene, vi, pi, img_k2, meshes_, smi)
+    counts = check_zslab_fast(scene, grid, vi, pi, rays, k2_trace, img_k2,
+                              occ_np, rehearsal, real, kmods, smi)
+    check_zslab_dda(device, rehearsal, smi)
+    check_gate5_mesh(device, rehearsal, smi)
+    log(f"phase 10 (multi-device layer): {time.time() - t0:.1f} s")
+    return counts
+
+
 def run(device):
     import numpy as np
     import torch
@@ -1232,24 +1525,6 @@ def run(device):
     log_frames("triangles (tri_march, after)", time_frames(tscene, mats),
                smi_line())
 
-    # K3 and K4 launch on the staged voxel frame; their times are the
-    # triangle march's first lap
-    rows.append(kernel_row(
-        "grid_walk", "grid_walk.cu",
-        "voxelray_tpu/ops/pallas/grid_walk.py:496",
-        staged_counts["grid_walk"], 0, k3_ms, k3_plain_ms, k3_bytes,
-        k3_steps * OPS_BRICK))
-    rows.append(kernel_row(
-        "brick_fine", "brick_fine.cu",
-        "voxelray_tpu/ops/pallas/brick_fine.py:296",
-        staged_counts["brick_fine"], 0.0, k4_ms, k4_plain_ms, k4_bytes,
-        k4_steps * OPS_CELL))
-    rows.append(kernel_row(
-        "tri_march", "tri_march.cu",
-        "voxelray_tpu/ops/pallas/grid_walk.py:496,:569; "
-        "voxelray_tpu/ops/pallas/brick_fine.py:296; "
-        "voxelray_tpu/ops/tri_accel.py:242-320",
-        tri_counts["tri_march"], 0.0, tm_ms, tm_plain_ms, tm_bytes, tm_ops))
     log(f"tri_march on the triangle path: lap loop with K3/K4 "
         f"{tm_lap_ms:.4f} ms, tri_march {tm_ms:.4f} ms")
 
@@ -1259,6 +1534,30 @@ def run(device):
     # ---- 9. the front end: CLI, gates, the native oracle, AOV parity ----
     run_frontend(grid, v, f, vs, scene, cam, occ_np, k1_kernel_ms, kmods,
                  device)
+
+    # ---- 10. the multi-device layer ----------------------------------------
+    zslab_counts = run_multidevice(v, f, grid, scene, vi, pi,
+                                   (o, d, tmn, tmx), (t_k, lin_k), img,
+                                   occ_np, k1_kernel_ms, kmods, device)
+
+    # K3 and K4 launch on the Z-slab frame (and the staged voxel frame);
+    # their times are the triangle march's first lap
+    rows.append(kernel_row(
+        "grid_walk", "grid_walk.cu",
+        "voxelray_tpu/ops/pallas/grid_walk.py:496",
+        zslab_counts["grid_walk"], 0, k3_ms, k3_plain_ms, k3_bytes,
+        k3_steps * OPS_BRICK))
+    rows.append(kernel_row(
+        "brick_fine", "brick_fine.cu",
+        "voxelray_tpu/ops/pallas/brick_fine.py:296",
+        zslab_counts["brick_fine"], 0.0, k4_ms, k4_plain_ms, k4_bytes,
+        k4_steps * OPS_CELL))
+    rows.append(kernel_row(
+        "tri_march", "tri_march.cu",
+        "voxelray_tpu/ops/pallas/grid_walk.py:496,:569; "
+        "voxelray_tpu/ops/pallas/brick_fine.py:296; "
+        "voxelray_tpu/ops/tri_accel.py:242-320",
+        tri_counts["tri_march"], 0.0, tm_ms, tm_plain_ms, tm_bytes, tm_ops))
     return rows, smi_line()
 
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""K1, K2, K3 or the voxel frame of two source trees, timed in turns on
-one card.
+"""K1, K2, K3, K4 or the voxel frame of two source trees, timed in turns
+on one card.
 
 Each tree is a checkout of this repository (this one, and another commit
 unpacked with `git archive` into a directory that .gitignore lists).
@@ -20,6 +20,10 @@ one kernel with CUDA events:
   k3  grid_walk on the staged walk's two inputs that chip_smoke.py
       checks: round 1 (fused init, k 5, every ray) and the resume (k 8,
       the rays that go on);
+  k4  brick_fine on chip_smoke.py's two inputs (the 512^3 grid's round 1
+      candidates, k 5, and the triangle accel's first lap, k 2), and
+      tri_march, which shares K4's walk, on the primary rays of the knot
+      as a triangle model;
   frame  the voxel frame (render_image, backend "fast": K2 for the
       primary and the shadow pass) from the bench camera, shadows on
       and off: wall ms per frame (host clock, synchronized), and one
@@ -30,7 +34,7 @@ times over, a checksum of the outputs (equal across trees when their
 kernels agree) and ptxas's report for the kernel.  The card's name and
 power limit come last.
 
-    python3 scripts/torch_k3_ab.py [--kernel k1|k2|k3|frame] TREE_A TREE_B [OUT.json]
+    python3 scripts/torch_k3_ab.py [--kernel k1|k2|k3|k4|frame] TREE_A TREE_B [OUT.json]
 
 Needs one CUDA device and nvcc; imports no JAX.
 """
@@ -49,8 +53,10 @@ MESH = dict(p=2, q=3, segments=1024, tube_segments=512)
 GRID_RES = 512
 WIDTH, HEIGHT = 1920, 1080
 REPS, ROUNDS = 50, 5
-ENTRY = {"k1": "voxel_accum_kernel", "k2": "mega_trace_kernel",
-         "k3": "grid_walk_kernel", "frame": "mega_trace_kernel"}
+ENTRY = {"k1": ("voxel_accum_kernel",), "k2": ("mega_trace_kernel",),
+         "k3": ("grid_walk_kernel",),
+         "k4": ("brick_fine_kernel", "tri_march_kernel"),
+         "frame": ("mega_trace_kernel",)}
 
 
 def ptxas_report(log, kernel):
@@ -274,6 +280,37 @@ def child_k3(tree):
                                                        hits2, cell2, cont2)]}
 
 
+def child_k4(tree):
+    import torch
+    from chip_smoke import knot_model
+    from voxelray_torch.models.scene import build_scene
+    from voxelray_torch.ops.intersect import TMAX, TMIN
+    from voxelray_torch.ops.kernels import brick_fine, grid_walk, tri_march
+    dev, v, f, _, _, vs, o, d = inputs(tree)
+    n = o.shape[0]
+    tmn = torch.full((n,), float(TMIN), device=dev)
+    tmx = torch.full((n,), float(TMAX), device=dev)
+    ta = build_scene(models=[knot_model(v, f)], device=dev).tri_accel
+    ms, outs = {}, []
+    for name, accel, k in (("512^3 round 1, k 5",
+                            voxel_scene(dev, v, f, vs).accel, 5),
+                           ("triangle lap 1, k 2", ta.brick, 2)):
+        l2 = accel.l2 if accel.coarse.shape[0] > 4 else None
+        hits, _, _ = grid_walk.walk_cuda(
+            o, d, tmn, tmx, None, None, accel.coarse, l2, k_hits=k,
+            bdims=accel.bdims, origin_key=accel.origin_key,
+            brick_world=float(accel.voxel_size * 8))
+        args = (o, d, hits, accel.fine, tmn, tmx)
+        kw = dict(dims=accel.dims, bdims=accel.bdims,
+                  origin_key=accel.origin_key, voxel_size=accel.voxel_size)
+        outs += brick_fine.fine_cuda(*args, **kw)
+        ms[name] = timed(lambda: brick_fine.fine_cuda(*args, **kw))
+    outs += tri_march.tri_march_cuda(o, d, tmn, tmx, ta)[:4]
+    ms["tri_march primary"] = timed(
+        lambda: tri_march.tri_march_cuda(o, d, tmn, tmx, ta))
+    return {"rays": n, "ms": ms, "checksum": sha(*outs)}
+
+
 def child_frame(tree):
     from scripts.torch_frame_profile import profile_frame
     from voxelray_torch.render.pipeline import render_image
@@ -299,10 +336,11 @@ def child(kernel, tree, classes_path):
     from voxelray_torch.ops.kernels import _build
     row = (child_k1(tree) if kernel == "k1" else
            child_k2(tree, classes_path) if kernel == "k2" else
-           child_k3(tree) if kernel == "k3" else child_frame(tree))
-    row = {"tree": str(tree), "kernel": kernel, **row,
-           f"ptxas_{ENTRY[kernel]}": ptxas_report(_build.build_log(),
-                                                  ENTRY[kernel])}
+           child_k3(tree) if kernel == "k3" else
+           child_k4(tree) if kernel == "k4" else child_frame(tree))
+    row = {"tree": str(tree), "kernel": kernel, **row}
+    for entry in ENTRY[kernel]:
+        row[f"ptxas_{entry}"] = ptxas_report(_build.build_log(), entry)
     print(json.dumps(row))
     return 0
 

@@ -5,8 +5,9 @@ dims, counts, flags and node counts are equal; image means within 1e-5.
 Gate 4 runs through each package's `gate4_flythrough` with backend
 "dda" (JAX's "fast" would reach its Pallas kernels) on the `sphere`
 registry mesh: knot512's million-triangle knot takes JAX minutes to
-voxelize on a CPU at any scale.  Gate 5 runs its frames on one device
-in both.
+voxelize on a CPU at any scale.  Gate 5 deals its frames over one
+device, and over 8 (the port's rehearsal mesh of 8 CPU entries, JAX's 8
+virtual CPU devices).
 """
 import dataclasses
 
@@ -86,3 +87,18 @@ def test_gate5_deforming_one_device():
                                      out["origin"], out["dims"])
         assert np.array_equal(out["occupancy"][i].numpy(), occ)
         assert out["set_calls_per_frame"][i] == calls
+
+
+def test_gate5_deforming_sharded():
+    """2 frames over 8 devices, the frame count padded to 8 and trimmed:
+    the same counts as JAX's gate on its 8-device mesh, and the same
+    occupancy as on one device."""
+    out = gates.run_gate("deform8", scale=0.25, frames=2, n_devices=8,
+                         device="cpu")
+    want = jgates.run_gate("deform8", scale=0.25, frames=2, n_devices=8)
+    one = gates.run_gate("deform8", scale=0.25, frames=2, device="cpu")
+    assert out["devices"] == want["devices"] == 8 and out["frames"] == 2
+    assert out["dims"] == want["dims"]
+    assert out["occupied_per_frame"] == want["occupied_per_frame"]
+    assert torch.equal(out["occupancy"], one["occupancy"])
+    assert out["set_calls_per_frame"] == one["set_calls_per_frame"]

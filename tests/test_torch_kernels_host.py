@@ -176,13 +176,15 @@ extern "C" void host_launch(const float* o, const float* d,
     "brick_fine": ('''
 extern "C" void host_launch(const float* o, const float* d,
                             const int* bricks, int k_slots,
-                            const uint32_t* fine, int nb, const float* t_min,
-                            const float* t_max, int n, int nx, int ny, int bx,
-                            int by, int bz, float ogx, float ogy, float ogz,
-                            float vs, float half, float bwf, float scale,
-                            float* t_out, int* lin_out) {
+                            const uint32_t* fine, int nb, int fine_off,
+                            const float* t_min, const float* t_max, int n,
+                            int nx, int ny, int bx, int by, int bz,
+                            float ogx, float ogy, float ogz, float vs,
+                            float half, float bwf, float scale, float* t_out,
+                            int* lin_out) {
   FineGrid g;
   g.nx = nx; g.ny = ny; g.bx = bx; g.by = by; g.bz = bz; g.nb = nb;
+  g.off = fine_off;
   g.ogx = ogx; g.ogy = ogy; g.ogz = ogz;
   g.vs = vs; g.half = half; g.bwf = bwf; g.scale = scale;
   blockDim.x = 128;
@@ -195,7 +197,7 @@ extern "C" void host_launch(const float* o, const float* d,
                         t_out, lin_out);
     }
 }
-''', [P, P, P, I, P, I, P, P] + [I] * 6 + [F] * 7 + [P] * 2),
+''', [P, P, P, I, P, I, I, P, P] + [I] * 6 + [F] * 7 + [P] * 2),
     "tri_march": ('''
 extern "C" void host_launch(
     const void* o, const void* d, const void* t_min, const void* t_max,
@@ -331,6 +333,27 @@ def test_host_k1_mixed_windows_match_plain(host_kernels):
                                   origin, vs, dims)
     assert bad == 0 and calls == calls_p > 1000
     assert np.array_equal(occ, ref.numpy())
+
+
+def test_host_k1_sentinel_triangles_add_nothing(host_kernels):
+    """The +inf sentinel triangles that parallel/comm.shard_triangles pads
+    a shard with: a shard of padding alone adds no occupancy and no
+    set_calls, and padding after real triangles changes nothing."""
+    v, f, bb_min, _, vs, dims = _mesh_grid("icosphere", 64)
+    tri = v[f].astype(np.float32)
+    pad = np.full((7, 3, 3), np.inf, np.float32)
+    fn = host_kernels["voxel_accum"]
+
+    def run(t):
+        vv = np.ascontiguousarray(t.reshape(-1, 3))
+        ff = np.arange(len(vv), dtype=np.int32).reshape(-1, 3)
+        return _host_voxelize(fn, vv, ff, bb_min, vs, dims)
+
+    occ0, calls0, bad0 = run(pad)
+    assert bad0 == 0 and calls0 == 0 and not occ0.any()
+    occ, calls, _ = run(tri)
+    occ_p, calls_p, _ = run(np.concatenate([tri, pad]))
+    assert calls_p == calls > 0 and np.array_equal(occ_p, occ)
 
 
 def _host_trace(fn, o, d, tmn, tmx, admit, accel):
@@ -591,7 +614,7 @@ def test_host_k4_matches_plain(host_kernels, kind):
         lin_k = np.empty(n, np.int32)
         host_kernels["brick_fine"](
             o.ctypes.data, d.ctypes.data, bricks.ctypes.data, kk,
-            fine.ctypes.data, fine.shape[1], tmn.ctypes.data,
+            fine.ctypes.data, fine.shape[1], 0, tmn.ctypes.data,
             tmx.ctypes.data, n, accel.dims[0], accel.dims[1],
             *accel.bdims, *map(float, og), float(vs), float(half),
             float(bwf), float(scale), t_k.ctypes.data, lin_k.ctypes.data)
@@ -639,15 +662,89 @@ def test_host_k4_edge_grazing_rays_match_the_oracle(host_kernels):
     lin_k = np.empty(n, np.int32)
     host_kernels["brick_fine"](
         o.ctypes.data, d.ctypes.data, bricks.ctypes.data, 5,
-        fine.ctypes.data, fine.shape[1], tmn.ctypes.data, tmx.ctypes.data,
-        n, accel.dims[0], accel.dims[1], *accel.bdims, *map(float, og),
-        float(vs32), float(half), float(bwf), float(scale), t_k.ctypes.data,
-        lin_k.ctypes.data)
+        fine.ctypes.data, fine.shape[1], 0, tmn.ctypes.data,
+        tmx.ctypes.data, n, accel.dims[0], accel.dims[1], *accel.bdims,
+        *map(float, og), float(vs32), float(half), float(bwf), float(scale),
+        t_k.ctypes.data, lin_k.ctypes.data)
     t_f, lin_f = fine_plain(t(o), t(d), hits, accel.fine, t(tmn), t(tmx),
                             dims=accel.dims, bdims=accel.bdims,
                             origin_key=accel.origin_key, voxel_size=vs)
     assert np.array_equal(lin_k, lin_f.numpy())
     assert np.array_equal(t_k, t_f.numpy())
+
+
+def _host_fine(fn, o, d, bricks, fine, fine_off, tmn, tmx, accel):
+    """K4 built for the host over the window `fine` of the bricks from id
+    fine_off on: (t, lin)."""
+    n = len(o)
+    bricks = np.ascontiguousarray(bricks, np.int32)
+    fine = np.ascontiguousarray(fine.numpy())
+    og, vs, half, bwf, scale = brick_fine._consts(
+        accel.origin_key, accel.voxel_size, accel.bdims)
+    t_k = np.empty(n, np.float32)
+    lin_k = np.empty(n, np.int32)
+    fn(o.ctypes.data, d.ctypes.data, bricks.ctypes.data, bricks.shape[0],
+       fine.ctypes.data, fine.shape[1], fine_off, tmn.ctypes.data,
+       tmx.ctypes.data, n, accel.dims[0], accel.dims[1], *accel.bdims,
+       *map(float, og), float(vs), float(half), float(bwf), float(scale),
+       t_k.ctypes.data, lin_k.ctypes.data)
+    return t_k, lin_k
+
+
+def test_host_k4_fine_window_matches_plain(host_kernels):
+    """K4 reading a Z-slab accel's fine window (fine_off > 0; slab rows 48
+    to 95 of the 115x54x121 knot) on 20,000 rays aimed at brick edges and
+    corners: (t, lin) bit-equal to fine_plain over the same window, with
+    and without the slab's one-layer halo, and with a first slot of
+    bricks outside the window (which count as none).  Probes cross both
+    window edges: without the halo, some rays' cells differ from K4 over
+    the whole table on the same candidates; with it none do."""
+    from test_torch_trace import _brick_edge_rays
+
+    from voxelray_torch.models.grids import GridBool
+    from voxelray_torch.ops.traverse_fast import build_accel_slab
+    v, f = meshes.torus_knot(2, 3, 256, 32)
+    bb_min, bb_max = geometry.mesh_bbox(v)
+    ext = float(max(bb_max - bb_min))
+    g = GridBool.from_mesh(v, f, ext / 120, device="cpu")
+    occ = g.occupancy()
+    nz = occ.shape[0]
+    whole = build_accel(occ, g.origin, g.voxel_size)
+    o, d = _brick_edge_rays(g, ext, 20000, 0)
+    n = len(o)
+    tmn, tmx = np.full(n, TMIN, np.float32), np.full(n, TMAX, np.float32)
+    t = torch.from_numpy
+    kw = dict(dims=whole.dims, bdims=whole.bdims,
+              origin_key=whole.origin_key, voxel_size=whole.voxel_size)
+    z0, z1 = 48, 96
+    halo = dict(below=occ[z0 - 8:z0], above=occ[z1:z1 + 8])
+    bx, by, _ = whole.bdims
+    outside = np.where(np.arange(n) % 2, 0, bx * by * 13 + 5)
+    for with_halo in (False, True):
+        sl = build_accel_slab(occ[z0:z1], z0, nz, g.origin, g.voxel_size,
+                              **(halo if with_halo else {}))
+        assert sl.fine_off == bx * by * (5 if with_halo else 6)
+        hits, _, _ = walk_plain(t(o), t(d), t(tmn), t(tmx), None, None,
+                                sl.coarse, sl.l2, bdims=sl.bdims,
+                                origin_key=sl.origin_key,
+                                brick_world=float(sl.voxel_size * 8),
+                                k_hits=5)
+        assert (hits >= 0).sum() > 1000
+        bricks = np.concatenate([outside[None], hits.numpy()])
+        t_k, lin_k = _host_fine(host_kernels["brick_fine"], o, d, bricks,
+                                sl.fine, sl.fine_off, tmn, tmx, whole)
+        t_p, lin_p = fine_plain(t(o), t(d), t(bricks), sl.fine, t(tmn),
+                                t(tmx), fine_off=sl.fine_off, **kw)
+        assert np.array_equal(lin_k, lin_p.numpy())
+        assert np.array_equal(t_k, t_p.numpy())
+        t_w, lin_w = _host_fine(host_kernels["brick_fine"], o, d,
+                                hits.numpy(), whole.fine, 0, tmn, tmx,
+                                whole)
+        edge = np.flatnonzero(lin_w != lin_k)
+        print(f"halo {with_halo}: {len(edge)} rays whose cell needs a "
+              f"probe outside the window: {edge[:8]}")
+        assert (len(edge) > 0) != with_halo
+        assert (lin_k >= 0).sum() > 1000
 
 
 def _tri_scene(name, res):

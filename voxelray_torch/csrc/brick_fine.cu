@@ -14,7 +14,12 @@
 // a table.  This kernel reads the word it needs from the accel's fine
 // table (16, NB), word-major, by brick id: that saves writing and reading
 // K x 16 x N words per call.  Padded cells of the boundary bricks hold 0,
-// so there is no in-grid test (:140-141).
+// so there is no in-grid test (:140-141).  The table may be a window: it
+// holds the NB bricks from id fine_off on (a Z-slab's block of brick ids,
+// voxelray_tpu/ops/traverse_fast.py:152-226, with the port's one-layer
+// halo).  Brick b is column b - fine_off, as in the TPU path's gather
+// (_take_fine :229); a candidate brick outside the window counts as none,
+// and a probe of a cell there reads nothing.
 //
 // Every expression keeps the Pallas kernel's shape: the brick entry with
 // its +1e-7 seed and clamp (:94-108), the slab test (:143-160) and the
@@ -54,8 +59,8 @@
 
 namespace {
 
-// o, d: (n, 3); bricks: (k_slots, n); fine: (16, nb) words; t_min, t_max:
-// (n,).  Writes t_out, lin_out (n,).
+// o, d: (n, 3); bricks: (k_slots, n); fine: (16, g.nb) words of the bricks
+// from g.off on; t_min, t_max: (n,).  Writes t_out, lin_out (n,).
 __global__ void brick_fine_kernel(
     const float* __restrict__ o, const float* __restrict__ d,
     const int* __restrict__ bricks, int k_slots,
@@ -70,7 +75,9 @@ __global__ void brick_fine_kernel(
   int best_lin = -1;
   for (int s = 0; s < k_slots; ++s) {
     const int bid = bricks[s * n + i];
-    if (bid >= 0 && fine_brick(r, g, fine, bid, best_t, best_lin)) break;
+    if (bid >= g.off && bid - g.off < g.nb &&
+        fine_brick<true>(r, g, fine, bid, best_t, best_lin))
+      break;
   }
   t_out[i] = best_t;
   lin_out[i] = best_lin;
@@ -80,13 +87,14 @@ __global__ void brick_fine_kernel(
 
 extern "C" int brick_fine_launch(
     const void* o, const void* d, const void* bricks, int k_slots,
-    const void* fine, int nb, const void* t_min, const void* t_max, int n,
-    int nx, int ny, int bx, int by, int bz, float ogx, float ogy, float ogz,
-    float vs, float half, float bwf, float scale, void* t_out, void* lin_out,
-    void* stream) {
+    const void* fine, int nb, int fine_off, const void* t_min,
+    const void* t_max, int n, int nx, int ny, int bx, int by, int bz,
+    float ogx, float ogy, float ogz, float vs, float half, float bwf,
+    float scale, void* t_out, void* lin_out, void* stream) {
   if (n <= 0) return 0;
   FineGrid g;
   g.nx = nx; g.ny = ny; g.bx = bx; g.by = by; g.bz = bz; g.nb = nb;
+  g.off = fine_off;
   g.ogx = ogx; g.ogy = ogy; g.ogz = ogz;
   g.vs = vs; g.half = half; g.bwf = bwf; g.scale = scale;
   const int threads = 128;

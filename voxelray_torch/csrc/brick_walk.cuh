@@ -39,11 +39,12 @@ struct WalkGrid {
   float ogx, ogy, ogz, bw;
 };
 
-// K4's voxel grid: voxel dims (x, y), brick dims, bricks in the fine table,
-// origin, voxel size, half of it, brick width, and the largest |coordinate|
-// of the brick grid's corners
+// K4's voxel grid: voxel dims (x, y), brick dims, the fine table's window
+// (it holds the nb bricks from id off on: the whole grid, or a Z-slab's
+// contiguous block of brick ids), origin, voxel size, half of it, brick
+// width, and the largest |coordinate| of the brick grid's corners
 struct FineGrid {
-  int nx, ny, bx, by, bz, nb;
+  int nx, ny, bx, by, bz, nb, off;
   float ogx, ogy, ogz, vs, half, bwf;
   float scale;
 };
@@ -229,15 +230,23 @@ __device__ __forceinline__ bool accepts(const Ray& r, float t0, float t1) {
 
 // Occupied-and-accepted test of one cell anywhere in the grid, read from
 // the word-major fine table; a nearer accept replaces (best_t, best_lin).
+// kWindow: the table is a window of g.nb bricks from id g.off on (K4), and
+// a cell whose brick lies outside it reads as empty; otherwise the table
+// holds every brick of the grid and g.off is not read (the triangle march).
+template <bool kWindow>
 __device__ __forceinline__ void probe_cell(
     const Ray& r, const FineGrid& g, const uint32_t* __restrict__ fine,
     int gx, int gy, int gz, float& best_t, int& best_lin) {
   if (gx < 0 || gy < 0 || gz < 0) return;
   const int bcx = gx >> 3, bcy = gy >> 3, bcz = gz >> 3;
   if (bcx >= g.bx || bcy >= g.by || bcz >= g.bz) return;
-  const int bid = bcx + g.bx * (bcy + g.by * bcz);
+  int col = bcx + g.bx * (bcy + g.by * bcz);
+  if (kWindow) {
+    col -= g.off;
+    if (col < 0 || col >= g.nb) return;
+  }
   const int ll = (gx & 7) + kBrick * ((gy & 7) + kBrick * (gz & 7));
-  if (!((__ldg(fine + (ll >> 5) * g.nb + bid) >> (ll & 31)) & 1u)) return;
+  if (!((__ldg(fine + (ll >> 5) * g.nb + col) >> (ll & 31)) & 1u)) return;
   float t0, t1;
   cell_slab(r, g, gx, gy, gz, t0, t1);
   if (accepts(r, t0, t1) && t0 < best_t) {
@@ -246,12 +255,14 @@ __device__ __forceinline__ void probe_cell(
   }
 }
 
-// K4's walk through brick `bid`: a DDA over the <= 25 cells the ray crosses
-// in it; the first accepted occupied cell, or a nearer probed one, becomes
-// (best_t, best_lin).  Returns true once the ray's hit is decided (an
-// accepted cell, or a probed candidate nearer than the current cell's
-// exit); false when the ray leaves the brick or passes r.t_hi first.
-// Needs r.tie_eps (set_tie_eps).
+// K4's walk through brick `bid`, which lies in the fine table (in its
+// window, with kWindow as in probe_cell): a DDA over the <= 25 cells the
+// ray crosses in it; the first accepted occupied cell, or a nearer probed
+// one, becomes (best_t, best_lin).  Returns true once the ray's hit is
+// decided (an accepted cell, or a probed candidate nearer than the current
+// cell's exit); false when the ray leaves the brick or passes r.t_hi
+// first.  Needs r.tie_eps (set_tie_eps).
+template <bool kWindow>
 __device__ __forceinline__ bool fine_brick(const Ray& r, const FineGrid& g,
                                            const uint32_t* __restrict__ fine,
                                            int bid, float& best_t,
@@ -293,12 +304,13 @@ __device__ __forceinline__ bool fine_brick(const Ray& r, const FineGrid& g,
         (bminz + static_cast<float>(lz + 1 - r.fz) * g.vs - r.oz) * r.inv_z};
     for (int k = 0; k < 3; ++k)
       if (dk[k] != 0.0f && fabsf(face[k] - t_in) <= r.tie_eps * (ia[k] + ie))
-        probe_cell(r, g, fine, bcx * kBrick + lx - (k == 0 ? sk[k] : 0),
-                   bcy * kBrick + ly - (k == 1 ? sk[k] : 0),
-                   bcz * kBrick + lz - (k == 2 ? sk[k] : 0), best_t,
-                   best_lin);
+        probe_cell<kWindow>(r, g, fine,
+                            bcx * kBrick + lx - (k == 0 ? sk[k] : 0),
+                            bcy * kBrick + ly - (k == 1 ? sk[k] : 0),
+                            bcz * kBrick + lz - (k == 2 ? sk[k] : 0),
+                            best_t, best_lin);
   }
-  const uint32_t* words = fine + bid;
+  const uint32_t* words = fine + (kWindow ? bid - g.off : bid);
   for (int step = 0; step < kSteps; ++step) {
     const int lin_local = lx + kBrick * (ly + kBrick * lz);
     const uint32_t word = __ldg(words + (lin_local >> 5) * g.nb);
@@ -351,9 +363,9 @@ __device__ __forceinline__ bool fine_brick(const Ray& r, const FineGrid& g,
           }
       for (int k = 0; k < 3; ++k)
         if (k != axis && ((near >> k) & 1))
-          probe_cell(r, g, fine, gx + (k == 0 ? r.sx : 0),
-                     gy + (k == 1 ? r.sy : 0), gz + (k == 2 ? r.sz : 0),
-                     best_t, best_lin);
+          probe_cell<kWindow>(r, g, fine, gx + (k == 0 ? r.sx : 0),
+                              gy + (k == 1 ? r.sy : 0),
+                              gz + (k == 2 ? r.sz : 0), best_t, best_lin);
     }
     lx += axis == 0 ? r.sx : 0;
     ly += axis == 1 ? r.sy : 0;

@@ -89,7 +89,7 @@ __device__ __forceinline__ int staged_first_cell(
         ++nhit;
         // K4 over the collected brick; once K4 is done with this group
         // the walk still collects the group's bricks (its resume state)
-        if (!done && fine_brick(r, fg, fine, lin, best_t, best_lin)) {
+        if (!done && fine_brick<false>(r, fg, fine, lin, best_t, best_lin)) {
           if (best_lin >= 0) return best_lin;
           done = true;
         }
@@ -365,6 +365,7 @@ MarchArgs march_args(
   a.wg.ogx = ogx; a.wg.ogy = ogy; a.wg.ogz = ogz; a.wg.bw = bwf;
   a.fg.nx = nx; a.fg.ny = ny; a.fg.bx = bx; a.fg.by = by; a.fg.bz = bz;
   a.fg.nb = nb;
+  a.fg.off = 0;
   a.fg.ogx = ogx; a.fg.ogy = ogy; a.fg.ogz = ogz;
   a.fg.vs = vs; a.fg.half = half; a.fg.bwf = bwf; a.fg.scale = scale;
   a.tg = a.fg;

@@ -10,7 +10,11 @@ reference's slab test and accept rule; the first accepted cell gives
 Unlike the TPU kernel, which takes the bricks' occupancy words gathered
 beforehand into a (K, 16, N) array, this one reads them from the accel's
 fine table (16, NB) by brick id: the kernel and the plain version see the
-same words, and the gathered copy is never written.
+same words, and the gathered copy is never written.  The table may be a
+window of the bricks from id `fine_off` on (a Z-slab accel,
+ops/traverse_fast.build_accel_slab): brick b is its column b - fine_off,
+a candidate brick outside the window counts as none (-1), and a cell
+there reads as empty.
 
 CUDA tensors launch the kernel; CPU tensors run the plain PyTorch version
 (`fine_plain`), the same float32 expressions vectorized over rays.  Any
@@ -46,9 +50,11 @@ def _consts(origin_key, voxel_size, bdims):
 
 
 def fine_plain(o, d, bricks, fine, t_min, t_max, *, dims, bdims,
-               origin_key, voxel_size, count_steps=False, per_hit=False):
+               origin_key, voxel_size, fine_off=0, count_steps=False,
+               per_hit=False):
     """Plain version.  o, d: (N, 3) float32; bricks (K, N) int32; fine
-    (16, NB) int32 words; t_min, t_max (N,) float32.  Returns (t, lin),
+    (16, NB) int32 words of the bricks from id fine_off on; t_min, t_max
+    (N,) float32.  Returns (t, lin),
     and with count_steps=True also each ray's cell steps over its slots,
     (N,) int64: the kernel's per-thread steps on the same inputs; with
     per_hit=True too, last, the (N,) int64 slot at which each ray's hit
@@ -74,7 +80,7 @@ def fine_plain(o, d, bricks, fine, t_min, t_max, *, dims, bdims,
     best_t = inf.clone()
     best_lin = torch.full((n,), -1, dtype=i32, device=dev)
     done = torch.zeros((n,), dtype=torch.bool, device=dev)
-    nb = fine.shape[1]
+    nb, off = fine.shape[1], int(fine_off)
     flat = fine.reshape(-1)
 
     def cell_slab(g):
@@ -96,13 +102,16 @@ def fine_plain(o, d, bricks, fine, t_min, t_max, *, dims, bdims,
                 & (t0 >= t_min) & (t0 <= t_max))
 
     def occupied(g):
-        """Occupancy of cells g anywhere in the grid (0 outside it)."""
+        """Occupancy of cells g anywhere in the grid (0 outside it and
+        outside the table's window)."""
         b = [x >> 3 for x in g]
+        col = b[0] + bx * (b[1] + by * b[2]) - off
         inside = ((g[0] >= 0) & (g[1] >= 0) & (g[2] >= 0) & (b[0] < bx)
-                  & (b[1] < by) & (b[2] < bz))
-        bid = b[0] + bx * (b[1] + by * b[2])
+                  & (b[1] < by) & (b[2] < bz) & (col >= 0) & (col < nb))
+        if nb == 0:
+            return inside
         ll = (g[0] & 7) + BRICK * ((g[1] & 7) + BRICK * (g[2] & 7))
-        idx = torch.where(inside, (ll >> 5) * nb + bid, 0).long()
+        idx = torch.where(inside, (ll >> 5) * nb + col, 0).long()
         return inside & (((flat[idx] >> (ll & 31)) & 1) != 0)
 
     def probe(mask, g):
@@ -119,10 +128,10 @@ def fine_plain(o, d, bricks, fine, t_min, t_max, *, dims, bdims,
                          device=dev)
     for s in range(bricks.shape[0]):
         bid = bricks[s].to(i32)
-        act = (bid >= 0) & ~done
+        act = (bid >= off) & (bid < off + nb) & ~done
         if not bool(act.any()):
             continue
-        b = torch.clamp(bid, 0, nb - 1)
+        b = torch.clamp(bid, off, off + nb - 1)
         bc = [b % bx, (b // bx) % by, b // (bx * by)]
         bmin = [og[a] + (bc[a] * BRICK).to(f32) * vs for a in range(3)]
         ent = [torch.where(da[a] == 0.0, -inf, torch.minimum(
@@ -145,7 +154,7 @@ def fine_plain(o, d, bricks, fine, t_min, t_max, *, dims, bdims,
             g = [bc[a] * BRICK + loc[a] - (sgn[a] if a == k else 0)
                  for a in range(3)]
             probe(act & near, g)
-        words = fine[:, b.long()]                           # (16, N)
+        words = fine[:, (b - off).long()]                   # (16, N)
         for _ in range(STEPS):
             if not bool(act.any()):
                 break
@@ -216,14 +225,14 @@ def fine_plain(o, d, bricks, fine, t_min, t_max, *, dims, bdims,
 def _lib():
     fn = load_library().brick_fine_launch
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = ([vp] * 3 + [ci] + [vp] + [ci] + [vp] * 2 + [ci] * 6
+    fn.argtypes = ([vp] * 3 + [ci] + [vp] + [ci] * 2 + [vp] * 2 + [ci] * 6
                    + [cf] * 7 + [vp] * 3)
     fn.restype = ci
     return fn
 
 
 def fine_cuda(o, d, bricks, fine, t_min, t_max, *, dims, bdims, origin_key,
-              voxel_size):
+              voxel_size, fine_off=0):
     """Launch K4; arguments as fine_plain, contiguous on one CUDA device."""
     global launches
     dev = o.device
@@ -245,9 +254,9 @@ def fine_cuda(o, d, bricks, fine, t_min, t_max, *, dims, bdims, origin_key,
     nx, ny, _ = dims
     bx, by, bz = bdims
     nb = fine.shape[1]
-    if nb < bx * by * bz or nb * 16 >= 2 ** 31:
-        raise ValueError(f"fine_cuda: fine table of {nb} bricks does not "
-                         f"fit {bdims}")
+    if fine_off < 0 or nb * 16 >= 2 ** 31:
+        raise ValueError(f"fine_cuda: fine window of {nb} bricks from "
+                         f"{fine_off} on does not fit int32 indexing")
     t = torch.empty((n,), dtype=f32, device=dev)
     lin = torch.empty((n,), dtype=i32, device=dev)
     if n == 0:
@@ -257,7 +266,8 @@ def fine_cuda(o, d, bricks, fine, t_min, t_max, *, dims, bdims, origin_key,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(o.data_ptr(), d.data_ptr(), bricks.data_ptr(), k,
-                 fine.data_ptr(), nb, t_min.data_ptr(), t_max.data_ptr(), n,
+                 fine.data_ptr(), nb, int(fine_off), t_min.data_ptr(),
+                 t_max.data_ptr(), n,
                  nx, ny, bx, by, bz, float(og[0]), float(og[1]),
                  float(og[2]), float(vs), float(half), float(bwf),
                  float(scale), t.data_ptr(), lin.data_ptr(), stream)
@@ -267,18 +277,19 @@ def fine_cuda(o, d, bricks, fine, t_min, t_max, *, dims, bdims, origin_key,
 
 
 def fine_walk_multi(o, d, bricks, fine, t_min, t_max, *, dims, bdims,
-                    origin_key, voxel_size):
+                    origin_key, voxel_size, fine_off=0):
     """First accepted cell across each ray's K candidate bricks, in slot
     order: (t (N,) float32, +inf on a miss; lin (N,) int32, -1).
 
     o, d: (N, 3) float32; bricks (K, N) int brick lins (-1 = none); fine:
-    the BrickAccel's (16, NB) int32 words; t_min, t_max (N,) float32.
+    the BrickAccel's (16, NB) int32 words of the bricks from id fine_off
+    on; t_min, t_max (N,) float32.
     """
     args = (o.contiguous(), d.contiguous(),
             bricks.to(torch.int32).contiguous(), fine.contiguous(),
             t_min.contiguous(), t_max.contiguous())
     kw = dict(dims=dims, bdims=bdims, origin_key=origin_key,
-              voxel_size=voxel_size)
+              voxel_size=voxel_size, fine_off=fine_off)
     if o.is_cuda:
         return fine_cuda(*args, **kw)
     if o.device.type == "cpu":

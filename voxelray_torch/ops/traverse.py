@@ -2,9 +2,9 @@
 the brute-force AABB and triangle traces.
 
 Counterpart of trace_grid_dda / any_hit_grid_dda /
-trace_grid_dda_chunked, trace_aabbs_brute / any_hit_aabbs_brute and
-trace_triangles_brute / any_hit_triangles_brute in
-voxelray_tpu/ops/traverse.py.  Hit semantics
+trace_grid_dda_chunked / trace_grid_dda_zslab, trace_aabbs_brute /
+any_hit_aabbs_brute and trace_triangles_brute / any_hit_triangles_brute
+in voxelray_tpu/ops/traverse.py.  Hit semantics
 (the VK_KHR_ray_tracing report/accept rules the reference's shaders rely
 on): a voxel is hit at the slab t0 iff
 
@@ -34,7 +34,7 @@ from .geometry import div_scalar
 from .intersect import TMAX, TMIN, hit_aabb, hit_triangles
 
 __all__ = ["trace_grid_dda", "any_hit_grid_dda", "trace_grid_dda_chunked",
-           "trace_aabbs_brute", "any_hit_aabbs_brute",
+           "trace_grid_dda_zslab", "trace_aabbs_brute", "any_hit_aabbs_brute",
            "trace_triangles_brute", "any_hit_triangles_brute"]
 
 
@@ -129,6 +129,37 @@ def trace_grid_dda(origins, dirs, occ_flat, grid_origin, *, dims,
     entry faces; a probed hit retires the ray once the walk passes its t.
     Crossing times are computed from the cell, not accumulated.
     """
+    return _dda(origins, dirs, occ_flat, grid_origin, dims, voxel_size,
+                t_min, t_max, admit, 0, dims[2])
+
+
+def trace_grid_dda_zslab(origins, dirs, occ_slab_flat, grid_origin, z0, *,
+                         dims, nzs, voxel_size, t_min=TMIN, t_max=TMAX):
+    """The DDA over one Z-slab of a grid sharded over devices
+    (voxelray_tpu/ops/traverse.py:391-480): global coordinates, global
+    linear cell ids, (+inf, -1) where the slab has no accept.
+
+    occ_slab_flat: (nx * ny * nzs,) uint8, the grid's rows [z0, z0 + nzs)
+    x fastest (rows past the grid empty); dims stays the full grid's.
+    Unlike JAX's, which clips each ray to the slab's box (and so starts
+    from another float expression than the monolithic walk), every ray
+    walks trace_grid_dda's walk from the grid's entry, with its steps,
+    near-tie rule and probes, reading only the slab's rows (the others
+    are empty) and stopping once it has passed them.  The steps do not
+    depend on the occupancy, and the probes look ahead along the walk
+    (or, at the start, behind it, which every slab does), so each slab
+    meets its cells as the monolithic walk does and none needs a halo:
+    the min-t merge over slabs (ties to the smaller cell id) gives
+    trace_grid_dda's cell.
+    """
+    return _dda(origins, dirs, occ_slab_flat, grid_origin, dims, voxel_size,
+                t_min, t_max, None, z0, nzs)
+
+
+def _dda(origins, dirs, occ_flat, grid_origin, dims, voxel_size, t_min,
+         t_max, admit, z_lo, n_rows):
+    """The walk of trace_grid_dda with occ_flat holding the grid's rows
+    [z_lo, z_lo + n_rows) only; a ray stops once its walk leaves them."""
     nx, ny, nz = dims
     batch = origins.shape[:-1]
     dev = origins.device
@@ -148,6 +179,18 @@ def trace_grid_dda(origins, dirs, occ_flat, grid_origin, *, dims,
         return (torch.full(batch, float("inf"), device=dev),
                 lin_out.reshape(batch))
     occ = occ_flat.reshape(-1)
+    base = z_lo * nx * ny
+    if occ.numel() == 0:
+        occ = torch.zeros(1, dtype=torch.uint8, device=dev)
+    w_lo, w_hi = max(z_lo, 0), min(z_lo + n_rows, nz)
+    windowed = w_lo > 0 or w_hi < nz
+
+    def occ_at(cells, lin):
+        """Occupancy of in-grid cells (lin their linear ids): the held
+        rows' words, empty elsewhere."""
+        z = cells[..., 2]
+        return ((z >= z_lo) & (z < z_lo + n_rows)
+                & (occ[torch.clamp(lin - base, 0, occ.numel() - 1)] > 0))
 
     cell, active, t_in, enter_axis, grid_max = _dda_init(o, d, origin, dims,
                                                          vs)
@@ -189,7 +232,7 @@ def trace_grid_dda(origins, dirs, occ_flat, grid_origin, *, dims,
         cells = cr[:, None, :] + subsets * sign[:, None, :]    # (R, 7, 3)
         inb = ((cells >= 0) & (cells < dims_t)).all(dim=-1)
         lin = cells[..., 0] + nx * (cells[..., 1] + ny * cells[..., 2])
-        occ_c = occ[torch.clamp(lin, 0, n_cells - 1)] > 0
+        occ_c = occ_at(cells, lin)
         t0, t1 = _cell_slab(cells, fr[:, None, 0:3], fr[:, None, 6:9],
                             origin, vs)
         ok = (want & inb & occ_c & (t1 > torch.clamp(t0, min=0.0))
@@ -224,7 +267,7 @@ def trace_grid_dda(origins, dirs, occ_flat, grid_origin, *, dims,
             break
         step, ainv = i[:, 1:4], f[:, 9:12]
         lin = cell[:, 0] + nx * (cell[:, 1] + ny * cell[:, 2])
-        occ_here = occ[torch.clamp(lin, 0, n_cells - 1)] > 0
+        occ_here = occ_at(cell, lin)
         t0, t1 = _cell_slab(cell, f[:, 0:3], f[:, 6:9], origin, vs)
         ok = (occ_here & (t1 > torch.clamp(t0, min=0.0)) & (t0 > 0.0)
               & (t0 >= f[:, 12]) & (t0 <= f[:, 13]))
@@ -258,6 +301,11 @@ def trace_grid_dda(origins, dirs, occ_flat, grid_origin, *, dims,
         done |= t_cross > f[:, 13]
         cell = cell + eye[axis] * step
         done |= ~((cell >= 0) & (cell < dims_t)).all(dim=1)
+        if windowed:
+            # past the held rows in the walk's z direction
+            z, dz = cell[:, 2], f[:, 5]
+            done |= torch.where(dz < 0, z < w_lo, torch.where(
+                dz > 0, z >= w_hi, (z < w_lo) | (z >= w_hi)))
         if bool(done.any()):
             fin = torch.nonzero(done).squeeze(1)
             lin_out[i[fin, 0]] = best_lin[fin].to(torch.int32)

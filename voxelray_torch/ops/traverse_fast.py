@@ -6,7 +6,11 @@ bitmask (`coarse`), per-brick packed cell words stored word-major
 (16, NB) (`fine`), an L2 superbrick (8^3 bricks) bitmask (`l2`) and the
 superbrick-major tile table `fine_sb` that the megakernel K2 reads.
 Every table is bit-equal to the JAX package's; words are int32 tensors
-holding the uint32 bit patterns.
+holding the uint32 bit patterns.  `build_accel_slab` builds the accel of
+one Z-slab of a grid sharded over devices (parallel/comm.py
+render_zslab_sharded): full-grid coordinates, bitmasks with bits only in
+the slab, and a fine table that is a window of brick ids from `fine_off`
+on.
 
 `trace_grid_fast` and `any_hit_grid_fast` have two backends:
 
@@ -40,8 +44,8 @@ from .kernels.grid_walk import coarse_walk, coarse_walk_init
 from .kernels.mega_trace import build_fine_sb, trace_grid_mega
 from .traverse import _per_ray
 
-__all__ = ["BrickAccel", "build_accel", "trace_grid_fast",
-           "any_hit_grid_fast"]
+__all__ = ["BrickAccel", "build_accel", "build_accel_slab",
+           "trace_grid_fast", "any_hit_grid_fast"]
 
 BRICK = 8
 LANES = 128
@@ -52,7 +56,8 @@ _DRAIN_K = 8
 @dataclass(frozen=True)
 class BrickAccel:
     coarse: Any          # int32[ROWS, 128] brick bitmask (x-fastest lin)
-    fine: Any            # int32[16, NB] per-brick cell bits, word-major
+    fine: Any            # int32[16, NB] cell bits of the bricks from id
+                         # fine_off on, word-major
     l2: Any              # int32[SROWS, 128] superbrick bitmask
     origin: Any          # float32[3] tensor on the tables' device
     dims: tuple          # voxel dims (X, Y, Z)
@@ -60,6 +65,7 @@ class BrickAccel:
     voxel_size: float
     origin_key: tuple    # origin as python floats (kernel arguments)
     fine_sb: Any = None  # int32[n_sb, 72, 128] superbrick tiles (K2)
+    fine_off: int = 0    # first brick id of `fine` (a slab accel's window)
 
 
 def _bitmask_rows(flags):
@@ -72,41 +78,118 @@ def _bitmask_rows(flags):
     return pack_words(flat.reshape(-1, 32)).reshape(rows, LANES)
 
 
-def build_accel(occ, origin, voxel_size) -> BrickAccel:
-    """occ (Z, Y, X) uint8 tensor -> BrickAccel on occ's device."""
+def _bricks(occ, bdims):
+    """(L*8 or fewer, Y, X) uint8 occupancy rows -> (L, by, bx, 512) cells
+    brick-major, each brick's cells x-fastest; rows, y and x padded with
+    empty cells to whole bricks."""
+    bx, by, _ = bdims
     nz, ny, nx = occ.shape
-    dev = occ.device
-    bx, by, bz = -(-nx // BRICK), -(-ny // BRICK), -(-nz // BRICK)
-    occp = torch.zeros((bz * BRICK, by * BRICK, bx * BRICK),
-                       dtype=torch.uint8, device=dev)
+    layers = -(-nz // BRICK)
+    occp = torch.zeros((layers * BRICK, by * BRICK, bx * BRICK),
+                       dtype=torch.uint8, device=occ.device)
     occp[:nz, :ny, :nx] = occ
-    # (bz, 8, by, 8, bx, 8) -> brick-major (bz, by, bx, 8z, 8y, 8x)
-    blocks = occp.reshape(bz, BRICK, by, BRICK, bx, BRICK) \
-        .permute(0, 2, 4, 1, 3, 5).reshape(bz, by, bx, -1)
-    bocc = (blocks != 0).any(dim=-1)                    # (bz, by, bx)
-    n_bricks = bx * by * bz
-    coarse = _bitmask_rows(bocc.reshape(-1))
+    # (L, 8, by, 8, bx, 8) -> brick-major (L, by, bx, 8z, 8y, 8x)
+    return occp.reshape(layers, BRICK, by, BRICK, bx, BRICK) \
+        .permute(0, 2, 4, 1, 3, 5).reshape(layers, by, bx, BRICK ** 3)
 
-    # fine words: per brick, 512 cell bits packed x-fastest into 16 words,
-    # stored transposed (16, NB)
-    fine = pack_words(blocks.reshape(n_bricks, 16, 32)).t().contiguous()
 
-    # L2 superbrick bitmask (8^3 bricks per superbrick)
+def _fine_words(blocks):
+    """(L, by, bx, 512) cells -> (16, L*by*bx) words, word-major: per
+    brick, 512 cell bits packed x-fastest into 16 words."""
+    n = blocks.shape[0] * blocks.shape[1] * blocks.shape[2]
+    return pack_words(blocks.reshape(n, 16, 32)).t().contiguous()
+
+
+def _l2(bocc):
+    """(bz, by, bx) brick occupancy -> the L2 superbrick (8^3 bricks)
+    bitmask rows."""
+    bz, by, bx = bocc.shape
     sbx, sby, sbz = -(-bx // 8), -(-by // 8), -(-bz // 8)
     boccp = torch.zeros((sbz * 8, sby * 8, sbx * 8), dtype=torch.bool,
-                        device=dev)
+                        device=bocc.device)
     boccp[:bz, :by, :bx] = bocc
     socc = boccp.reshape(sbz, 8, sby, 8, sbx, 8).permute(0, 2, 4, 1, 3, 5) \
         .reshape(sbz, sby, sbx, -1).any(dim=-1)
-    l2 = _bitmask_rows(socc.reshape(-1))
+    return _bitmask_rows(socc.reshape(-1))
 
+
+def build_accel(occ, origin, voxel_size) -> BrickAccel:
+    """occ (Z, Y, X) uint8 tensor -> BrickAccel on occ's device."""
+    nz, ny, nx = occ.shape
+    bdims = (-(-nx // BRICK), -(-ny // BRICK), -(-nz // BRICK))
+    blocks = _bricks(occ, bdims)
+    bocc = (blocks != 0).any(dim=-1)                    # (bz, by, bx)
+    fine = _fine_words(blocks)
     org = np.asarray(origin, np.float32)
     return BrickAccel(
-        coarse=coarse, fine=fine, l2=l2,
-        origin=torch.as_tensor(org.copy(), device=dev),
-        dims=(nx, ny, nz), bdims=(bx, by, bz), voxel_size=float(voxel_size),
+        coarse=_bitmask_rows(bocc.reshape(-1)), fine=fine, l2=_l2(bocc),
+        origin=torch.as_tensor(org.copy(), device=occ.device),
+        dims=(nx, ny, nz), bdims=bdims, voxel_size=float(voxel_size),
         origin_key=(float(org[0]), float(org[1]), float(org[2])),
-        fine_sb=build_fine_sb(fine, (bx, by, bz)))
+        fine_sb=build_fine_sb(fine, bdims))
+
+
+def build_accel_slab(occ_slab, z0, full_nz, origin, voxel_size, *,
+                     below=None, above=None) -> BrickAccel:
+    """BrickAccel of the Z-slab of a larger grid that one device holds
+    (voxelray_tpu/ops/traverse_fast.py:152-226).
+
+    occ_slab: (nzs, ny, nx) uint8 tensor, the grid's rows [z0, z0 + nzs),
+    z0 a multiple of 8 (rows past the grid are empty).  dims, bdims and
+    origin are the full grid's, so every coordinate the walks compute is
+    the monolithic accel's.  `coarse` and `l2` are full size with bits
+    only in the slab: K3 offers no brick outside it.  `fine` is a window
+    of brick ids from `fine_off` on: the slab's contiguous block of
+    brick layers, clamped to the grid, and with `below` / `above` (the
+    grid's 8 rows under the slab / up to 8 rows over it) one more brick
+    layer on that side, the halo.  K4's near-tie probes read cells next
+    to the cell they start from, which at the slab's first or last row
+    lie in the neighbouring slab; the halo gives them their true words
+    (JAX's walk has no probes, so its slab fine table has no halo).  The
+    halo's bricks are never walked, so the slab's trace returns the
+    monolithic trace's cells in the slab, and through the probes at most
+    cells of the halo, which the merge over slabs takes once.  No
+    `fine_sb`: the slab accel takes the staged walk.
+    """
+    if z0 % BRICK:
+        raise ValueError(f"slab start z0={z0} is not a multiple of {BRICK}")
+    nzs, ny, nx = occ_slab.shape
+    dev = occ_slab.device
+    bdims = (-(-nx // BRICK), -(-ny // BRICK), -(-full_nz // BRICK))
+    bx, by, bz = bdims
+    z0b, bzs = z0 // BRICK, -(-nzs // BRICK)
+    own = max(0, min(bzs, bz - z0b))            # slab layers in the grid
+    bocc_s = (_bricks(occ_slab, bdims) != 0).any(dim=-1)[:own]
+    bocc = torch.zeros((bz, by, bx), dtype=torch.bool, device=dev)
+    bocc[z0b:z0b + own] = bocc_s
+
+    # the fine window: brick layers [lo, hi) of the rows below + slab +
+    # above, clamped to the grid
+    lo = z0b - 1 if below is not None and z0b > 0 else min(z0b, bz)
+    hi = min(z0b + bzs + (1 if above is not None else 0), bz)
+    hi = max(hi, lo)
+    rows = torch.zeros(((hi - lo) * BRICK, ny, nx), dtype=torch.uint8,
+                       device=dev)
+
+    def place(part, z):
+        """Copy occupancy rows starting at global row z into the window."""
+        a, b = max(z, lo * BRICK), min(z + part.shape[0], hi * BRICK)
+        if b > a:
+            rows[a - lo * BRICK:b - lo * BRICK] = part[a - z:b - z]
+
+    if lo < z0b:
+        place(below, z0 - below.shape[0])
+    place(occ_slab, z0)
+    if above is not None:
+        place(above, z0 + nzs)
+    org = np.asarray(origin, np.float32)
+    return BrickAccel(
+        coarse=_bitmask_rows(bocc.reshape(-1)),
+        fine=_fine_words(_bricks(rows, bdims)), l2=_l2(bocc),
+        origin=torch.as_tensor(org.copy(), device=dev),
+        dims=(nx, ny, full_nz), bdims=bdims, voxel_size=float(voxel_size),
+        origin_key=(float(org[0]), float(org[1]), float(org[2])),
+        fine_off=bx * by * lo)
 
 
 def use_two_level(accel, two_level):
@@ -141,7 +224,8 @@ def _trace_staged(o, d, accel, tmn, tmx, admit, k_hits, two_level):
     wkw = dict(bdims=accel.bdims, origin_key=accel.origin_key,
                brick_world=float(accel.voxel_size * BRICK))
     fkw = dict(dims=accel.dims, bdims=accel.bdims,
-               origin_key=accel.origin_key, voxel_size=accel.voxel_size)
+               origin_key=accel.origin_key, voxel_size=accel.voxel_size,
+               fine_off=accel.fine_off)
     best_t = torch.full((n,), float("inf"), device=dev)
     best_lin = torch.full((n,), -1, dtype=torch.int32, device=dev)
     if admit is None:

@@ -306,7 +306,7 @@ def surface_terms(scene: Scene, origins, dirs, t_vox, vox_id,
 def render_rays(scene: Scene, origins, dirs, light: Light = Light(),
                 clear_color=(1.0, 1.0, 1.0, 1.0), *, backend="dda",
                 t_min=TMIN, t_max=TMAX, shadows=True, fast_opts=None,
-                shadow_opts=None):
+                shadow_opts=None, trace_voxels_fn=None, any_hit_fn=None):
     """Trace + shade a ray batch; returns linear-space RGB (..., 3).
 
     fast_opts: options of trace_grid_fast for backend "fast" ("mega",
@@ -314,18 +314,38 @@ def render_rays(scene: Scene, origins, dirs, light: Light = Light(),
     K3 + K4.  shadow_opts: the same for the shadow pass
     (any_hit_grid_fast).  Both default to the megakernel when the accel
     carries its superbrick table.
+
+    trace_voxels_fn / any_hit_fn replace the voxel nearest-hit query and
+    the whole occlusion query (voxelray_tpu/render/pipeline.py:202-226,
+    :290): the Z-slab render (parallel/comm.py render_zslab_sharded) puts
+    its per-slab traces and their merge there, so the shading is this
+    code.
+    trace_voxels_fn(origins, dirs, t_min, t_max) -> (t, cell lin);
+    any_hit_fn(origins, dirs, t_min, t_max) -> bool occluded, called on
+    the admitted shadow rays (hit & facing) compacted to (M, 3), with
+    t_max (M,).
     """
     _check_backend(backend)
     tri = (_trace_triangles(scene, origins, dirs, t_min, t_max)
            if scene.n_triangles else None)
-    t_vox, vox_id = _trace_voxels(scene, origins, dirs, t_min, t_max,
-                                  backend, fast_opts)
+    if trace_voxels_fn is not None:
+        t_vox, vox_id = trace_voxels_fn(origins, dirs, t_min, t_max)
+    else:
+        t_vox, vox_id = _trace_voxels(scene, origins, dirs, t_min, t_max,
+                                      backend, fast_opts)
     s = surface_terms(scene, origins, dirs, t_vox, vox_id, light, tri,
                       backend)
     if shadows:
-        shadowed = _any_hit(scene, s.world_pos, s.l_vec, TMIN, s.light_dist,
-                            backend, s.hit & s.facing, fast_opts,
-                            shadow_opts)
+        if any_hit_fn is None:
+            shadowed = _any_hit(scene, s.world_pos, s.l_vec, TMIN,
+                                s.light_dist, backend, s.hit & s.facing,
+                                fast_opts, shadow_opts)
+        else:
+            shadowed = torch.zeros_like(s.facing)
+            sel = torch.nonzero((s.hit & s.facing).reshape(-1)).squeeze(1)
+            shadowed.reshape(-1)[sel] = any_hit_fn(
+                s.world_pos.reshape(-1, 3)[sel], s.l_vec.reshape(-1, 3)[sel],
+                TMIN, s.light_dist.reshape(-1)[sel]).reshape(-1)
         shadowed = torch.where(s.facing, shadowed, torch.ones_like(shadowed))
     else:
         # shadows disabled: every facing surface counts as lit

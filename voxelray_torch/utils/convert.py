@@ -85,8 +85,9 @@ def octree_from_numpy(code_hi, code_lo, children, node_start, node_count,
 
 
 def accel_from_numpy(coarse, fine, l2, fine_sb, origin, dims, bdims,
-                     voxel_size, device="cpu") -> BrickAccel:
-    """The JAX BrickAccel's tables (numpy uint32) -> port BrickAccel."""
+                     voxel_size, device="cpu", fine_off=0) -> BrickAccel:
+    """The JAX BrickAccel's tables (numpy uint32) -> port BrickAccel;
+    fine_off: a slab accel's first brick id in `fine`."""
     org = np.asarray(origin, np.float32)
     return BrickAccel(
         coarse=words_to_tensor(coarse, device),
@@ -98,7 +99,8 @@ def accel_from_numpy(coarse, fine, l2, fine_sb, origin, dims, bdims,
         voxel_size=float(voxel_size),
         origin_key=(float(org[0]), float(org[1]), float(org[2])),
         fine_sb=None if fine_sb is None else words_to_tensor(fine_sb,
-                                                             device))
+                                                             device),
+        fine_off=int(fine_off))
 
 
 def tri_accel_from_numpy(brick: BrickAccel, cell_slot, cell_tris, tri9,
