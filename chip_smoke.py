@@ -34,10 +34,18 @@ Drives the port's paths the way a user calls them, at the bench's size:
     rows (each a build_accel_slab accel, K3 and K4 with a fine window),
     its merged trace bit-equal to the monolithic staged walk's; the DDA
     Z-slab render at gate 2's bunny (128^3, 1280x720); gate 5's mesh.
+  * the bench (phase 11): `python -m voxelray_torch.bench`'s run() at
+    the full preset in this process (K1 through voxelize_planned, K2;
+    its parity and exhaustiveness gates must pass), its JSON line logged;
+    voxelize_planned on the knot bit-equal to phase 1's voxelize_mesh; a
+    deforming knot's frames queued through a deform_safe plan with no
+    host sync (sync debug mode "error"), each bit-equal to voxelize_mesh
+    and one to voxelize_plain; the host syncs of one voxel frame.
 
 Each path runs once with the kernels' launch counters set to 0 just
 before it and read just after (the K3 and K4 rows of the table count
-the Z-slab frame's launches).  A repeated device is a rehearsal: its
+the Z-slab frame's launches; K1's row adds the bench's and the planned
+calls' launches to the voxel path's).  A repeated device is a rehearsal: its
 times are not a multi-card speed.  Then every kernel is held against its
 plain PyTorch version on the same inputs on the card and timed beside it
 (tri_march against the lap loop over K3 and K4 it replaces, run with the
@@ -1176,6 +1184,143 @@ def run_multidevice(v, f, grid, scene, vi, pi, rays, k2_trace, img_k2,
     return counts
 
 
+def host_syncs(fn, device):
+    """The host syncs fn() makes on the card, as file:line of the calls
+    that synced (torch.cuda.set_sync_debug_mode("warn")); a known sync is
+    counted first to show that the warnings arrive."""
+    import warnings
+    import torch
+
+    def sites():
+        return [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in rec
+                if "synchroniz" in str(w.message)]
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            int(torch.ones(1, device=device).sum())
+            require(len(sites()) == 1, "sync debug mode: a known sync was "
+                    "not reported")
+            del rec[:]
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return sites()
+
+
+def check_planned(v, f, grid, device, smi):
+    """voxelize_planned on the knot against phase 1's voxelize_mesh, then
+    a deforming knot: a deform_safe plan from frame 0 of an 8-frame
+    animation with the animation's bbox (as gate 5 takes it), frames 0-3
+    queued through it under torch.cuda.set_sync_debug_mode("error"), each
+    bit-equal to voxelize_mesh with that bbox and frame 1 to
+    voxelize_plain.  Returns K1's launches in the planned calls."""
+    import numpy as np
+    import torch
+    from voxelray_torch.io import meshes
+    from voxelray_torch.ops import geometry
+    from voxelray_torch.ops.kernels import voxel_accum
+    from voxelray_torch.ops.voxelize import (plan_voxelize, voxelize_mesh,
+                                             voxelize_plain,
+                                             voxelize_planned)
+    vs = grid.voxel_size
+    plan, plan_ms = wall_ms(lambda: plan_voxelize(
+        v, f, vs, bb_min=grid.origin, bb_max=geometry.mesh_bbox(v)[1],
+        device=device))
+    v_t = torch.as_tensor(v, device=device)
+    reset(voxel_accum)
+    occ, calls = voxelize_planned(plan, v_t)
+    torch.cuda.synchronize()
+    launches = voxel_accum.launches
+    require(plan.dims == grid.dims and launches == 1, "planned voxelize: "
+            f"dims {plan.dims}, {launches} K1 launches")
+    require(torch.equal(occ, grid.occupancy())
+            and int(calls) == grid.set_calls, "voxelize_planned differs "
+            "from phase 1's voxelize_mesh")
+    log(f"voxelize_planned, knot at {plan.dims}: plan {plan_ms:.1f} ms on "
+        f"the host ({len(plan.buckets)} buckets), occupancy and set_calls "
+        f"({int(calls)}) bit-equal to phase 1's voxelize_mesh [{smi}]")
+
+    n_anim = 8
+    fv = np.stack([meshes.deformed(v, 2 * np.pi * i / n_anim)
+                   for i in range(n_anim)])
+    dmin, dmax = geometry.mesh_bbox(fv.reshape(-1, 3))
+    dplan = plan_voxelize(fv[0], f, vs, bb_min=dmin, bb_max=dmax,
+                          deform_safe=True, device=device)
+    frames = [torch.as_tensor(x, device=device) for x in fv[:4]]
+    torch.cuda.synchronize()
+    reset(voxel_accum)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        outs = [voxelize_planned(dplan, x) for x in frames]
+        queued_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    require(voxel_accum.launches == len(frames),
+            f"deformed frames: {voxel_accum.launches} K1 launches")
+    launches += voxel_accum.launches
+    for i, (occ_i, calls_i) in enumerate(outs):
+        ref = voxelize_mesh(fv[i], f, vs, bb_min=dmin, bb_max=dmax,
+                            device=device)
+        require(torch.equal(occ_i, ref["occ"])
+                and int(calls_i) == ref["set_calls"],
+                f"deformed frame {i}: voxelize_planned differs from "
+                "voxelize_mesh")
+    occ_p, calls_p = voxelize_plain(frames[1], dplan.faces, dplan.origin, vs,
+                                    dplan.dims)
+    require(torch.equal(outs[1][0], occ_p) and int(outs[1][1]) == calls_p,
+            "deformed frame 1: voxelize_planned differs from voxelize_plain")
+    require(not torch.equal(outs[0][0], outs[2][0]),
+            "deformed frames 0 and 2 are equal")
+    log(f"deforming knot, {dplan.dims}, deform_safe plan "
+        f"({len(dplan.buckets)} buckets): frames 0-3 queued with no host "
+        f"sync (sync debug mode error) in {queued_ms:.2f} ms of host time, "
+        f"{frame_ms:.3f} ms a frame synced once; each bit-equal to "
+        f"voxelize_mesh with the animation's bbox, frame 1 to "
+        f"voxelize_plain; set_calls {[int(c) for _, c in outs]} [{smi}]")
+    return launches
+
+
+def run_bench(v, f, grid, scene, vi, pi, kmods, device):
+    """Phase 11: the port's bench (voxelray_torch.bench.run) at the full
+    preset in this process, counted; the planned voxelize
+    (check_planned); the host syncs of one voxel frame.  Returns K1's
+    launches in the bench and the planned calls."""
+    import torch
+    from voxelray_torch import bench
+    from voxelray_torch.render import pipeline
+    smi = smi_line()
+    t0 = time.time()
+    reset(*kmods)
+    torch.cuda.synchronize()
+    res = bench.run(device, preset="full", runs=3, backend="fast",
+                    mega=True, skip_parity=False)
+    torch.cuda.synchronize()
+    counts = counts_of(*kmods)
+    log(f"bench line (voxelray_torch.bench.run, preset full, runs 3): "
+        f"{json.dumps(res)}")
+    log(f"bench launches: {counts} [{smi}]")
+    require(res["parity_ok"] is True, "bench: a gate failed")
+    require(res["parity"]["unresolved"] == 0, "bench: unresolved rays")
+    require(counts["voxel_accum"] > 0, "bench: K1 was not launched")
+    require(counts["mega_trace"] > 0, "bench: K2 was not launched")
+    planned = check_planned(v, f, grid, device, smi)
+    for shadows in (True, False):
+        sites = host_syncs(lambda: pipeline.render_image(
+            scene, vi, pi, width=WIDTH, height=HEIGHT, backend="fast",
+            shadows=shadows), device)
+        log(f"host syncs in one {WIDTH}x{HEIGHT} voxel frame (K2), shadows="
+            f"{shadows}: {len(sites)} {sites}")
+    log(f"phase 11 (bench, planned voxelize): {time.time() - t0:.1f} s")
+    return counts["voxel_accum"] + planned
+
+
 def run(device):
     import numpy as np
     import torch
@@ -1539,6 +1684,10 @@ def run(device):
     zslab_counts = run_multidevice(v, f, grid, scene, vi, pi,
                                    (o, d, tmn, tmx), (t_k, lin_k), img,
                                    occ_np, k1_kernel_ms, kmods, device)
+
+    # ---- 11. the bench and the planned voxelize ---------------------------
+    rows[0]["launches"] += run_bench(v, f, grid, scene, vi, pi, kmods,
+                                     device)
 
     # K3 and K4 launch on the Z-slab frame (and the staged voxel frame);
     # their times are the triangle march's first lap

@@ -42,6 +42,7 @@ def _modules():
 def test_port_imports_no_jax():
     mods = [m.rstrip(".") for m in _modules()]
     assert "voxelray_torch.ops.kernels.mega_trace" in mods
+    assert "voxelray_torch.bench" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -35,6 +35,8 @@ from voxelray_torch.render.camera import Camera
 from voxelray_torch.render.pipeline import _sample_texture, render_aov
 from voxelray_torch.render.raster import rasterize_scene
 
+from _jax_nocache import compile_cache_off
+
 torch.set_num_threads(2)
 W, H = 96, 54
 VS = 0.09
@@ -73,8 +75,9 @@ def aov_scenes(files):
 def test_render_aov_matches_jax(aov_scenes, backend):
     jscene, scene = aov_scenes
     cam = Camera(eye=(2.2, 1.4, -2.6), center=(0.0, 0.0, 0.0))
-    jd, jn, jh = (np.asarray(x) for x in jrender_aov(
-        jscene, cam, width=W, height=H, backend=backend))
+    with compile_cache_off():     # JAX's reference, compiled afresh
+        jd, jn, jh = (np.asarray(x) for x in jrender_aov(
+            jscene, cam, width=W, height=H, backend=backend))
     d, n, h = (x.numpy() for x in render_aov(scene, cam, width=W, height=H,
                                              backend=backend))
     assert d.shape == (H, W) and n.shape == (H, W, 3) and h.dtype == bool

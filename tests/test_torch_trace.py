@@ -35,6 +35,8 @@ from voxelray_torch.ops.traverse_fast import (any_hit_grid_fast,
 from voxelray_torch.ops.voxelize import voxelize_mesh
 from voxelray_torch.utils.parity import adjudicate_hit_diffs
 
+from _jax_nocache import compile_cache_off
+
 torch.set_num_threads(2)
 W, H = 128, 64
 
@@ -89,11 +91,13 @@ def _slab_t(o, d, lin, r, fma_centre=False):
 
 def test_camera_rays_match_jax():
     """Origins bit-equal; directions (unit vectors) within 1e-6 of JAX's
-    (the projection einsum and the norm sum in another order)."""
+    (the projection einsum and the norm sum in another order).  JAX's
+    rays are compiled with the persistent compile cache off."""
     v, _ = jmeshes.icosphere(3)
     cam = _camera(*mesh_bbox(v), 1.0)
     _, _, vi, pi = cam.matrices(W, H)
-    jo, jd = _jax_rays(cam)
+    with compile_cache_off():
+        jo, jd = _jax_rays(cam)
     o, d = make_camera_rays(W, H, vi, pi)
     assert o.shape == (H, W, 3) and d.dtype == torch.float32
     assert np.array_equal(o.numpy(), jo)

@@ -18,6 +18,7 @@ fallback behind these entry points.
   morton_encode_native(x, y, z)   63-bit Morton codes (numpy uint64)
   sort_codes_native(codes)        sorted copy of uint64 codes
   build_octree_nodes_native(...)  pre-order flat node array
+  available()                     whether the library builds and loads
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["load_library", "parse_obj_native", "voxelize_native",
+__all__ = ["available", "load_library", "parse_obj_native", "voxelize_native",
            "morton_encode_native", "sort_codes_native",
            "build_octree_nodes_native"]
 
@@ -90,6 +91,16 @@ def load_library() -> ctypes.CDLL:
     lib.build_octree_nodes.argtypes = [c_void, c_long, ctypes.c_int,
                                        c_long, c_void, c_long]
     return lib
+
+
+def available() -> bool:
+    """True if the g++ build of voxelnative.cpp loads on this machine.
+    The entry points below raise where it does not; nothing falls back."""
+    try:
+        load_library()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def _ptr(a):

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 __all__ = ["mesh_bbox", "grid_dims", "map3d_to_1d", "map1d_to_3d",
-           "voxel_center", "div_scalar", "floor_cell"]
+           "voxel_center", "div_scalar", "floor_cell", "voxel_diameter"]
 
 
 def div_scalar(x, s):
@@ -104,3 +104,9 @@ def voxel_center(x, y, z, origin, voxel_size):
         ],
         axis=-1,
     )
+
+
+def voxel_diameter(voxel_size: float) -> float:
+    """hypot(s, s, s) — the cell's space diagonal (voxelgrid.hpp:58-62)."""
+    s = np.float32(voxel_size)
+    return float(np.sqrt(s * s + s * s + s * s))

@@ -11,6 +11,8 @@ PyTorch version (`voxelize_plain`) for CPU tensors; any other device
 raises.  `launches` counts kernel launches only.  The kernel checks the
 face indices itself; the wrapper reads its hit total and its count of
 out-of-range faces in one sync and raises if that count is not 0.
+`voxelize_planned` (ops/voxelize.py) calls `launch` on faces its plan
+checked once, and reads nothing back.
 """
 from __future__ import annotations
 
@@ -22,8 +24,8 @@ import torch
 from ..voxelize import voxelize_plain
 from ._build import check, load_library
 
-__all__ = ["voxel_accum", "voxel_accum_cuda", "launch", "voxelize_plain",
-           "launches"]
+__all__ = ["voxel_accum", "voxel_accum_cuda", "launch", "check_sizes",
+           "voxelize_plain", "launches"]
 
 launches = 0
 
@@ -55,11 +57,8 @@ def voxel_accum_cuda(v, f, origin, voxel_size, dims):
                          f"{f.dtype}")
     if not (v.is_contiguous() and f.is_contiguous()):
         raise ValueError("v and f must be contiguous")
+    check_sizes(dims, f.shape[0])
     nx, ny, nz = (int(x) for x in dims)
-    if nx * ny * nz >= 2**31:
-        raise ValueError(f"grid {dims} exceeds int32 cell indexing")
-    if f.shape[0] >= 2 ** 31:
-        raise ValueError(f"{f.shape[0]} faces exceed int32 indexing")
     occ = torch.zeros((nz, ny, nx), dtype=torch.uint8, device=v.device)
     counts = torch.zeros((2,), dtype=torch.int64, device=v.device)
     if f.shape[0] == 0 or occ.numel() == 0:
@@ -69,6 +68,16 @@ def voxel_accum_cuda(v, f, origin, voxel_size, dims):
     if bad:
         raise ValueError(f"{bad} faces index a vertex out of range")
     return occ, calls
+
+
+def check_sizes(dims, n_faces):
+    """Raise where the grid or the face count exceeds K1's int32
+    indexing."""
+    nx, ny, nz = (int(x) for x in dims)
+    if nx * ny * nz >= 2**31:
+        raise ValueError(f"grid {dims} exceeds int32 cell indexing")
+    if n_faces >= 2 ** 31:
+        raise ValueError(f"{n_faces} faces exceed int32 indexing")
 
 
 def launch(v, f, origin, voxel_size, dims, occ, counts):

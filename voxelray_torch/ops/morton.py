@@ -6,15 +6,18 @@ bits per axis into a 64-bit code (src/octTree.hpp:21-127, 211-218; bit
 compaction (octTree.hpp:220-238).  The numpy functions are copies of the
 JAX package's.  On tensors the codes are int64: a 63-bit code is a
 non-negative int64, so torch's signed sort gives the uint64 order and no
-(hi, lo) limb pair is needed.
+(hi, lo) limb pair is needed; `sort_codes_device` still sorts JAX's limb
+pairs in JAX's order.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
+
 __all__ = ["morton_encode3", "morton_decode3", "morton_encode3_np",
-           "morton_decode3_np", "spread_bits_np"]
+           "morton_decode3_np", "spread_bits_np", "sort_codes_device"]
 
 
 def spread_bits_np(v: np.ndarray) -> np.ndarray:
@@ -87,3 +90,31 @@ def morton_decode3(code):
     """Device decode of int64 codes -> (x, y, z) int64 tensors."""
     code = code.to(torch.int64)
     return _compact21(code), _compact21(code >> 1), _compact21(code >> 2)
+
+
+def _limb(x, device):
+    """uint32 limb values as an int64 tensor (int32 bit patterns read as
+    unsigned)."""
+    if not torch.is_tensor(x):
+        x = torch.as_tensor(np.asarray(x).astype(np.int64), device=device)
+    return x.to(torch.int64) & 0xFFFFFFFF
+
+
+def sort_codes_device(hi, lo, device=None):
+    """Lexicographic sort of (hi, lo) uint32 Morton limb pairs, hi major:
+    the order jax.lax.sort((hi, lo), num_keys=2) gives
+    (voxelray_tpu/ops/morton.py:91), so the (0xFFFFFFFF, 0xFFFFFFFF)
+    sentinel sorts last.  A stable sort by lo, then a stable sort by hi
+    (an int64 key hi << 32 | lo would turn the sentinel negative).
+
+    hi, lo: tensors (sorted on their device) or numpy arrays (sorted on
+    `device`, default the CUDA card).  Returns the sorted (hi, lo) as
+    int64 tensors holding the uint32 values.
+    """
+    if not torch.is_tensor(hi):
+        device = resolve_device(device)
+    hi = _limb(hi, device)
+    lo = _limb(lo, hi.device)
+    order = torch.argsort(lo, stable=True)
+    order = order[torch.argsort(hi[order], stable=True)]
+    return hi[order], lo[order]
