@@ -7,8 +7,10 @@ Drives the port's paths the way a user calls them, at the bench's size:
     (GridBool.from_mesh, kernel K1), the voxel scene and its brick accel
     (build_scene), and a 1920x1080 frame with shadow rays (render_image,
     backend="fast": the megakernel K2);
-  * the same frame through the staged walk (fast_opts {"mega": False}:
-    kernels K3 grid_walk and K4 brick_fine);
+  * the same frame through the staged walk (fast_opts {"mega": False}):
+    one staged_march launch per trace, the whole staged walk of K3
+    grid_walk and K4 brick_fine in one kernel; K3 and K4 themselves
+    launch only in the lap loop it is held to (staged_march_plain);
   * the triangle path: the same knot as a triangle model
     (build_scene(models=[...]) builds the triangle accel on the card) and
     a 1920x1080 frame with shadow rays, whose tri-grid march is one
@@ -31,8 +33,9 @@ Drives the port's paths the way a user calls them, at the bench's size:
     voxelize_sharded (K1 per shard) of the knot less one triangle, so the
     sentinel pad runs; render_sharded (K2 per row shard) of the frame;
     render_zslab_sharded of the frame with the grid in 4 Z-slabs of 128
-    rows (each a build_accel_slab accel, K3 and K4 with a fine window),
-    its merged trace bit-equal to the monolithic staged walk's; the DDA
+    rows (each a build_accel_slab accel, one staged_march launch per
+    slab trace with a fine window, no host sync between the slabs), its
+    merged trace bit-equal to the monolithic staged walk's; the DDA
     Z-slab render at gate 2's bunny (128^3, 1280x720); gate 5's mesh.
   * the bench (phase 11): `python -m voxelray_torch.bench`'s run() at
     the full preset in this process (K1 through voxelize_planned, K2;
@@ -43,18 +46,20 @@ Drives the port's paths the way a user calls them, at the bench's size:
     and one to voxelize_plain; the host syncs of one voxel frame.
 
 Each path runs once with the kernels' launch counters set to 0 just
-before it and read just after (the K3 and K4 rows of the table count
-the Z-slab frame's launches; K1's row adds the bench's and the planned
-calls' launches to the voxel path's).  A repeated device is a rehearsal: its
-times are not a multi-card speed.  Then every kernel is held against its
-plain PyTorch version on the same inputs on the card and timed beside it
-(tri_march against the lap loop over K3 and K4 it replaces, run with the
-kernels and fully plain, on the frame's primary and shadow rays), the
-traces are checked against the exhaustive references, and whole frames
-are timed (the triangle frame also with the lap loop, for the same-run
-before and after).  K1 is also timed alone (no zeroed volume, no sync);
-K2 also on the primary rays of each step class (k2_step_classes) and on
-the shadow pass's admitted rays compacted.
+before it and read just after (staged_march's row counts the staged
+voxel frame's launches; the K3 and K4 rows count the same frame's
+through the lap loop that staged_march replaced; K1's row adds the
+bench's and the planned calls' launches to the voxel path's).  A repeated
+device is a rehearsal: its times are not a multi-card speed.  Then every
+kernel is held against its plain PyTorch version on the same inputs on
+the card and timed beside it (tri_march and staged_march against the lap
+loops over K3 and K4 they replace, run with the kernels and fully plain,
+on the frame's primary and shadow rays), the traces are checked against
+the exhaustive references, and whole frames are timed (the triangle and
+the staged voxel frame also with the lap loop, for the same-run before
+and after).  K1 is also timed alone (no zeroed volume, no sync); K2 also
+on the primary rays of each step class (k2_step_classes) and on the
+shadow pass's admitted rays compacted.
 
     python3 chip_smoke.py
 
@@ -337,19 +342,34 @@ def lap_loop_march():
         tri_accel.tri_march_cuda = saved
 
 
-def march_work(o, d, tmn, tmx, ta):
-    """The fully plain march (the lap loop over the plain K3 and K4) on
-    these rays, counting tri_march's own work on them: ray-laps, rows
-    tested, ray-triangle tests, distinct rows and triangles read, and the
-    staged walk's brick and cell steps as the kernel takes them.  Each
-    K4 call of the lap loop follows the K3 call that collected its
-    bricks; the kernel walks a group's bricks only up to the one at which
-    K4 decides the hit, so a ray's brick steps in a group are K3's
-    iterations up to that brick (all of them where none decides).  On
-    CPU tensors too.  Returns (outputs, work, seconds)."""
+@contextlib.contextmanager
+def lap_loop_staged():
+    """Inside, the staged trace on the card (trace_grid_fast(mega=False))
+    runs the lap loop over the K3 and K4 kernels (staged_march_plain),
+    the staged walk before its kernel."""
+    from voxelray_torch.ops.kernels import staged_march
+    saved = staged_march.staged_march_cuda
+    staged_march.staged_march_cuda = staged_march.staged_march_plain
+    try:
+        yield
+    finally:
+        staged_march.staged_march_cuda = saved
+
+
+@contextlib.contextmanager
+def counted_walks(work):
+    """Inside, K3 and K4 run their plain versions (on CPU and CUDA tensors
+    alike) and add to `work` the staged walk's brick and cell steps as
+    the one-launch kernels (staged_march, tri_march) take them, and the
+    bricks K4 reads ("bricks_seen", a mask over brick ids).  Each K4 call
+    of the lap loop follows the K3 call that collected its bricks; the
+    kernels walk a group's bricks only up to the one at which K4 decides
+    the hit, so a ray's brick steps in a group are K3's iterations up to
+    that brick (all of them where none decides)."""
     import torch
-    from voxelray_torch.ops.kernels import brick_fine, grid_walk, tri_march
-    work = {"brick_steps": 0, "cell_steps": 0}
+    from voxelray_torch.ops.kernels import brick_fine, grid_walk
+    work.setdefault("brick_steps", 0)
+    work.setdefault("cell_steps", 0)
     group = {}
     saved = (grid_walk.walk_cuda, grid_walk.walk_plain, brick_fine.fine_cuda,
              brick_fine.fine_plain)
@@ -367,20 +387,110 @@ def march_work(o, d, tmn, tmx, ta):
         slot = torch.clamp(decided, max=hit_steps.shape[0] - 1)
         work["brick_steps"] += int(hit_steps.gather(0, slot[None]).sum())
         work["cell_steps"] += int(steps.sum())
+        bricks = a[2]
+        bx, by, bz = kw["bdims"]
+        seen = work.setdefault("bricks_seen", torch.zeros(
+            bx * by * bz, dtype=torch.bool, device=bricks.device))
+        slots = torch.arange(bricks.shape[0], device=bricks.device)[:, None]
+        off = kw.get("fine_off", 0)
+        read = bricks[(slots <= decided[None]) & (bricks >= off)
+                      & (bricks < off + a[3].shape[1])]
+        seen[read.long()] = True
         return tuple(out)
 
     grid_walk.walk_cuda = grid_walk.walk_plain = walk
     brick_fine.fine_cuda = brick_fine.fine_plain = fine
     try:
+        yield
+    finally:
+        (grid_walk.walk_cuda, grid_walk.walk_plain, brick_fine.fine_cuda,
+         brick_fine.fine_plain) = saved
+
+
+def march_work(o, d, tmn, tmx, ta):
+    """The fully plain march (the lap loop over the plain K3 and K4) on
+    these rays, counting tri_march's own work on them: ray-laps, rows
+    tested, ray-triangle tests, distinct rows and triangles read, and the
+    staged walk's brick and cell steps as the kernel takes them
+    (counted_walks).  On CPU tensors too.  Returns (outputs, work,
+    seconds)."""
+    import torch
+    from voxelray_torch.ops.kernels import tri_march
+    work = {}
+    with counted_walks(work):
         t0 = time.perf_counter()
         out = tri_march.tri_march_plain(o, d, tmn, tmx, ta, work=work)
         if o.is_cuda:
             torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-    finally:
-        (grid_walk.walk_cuda, grid_walk.walk_plain, brick_fine.fine_cuda,
-         brick_fine.fine_plain) = saved
     return out, work, secs
+
+
+def staged_work(*args):
+    """The fully plain staged trace (the lap loop over the plain K3 and
+    K4) on staged_march_plain's arguments, counting staged_march's own
+    work on them (counted_walks).  Returns (outputs, work, seconds)."""
+    import torch
+    from voxelray_torch.ops.kernels import staged_march
+    work = {}
+    with counted_walks(work):
+        t0 = time.perf_counter()
+        out = staged_march.staged_march_plain(*args)
+        if args[0].is_cuda:
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return out, work, secs
+
+
+def check_staged(what, o, d, tmn, tmx, admit, accel, k):
+    """staged_march against the lap loop it replaces on the same rays, run
+    with the K3/K4 kernels and fully plain: t bits and lin equal,
+    unresolved 0 on every side.  Returns (kernel ms, lap-loop ms, plain
+    ms, bytes, operations)."""
+    import torch
+    from voxelray_torch.ops.kernels import staged_march
+    args = (o, d, accel, tmn, tmx, admit, k, None)
+    got = staged_march.staged_march_cuda(*args)
+    unresolved = int(got[2])
+    lap = staged_march.staged_march_plain(*args)
+    plain, work, plain_s = staged_work(*args)
+    log(f"{what}: staged_march unresolved {unresolved}, lap loop "
+        f"{lap[2]}, plain lap loop {plain[2]}")
+    require(unresolved == lap[2] == plain[2] == 0,
+            f"{what}: a staged trace left rays unresolved")
+    for ref, name in ((lap, "the lap loop with K3/K4"),
+                      (plain, "the plain lap loop")):
+        require(torch.equal(got[1], ref[1]), f"{what}: staged_march cells "
+                f"differ from {name}")
+        require(torch.equal(got[0].view(torch.int32),
+                            ref[0].view(torch.int32)),
+                f"{what}: staged_march t differs from {name}")
+    ms = cuda_ms(lambda: staged_march.staged_march_cuda(*args), 5)
+    lap_ms = cuda_ms(lambda: staged_march.staged_march_plain(*args), 1)
+    n = o.shape[0]
+    n_rays = n if admit is None else int(admit.sum())
+    n_bricks = int(work["bricks_seen"].sum()) if "bricks_seen" in work \
+        else 0
+    l2_words = accel.l2.numel() if accel.coarse.shape[0] > 4 else 0
+    # t, lin out for every ray, its admit byte, o, d and bounds in for
+    # each ray traced, the brick masks, the fine words of every brick K4
+    # reads
+    nbytes = (n * 8 + (0 if admit is None else n) + n_rays * 32
+              + 4 * (accel.coarse.numel() + l2_words) + 64 * n_bricks)
+    ops = (n_rays * OPS_LAP + work["brick_steps"] * OPS_BRICK
+           + work["cell_steps"] * OPS_CELL)
+    b_ms, b_by = bound(nbytes, ops)
+    log(f"{what}: staged_march ({n} rays, {n_rays} traced, k {k}, "
+        f"{int((got[1] >= 0).sum())} hits, fine window of "
+        f"{accel.fine.shape[1]} bricks from {accel.fine_off}) bit-equal to "
+        f"the lap loop with K3/K4 and to the plain lap loop; work "
+        f"{work['brick_steps']} brick steps, {work['cell_steps']} cell "
+        f"steps, {n_bricks} bricks read; kernel {ms:.4f} ms, lap loop with "
+        f"K3/K4 {lap_ms:.4f} ms (same run: before {lap_ms:.4f} ms, after "
+        f"{ms:.4f} ms), plain lap loop {plain_s * 1e3:.1f} ms, bound "
+        f"{b_ms:.5f} ms by {b_by} ({nbytes / 1e6:.1f} MB, "
+        f"{ops / 1e9:.3f} GFLOP)")
+    return ms, lap_ms, plain_s * 1e3, nbytes, ops
 
 
 def check_march(what, o, d, tmn, tmx, ta):
@@ -1005,15 +1115,18 @@ def check_zslab_fast(scene, grid, vi, pi, rays, k2_trace, img_k2, occ_np,
                      rehearsal, real, kmods, smi):
     """render_zslab_sharded, backend fast, with the grid in 4 slabs of 128
     rows on the rehearsal mesh: per slab its build ms, fine-window bytes
-    and staged-trace ms with its K3/K4 launches; K3 and K4 held against
-    their plain versions on a slab with a fine window; the merged primary
+    and staged-trace ms with its launches (one staged_march, no K3/K4);
+    K3, K4 and staged_march held against their plain versions on a slab
+    with a fine window; the slabs' traces queued with no host sync; the
+    merged primary
     trace bit-equal to the monolithic staged walk's and held to K2's; the
     frame, counted, against render_image through the staged walk, and
     against K2's frame; then the one-slab frame on make_mesh().  Returns
     the Z-slab frame's launches."""
     import numpy as np
     import torch
-    from voxelray_torch.ops.kernels import brick_fine, grid_walk
+    from voxelray_torch.ops.intersect import TMAX, TMIN
+    from voxelray_torch.ops.kernels import brick_fine, grid_walk, staged_march
     from voxelray_torch.ops.traverse_fast import (build_accel_slab,
                                                   trace_grid_fast)
     from voxelray_torch.parallel.comm import (render_zslab_sharded,
@@ -1036,10 +1149,13 @@ def check_zslab_fast(scene, grid, vi, pi, rays, k2_trace, img_k2, occ_np,
         require(all(torch.equal(getattr(again, k), getattr(sl, k))
                     for k in ("coarse", "fine", "l2")),
                 f"slab {i}: rebuilt with other tables")
-        reset(grid_walk, brick_fine)
+        reset(staged_march, grid_walk, brick_fine)
         trace_grid_fast(o, d, sl)
         torch.cuda.synchronize()
-        counts = counts_of(grid_walk, brick_fine)
+        counts = counts_of(staged_march, grid_walk, brick_fine)
+        require(counts == {"staged_march": 1, "grid_walk": 0,
+                           "brick_fine": 0},
+                f"slab {i}: the staged trace is not one staged_march launch")
         t_ms = cuda_ms(lambda: trace_grid_fast(o, d, sl), 3)
         log(f"slab {i} (rows {z0}-{z1 - 1}): build {b_ms:.2f} ms on the "
             f"card, fine window {sl.fine.shape[1]} bricks from brick "
@@ -1048,6 +1164,17 @@ def check_zslab_fast(scene, grid, vi, pi, rays, k2_trace, img_k2, occ_np,
     (hits, _, _), *_ = check_walk("Z-slab 1 round 1", o, d, tmn, tmx,
                                   zs.slabs[1], 5)
     check_fine("Z-slab 1 round 1", o, d, hits, tmn, tmx, zs.slabs[1])
+    check_staged("Z-slab 1", o, d, tmn, tmx, None, zs.slabs[1], 5)
+    # the slabs' traces queue one after another with no host sync between
+    # them (on distinct cards they run at once)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        zs.per_slab(o, d, TMIN, TMAX)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log(f"Z-slab per-slab traces ({rehearsal.size} slabs): no host sync "
+        "(torch.cuda.set_sync_debug_mode(\"error\"))")
     t_s, lin_s = trace_grid_fast(o, d, scene.accel, mega=False)
     t_z, lin_z = zs.trace(o, d)
     require(bool(torch.equal(lin_z, lin_s)) and bool(torch.equal(t_z, t_s)),
@@ -1066,8 +1193,10 @@ def check_zslab_fast(scene, grid, vi, pi, rays, k2_trace, img_k2, occ_np,
     torch.cuda.synchronize()
     counts = counts_of(*kmods)
     log(f"Z-slab frame (4 slabs, shadows on) launches: {counts}")
-    require(counts["grid_walk"] > 0 and counts["brick_fine"] > 0,
-            "the Z-slab frame did not launch K3 and K4")
+    require(counts["staged_march"] > 0, "the Z-slab frame did not launch "
+            "staged_march")
+    require(counts["grid_walk"] == 0 and counts["brick_fine"] == 0,
+            "the Z-slab frame launched K3 or K4")
     ref = pipeline.render_image(scene, vi, pi, backend="fast", **staged,
                                 **kw)
     frames_close("Z-slab frame vs render_image (staged walk)", img, ref)
@@ -1331,17 +1460,19 @@ def run(device):
     from voxelray_torch.ops import geometry
     from voxelray_torch.ops.intersect import TMIN, TMAX, make_camera_rays
     from voxelray_torch.ops.kernels import (_build, brick_fine, grid_walk,
-                                            mega_trace, tri_march,
-                                            voxel_accum)
+                                            mega_trace, staged_march,
+                                            tri_march, voxel_accum)
     from voxelray_torch.ops.traverse import (trace_grid_dda,
                                              trace_triangles_brute)
-    from voxelray_torch.ops.traverse_fast import trace_grid_fast
+    from voxelray_torch.ops.traverse_fast import (any_hit_grid_fast,
+                                                  trace_grid_fast)
     from voxelray_torch.ops.tri_accel import trace_triangles_grid
     from voxelray_torch.ops.voxelize import voxelize_plain, window_bounds
     from voxelray_torch.render import pipeline
 
     sync = torch.cuda.synchronize
-    kmods = (voxel_accum, mega_trace, grid_walk, brick_fine, tri_march)
+    kmods = (voxel_accum, mega_trace, grid_walk, brick_fine, tri_march,
+             staged_march)
 
     # ---- 1. device + build ---------------------------------------------
     smi = smi_line()
@@ -1549,10 +1680,14 @@ def run(device):
     t_s, lin_s, unres_s = trace_grid_fast(o, d, accel, mega=False,
                                           return_stats=True)
     sync()
-    staged_counts = counts_of(grid_walk, brick_fine)
+    trace_counts = counts_of(staged_march, grid_walk, brick_fine)
+    unres_s = int(unres_s)
     log(f"staged primary trace: unresolved {unres_s}, launches "
-        f"{staged_counts}")
+        f"{trace_counts}")
     require(unres_s == 0, "the staged trace left rays unresolved")
+    require(trace_counts == {"staged_march": 1, "grid_walk": 0,
+                             "brick_fine": 0},
+            "the staged trace is not one staged_march launch")
     n_vs_k2 = int((lin_s != lin_k).sum())
     log(f"staged primary vs K2: {n_vs_k2} rays with another cell")
     compare_traces("staged primary vs dda", o, d, occ_np, grid.origin, vs,
@@ -1561,7 +1696,8 @@ def run(device):
     ts_s, tslin_s, unres_ss = trace_grid_fast(
         so, sd, accel, t_min=float(TMIN), t_max=sdist, admit=admit,
         mega=False, k_hits=4, return_stats=True)
-    require(unres_ss == 0, "the staged shadow trace left rays unresolved")
+    require(int(unres_ss) == 0,
+            "the staged shadow trace left rays unresolved")
     compare_traces("staged shadow vs dda", so, sd, occ_np, grid.origin, vs,
                    ts_s, tslin_s, s_p, slin_p)
     # the staged walk against the exhaustive DDA from the orbit cameras
@@ -1573,11 +1709,31 @@ def run(device):
         cd = pipeline._tile_rays(cd, HEIGHT, WIDTH).contiguous()
         ct_s, clin_s, cun = trace_grid_fast(co, cd, accel, mega=False,
                                             return_stats=True)
-        require(cun == 0, f"camera {ci}: staged trace left rays unresolved")
+        require(int(cun) == 0,
+                f"camera {ci}: staged trace left rays unresolved")
         ct_p, clin_p = trace_grid_dda(co, cd, occ_flat, scene.grid_origin,
                                       dims=scene.grid_dims, voxel_size=vs)
         compare_traces(f"staged vs dda, camera {ci} of {len(cams)}", co, cd,
                        occ_np, grid.origin, vs, ct_s, clin_s, ct_p, clin_p)
+    # staged_march against the lap loop it replaces (with the K3/K4
+    # kernels and fully plain): the primary rays (k 5) and the shadow
+    # pass's rays with its admit mask, as render_image calls it (k 4,
+    # scalar TMIN)
+    sm_ms, sm_lap_ms, sm_plain_ms, sm_bytes, sm_ops = check_staged(
+        "staged primary", o, d, tmn, tmx, None, accel, 5)
+    check_staged("staged shadow", so, sd, stmn, sdist, admit, accel, 4)
+    # the staged trace and the shadow query queue with no host sync
+    sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        trace_grid_fast(o, d, accel, t_min=tmn, t_max=tmx, mega=False)
+        any_hit_grid_fast(so, sd, accel, t_min=float(TMIN), t_max=sdist,
+                          admit=admit, mega=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sync()
+    log("staged trace and staged any-hit on the card: no host sync "
+        "(torch.cuda.set_sync_debug_mode(\"error\"))")
     staged = dict(fast_opts={"mega": False}, shadow_opts={"mega": False})
     reset(*kmods)
     pipeline.render_image(scene, vi, pi, width=WIDTH, height=HEIGHT,
@@ -1585,10 +1741,28 @@ def run(device):
     sync()
     staged_counts = counts_of(*kmods)
     log(f"staged voxel frame launches (shadows on): {staged_counts}")
-    require(staged_counts["grid_walk"] > 0, "staged frame: K3 not launched")
-    require(staged_counts["brick_fine"] > 0, "staged frame: K4 not launched")
-    log_frames("voxel (staged K3+K4)", time_frames(scene, mats, **staged),
-               smi_line())
+    require(staged_counts["staged_march"] > 0,
+            "staged frame: staged_march not launched")
+    require(staged_counts["grid_walk"] == 0 and
+            staged_counts["brick_fine"] == 0,
+            "staged frame: K3 or K4 launched")
+    # the lap loop the kernel replaced, counted: K3's and K4's launches
+    reset(*kmods)
+    with lap_loop_staged():
+        pipeline.render_image(scene, vi, pi, width=WIDTH, height=HEIGHT,
+                              backend="fast", shadows=True, **staged)
+    sync()
+    lap_counts = counts_of(*kmods)
+    log(f"staged voxel frame through the lap loop (shadows on), launches: "
+        f"{lap_counts}")
+    require(lap_counts["grid_walk"] > 0 and lap_counts["brick_fine"] > 0
+            and lap_counts["staged_march"] == 0,
+            "the lap loop frame did not run K3 and K4")
+    with lap_loop_staged():
+        log_frames("voxel (staged, lap loop over K3+K4, before)",
+                   time_frames(scene, mats, **staged), smi_line())
+    log_frames("voxel (staged, staged_march, after)",
+               time_frames(scene, mats, **staged), smi_line())
 
     # ---- 7. the triangle path, counted -------------------------------------
     model = knot_model(v, f)
@@ -1612,8 +1786,9 @@ def run(device):
         f"{ta.brick.bdims} ({ta.brick.coarse.shape[0]} coarse rows)")
     require(ta.overflow_cells == 0, "tri accel cells overflow")
     require(tri_counts["tri_march"] > 0, "tri_march was not launched")
-    require(tri_counts["grid_walk"] == 0 and tri_counts["brick_fine"] == 0,
-            "the triangle march launched K3 or K4")
+    require(tri_counts["grid_walk"] == 0 and tri_counts["brick_fine"] == 0
+            and tri_counts["staged_march"] == 0,
+            "the triangle march launched K3, K4 or staged_march")
     require(bool(torch.isfinite(timg).all()), "tri frame non-finite")
 
     # K3 and K4 on the march's first lap (the frame's rays, t_min = TMIN)
@@ -1689,18 +1864,33 @@ def run(device):
     rows[0]["launches"] += run_bench(v, f, grid, scene, vi, pi, kmods,
                                      device)
 
-    # K3 and K4 launch on the Z-slab frame (and the staged voxel frame);
-    # their times are the triangle march's first lap
+    # K3 and K4 launch in the lap loops the one-launch kernels are held
+    # to (staged_march_plain, tri_march_plain): their launches are the
+    # staged frame's through the lap loop, their times the triangle
+    # march's first lap
     rows.append(kernel_row(
         "grid_walk", "grid_walk.cu",
         "voxelray_tpu/ops/pallas/grid_walk.py:496",
-        zslab_counts["grid_walk"], 0, k3_ms, k3_plain_ms, k3_bytes,
+        lap_counts["grid_walk"], 0, k3_ms, k3_plain_ms, k3_bytes,
         k3_steps * OPS_BRICK))
     rows.append(kernel_row(
         "brick_fine", "brick_fine.cu",
         "voxelray_tpu/ops/pallas/brick_fine.py:296",
-        zslab_counts["brick_fine"], 0.0, k4_ms, k4_plain_ms, k4_bytes,
+        lap_counts["brick_fine"], 0.0, k4_ms, k4_plain_ms, k4_bytes,
         k4_steps * OPS_CELL))
+    # staged_march: launches of the staged voxel frame (the Z-slab
+    # frame's are logged in phase 10); times on the frame's primary rays
+    log(f"staged_march launches: staged voxel frame "
+        f"{staged_counts['staged_march']}, Z-slab frame "
+        f"{zslab_counts['staged_march']}; primary rays: kernel {sm_ms:.4f} "
+        f"ms, lap loop with K3/K4 {sm_lap_ms:.4f} ms")
+    rows.append(kernel_row(
+        "staged_march", "staged_march.cu",
+        "voxelray_tpu/ops/pallas/grid_walk.py:496,:569; "
+        "voxelray_tpu/ops/pallas/brick_fine.py:296; "
+        "voxelray_tpu/ops/traverse_fast.py:365",
+        staged_counts["staged_march"], 0.0, sm_ms, sm_plain_ms, sm_bytes,
+        sm_ops))
     rows.append(kernel_row(
         "tri_march", "tri_march.cu",
         "voxelray_tpu/ops/pallas/grid_walk.py:496,:569; "

@@ -3,13 +3,14 @@
 
 Builds the bench scenes of chip_smoke.py (the 1,048,576-triangle torus
 knot as a 512^3 voxel grid and as a triangle model) and, for each frame
-kind (voxel with the megakernel K2, voxel with the staged walk K3 + K4,
-triangles through the tri_march kernel, and triangles through the lap
-loop over K3 + K4 that the kernel replaced), records one warm frame with
-torch.profiler: wall ms, device busy ms (the union of the kernels'
-intervals), the device's idle share, launches by kernel name, and the
-port's kernel launch counters.  Prints one JSON line per frame kind and,
-given a path, also writes them all there as one JSON list.
+kind (voxel with the megakernel K2, voxel with the staged walk through
+the staged_march kernel and through the lap loop over K3 + K4 that it
+replaced, triangles through the tri_march kernel, and triangles through
+the lap loop over K3 + K4 that the kernel replaced), records one warm
+frame with torch.profiler: wall ms, device busy ms (the union of the
+kernels' intervals), the device's idle share, launches by kernel name,
+and the port's kernel launch counters.  Prints one JSON line per frame
+kind and, given a path, also writes them all there as one JSON list.
 
     python3 scripts/torch_frame_profile.py [OUT.json]
 
@@ -82,21 +83,22 @@ def main():
         print("torch_frame_profile: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from chip_smoke import (bench_camera, knot_model, lap_loop_march, MESH,
-                            GRID_RES)
+    from chip_smoke import (bench_camera, knot_model, lap_loop_march,
+                            lap_loop_staged, MESH, GRID_RES)
     from voxelray_torch.io import meshes
     from voxelray_torch.models.grids import GridBool
     from voxelray_torch.models.scene import build_scene
     from voxelray_torch.ops import geometry
     from voxelray_torch.ops.kernels import (brick_fine, grid_walk,
-                                            mega_trace, tri_march,
-                                            voxel_accum)
+                                            mega_trace, staged_march,
+                                            tri_march, voxel_accum)
     from voxelray_torch.render.pipeline import render_image
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    kmods = (voxel_accum, mega_trace, grid_walk, brick_fine, tri_march)
+    kmods = (voxel_accum, mega_trace, grid_walk, brick_fine, tri_march,
+             staged_march)
     v, f = meshes.torus_knot(**MESH)
     bb_min, bb_max = geometry.mesh_bbox(v)
     vs = float(max(bb_max - bb_min)) / GRID_RES
@@ -108,6 +110,7 @@ def main():
     kinds = {
         "voxel_mega": (vox, {}, contextlib.nullcontext),
         "voxel_staged": (vox, staged, contextlib.nullcontext),
+        "voxel_staged_lap_loop": (vox, staged, lap_loop_staged),
         "triangles": (tri, {}, contextlib.nullcontext),
         "triangles_lap_loop": (tri, {}, lap_loop_march),
     }

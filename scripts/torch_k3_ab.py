@@ -24,6 +24,12 @@ one kernel with CUDA events:
       candidates, k 5, and the triangle accel's first lap, k 2), and
       tri_march, which shares K4's walk, on the primary rays of the knot
       as a triangle model;
+  staged  the staged trace as trace_grid_fast(mega=False) runs it on the
+      card (one staged_march launch where the tree has that kernel,
+      else the lap loop over K3 and K4) on the primary rays (k 5) and on
+      the frame's shadow pass as render_image calls it (the admit mask,
+      k 4, scalar TMIN): host ms per call with the device synchronized
+      (the lap loop syncs inside);
   frame  the voxel frame (render_image, backend "fast": K2 for the
       primary and the shadow pass) from the bench camera, shadows on
       and off: wall ms per frame (host clock, synchronized), and one
@@ -34,7 +40,7 @@ times over, a checksum of the outputs (equal across trees when their
 kernels agree) and ptxas's report for the kernel.  The card's name and
 power limit come last.
 
-    python3 scripts/torch_k3_ab.py [--kernel k1|k2|k3|k4|frame] TREE_A TREE_B [OUT.json]
+    python3 scripts/torch_k3_ab.py [--kernel k1|k2|k3|k4|staged|frame] TREE_A TREE_B [OUT.json]
 
 Needs one CUDA device and nvcc; imports no JAX.
 """
@@ -56,6 +62,7 @@ REPS, ROUNDS = 50, 5
 ENTRY = {"k1": ("voxel_accum_kernel",), "k2": ("mega_trace_kernel",),
          "k3": ("grid_walk_kernel",),
          "k4": ("brick_fine_kernel", "tri_march_kernel"),
+         "staged": ("staged_march_kernel",),
          "frame": ("mega_trace_kernel",)}
 
 
@@ -311,6 +318,30 @@ def child_k4(tree):
     return {"rays": n, "ms": ms, "checksum": sha(*outs)}
 
 
+def child_staged(tree):
+    from voxelray_torch.ops.intersect import TMIN
+    from voxelray_torch.ops.traverse_fast import trace_grid_fast
+    from voxelray_torch.render import pipeline
+    dev, v, f, _, _, vs, o, d = inputs(tree)
+    scene = voxel_scene(dev, v, f, vs)
+    accel = scene.accel
+    t, lin = trace_grid_fast(o, d, accel, mega=False)
+    surf = pipeline.surface_terms(scene, o, d, t, lin)
+    admit = surf.hit & surf.facing
+    so, sd = surf.world_pos.contiguous(), surf.l_vec.contiguous()
+    dist = surf.light_dist.contiguous()
+
+    def shadow():
+        return trace_grid_fast(so, sd, accel, t_min=float(TMIN), t_max=dist,
+                               admit=admit, mega=False, k_hits=4)
+
+    ms = {"primary, k 5": wall_timed(
+              lambda: trace_grid_fast(o, d, accel, mega=False)),
+          "shadow pass, admit mask, k 4": wall_timed(shadow)}
+    return {"rays": o.shape[0], "admitted": int(admit.sum()), "ms": ms,
+            "checksum": sha(t, lin, *shadow())}
+
+
 def child_frame(tree):
     from scripts.torch_frame_profile import profile_frame
     from voxelray_torch.render.pipeline import render_image
@@ -337,7 +368,8 @@ def child(kernel, tree, classes_path):
     row = (child_k1(tree) if kernel == "k1" else
            child_k2(tree, classes_path) if kernel == "k2" else
            child_k3(tree) if kernel == "k3" else
-           child_k4(tree) if kernel == "k4" else child_frame(tree))
+           child_k4(tree) if kernel == "k4" else
+           child_staged(tree) if kernel == "staged" else child_frame(tree))
     row = {"tree": str(tree), "kernel": kernel, **row}
     for entry in ENTRY[kernel]:
         row[f"ptxas_{entry}"] = ptxas_report(_build.build_log(), entry)

@@ -15,7 +15,10 @@ entries on one card:
     1e-7 of render_image's, K2 launched on every card;
   * render_zslab_sharded (backend fast), the grid in one Z-slab per
     card: the merged primary trace bit-equal to the monolithic staged
-    walk's, the frame against render_image through the staged walk;
+    walk's, the frame against render_image through the staged walk, one
+    staged_march launch per slab trace; the slabs' primary traces alone
+    (ZSlabs.per_slab: on distinct cards they run at once) beside the
+    first slab's trace alone;
   * the DDA Z-slab render at gate 2's bunny (128^3, 1280x720);
   * gate 5 through make_mesh(), bit-equal to its frames on one card.
 
@@ -65,9 +68,10 @@ def main():
     from voxelray_torch.models.grids import GridBool
     from voxelray_torch.models.scene import build_scene
     from voxelray_torch.ops import geometry
-    from voxelray_torch.ops.intersect import make_camera_rays
+    from voxelray_torch.ops.intersect import TMAX, TMIN, make_camera_rays
     from voxelray_torch.ops.kernels import (brick_fine, grid_walk,
-                                            mega_trace, voxel_accum)
+                                            mega_trace, staged_march,
+                                            voxel_accum)
     from voxelray_torch.ops.traverse_fast import trace_grid_fast
     from voxelray_torch.parallel import comm
     from voxelray_torch.render import pipeline
@@ -133,19 +137,24 @@ def main():
         cs.require(bool(torch.equal(lin_z, lin_s))
                    and bool(torch.equal(t_z, t_s)),
                    f"Z-slab trace on {name} differs from the staged walk")
-        cs.reset(grid_walk, brick_fine)
+        cs.reset(staged_march, grid_walk, brick_fine)
         img = comm.render_zslab_sharded(scene, vi, pi, mesh,
                                         backend="fast", **kw)
         sync_all()
-        counts = cs.counts_of(grid_walk, brick_fine)
-        cs.require(counts["grid_walk"] > 0 and counts["brick_fine"] > 0,
-                   f"Z-slab frame on {name}: K3/K4 not launched")
+        counts = cs.counts_of(staged_march, grid_walk, brick_fine)
+        cs.require(counts["staged_march"] > 0 and counts["grid_walk"] == 0
+                   and counts["brick_fine"] == 0,
+                   f"Z-slab frame on {name}: not through staged_march")
         cs.frames_close(f"Z-slab frame, {name}, vs render_image (staged "
                         "walk)", img, ref)
         ms[f"split_zslabs, {name}"] = wall_ms(
             lambda: comm.split_zslabs(scene, mesh, "fast"))
         ms[f"Z-slab merged primary trace, {name}"] = wall_ms(
             lambda: zs.trace(o, d))
+        ms[f"Z-slab per-slab primary traces, {name}"] = wall_ms(
+            lambda: zs.per_slab(o, d, TMIN, TMAX))
+        ms[f"Z-slab first slab's primary trace alone, {name}"] = wall_ms(
+            lambda: trace_grid_fast(o, d, zs.slabs[0]))
         ms[f"render_zslab_sharded, {name}"] = wall_ms(
             lambda: comm.render_zslab_sharded(scene, vi, pi, mesh,
                                               backend="fast", **kw))

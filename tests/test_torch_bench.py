@@ -59,7 +59,8 @@ def test_bench_line_has_bench_py_keys_and_passes_its_gates(small):
     assert res["occupied_voxels"] > 1000 and res["pipelined_frames"] == 4
     assert res["gpu"] is None and res["power_limit"] is None
     assert set(res["launches"]) == {"voxel_accum", "mega_trace",
-                                    "grid_walk", "brick_fine", "tri_march"}
+                                    "grid_walk", "brick_fine", "tri_march",
+                                    "staged_march"}
     assert not any(res["launches"].values())     # plain versions only
 
 

@@ -1,19 +1,20 @@
 """The CUDA kernels' own source, built for the host, against their plain
 PyTorch versions.
 
-csrc/voxel_accum.cu, mega_trace.cu, grid_walk.cu, brick_fine.cu and
-tri_march.cu are compiled with g++ (launch stubs cut off, SHIM below
-standing in for the CUDA runtime, csrc/ on the include path for the
-shared brick_walk.cuh) and each kernel runs thread by thread on the CPU.
-Shared memory is one host array that the host program fills before the
-threads run, so running them one at a time never reads a word before it
-is written.  Every warp is one lane wide (K1 and K2 take their warp
-width from VOXELRAY_WARP, which SHIM sets to 1), so warp-wide steps (K1's
-window scan and hit reduction, K2's and tri_march's ray fetch) are exact
-and K1's set_calls is compared too.  Both sides use IEEE float32 without
-contraction, as on the card, so this holds the kernels' logic (windows,
-SAT, walk, near-tie probes, ray schedules) to the plain versions without
-a GPU.  Skips where g++ is missing.
+csrc/voxel_accum.cu, mega_trace.cu, grid_walk.cu, brick_fine.cu,
+staged_march.cu and tri_march.cu are compiled with g++ (launch stubs cut
+off, SHIM below standing in for the CUDA runtime, csrc/ on the include
+path for the shared brick_walk.cuh) and each kernel runs thread by
+thread on the CPU.  Shared memory is one host array that the host program
+fills before the threads run, so running them one at a time never reads
+a word before it is written.  Every warp is one lane wide (K1 and K2 take
+their warp width from VOXELRAY_WARP, which SHIM sets to 1), so warp-wide
+steps (K1's window scan and hit reduction, K2's, staged_march's and
+tri_march's ray fetch) are exact and K1's set_calls is compared
+too.  Both sides use IEEE float32 without contraction, as on the card, so
+this holds the kernels' logic (windows, SAT, walk, near-tie probes, ray
+schedules) to the plain versions without a GPU.  Skips where g++ is
+missing.
 """
 import ctypes
 import re
@@ -28,7 +29,8 @@ import torch
 from voxelray_torch.io import meshes
 from voxelray_torch.ops import geometry
 from voxelray_torch.ops.intersect import TMAX, TMIN, make_camera_rays
-from voxelray_torch.ops.kernels import brick_fine, mega_trace, tri_march
+from voxelray_torch.ops.kernels import (brick_fine, mega_trace, staged_march,
+                                        tri_march)
 from voxelray_torch.ops.kernels.brick_fine import fine_plain
 from voxelray_torch.ops.kernels.grid_walk import walk_plain
 from voxelray_torch.ops.kernels.mega_trace import trace_grid_mega_plain
@@ -45,11 +47,11 @@ HERE = Path(__file__).resolve().parent
 CSRC = HERE.parent / "voxelray_torch" / "csrc"
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-# The CUDA subset csrc/*.cu uses, for a host build.  Each "thread" runs to
-# completion one after another, as a warp of one lane: K1 and K2 see a
-# warp width of 1 (lane 0); tri_march takes threadIdx.x & 31 as its lane,
-# which its host launcher sets as host_lane.  Shuffles return the lane's own
-# value, ballots its own bit.
+# The CUDA subset csrc/*.cu uses, for a host build.  Each "thread" runs
+# to completion one after another, as a warp of one lane: K1 and K2 see
+# a warp width of 1 (lane 0), and so does staged_march; tri_march takes
+# threadIdx.x & 31 as its lane, which its host launcher sets as
+# host_lane.  Shuffles return the lane's own value, ballots its own bit.
 SHIM = '''
 #include <math.h>
 #include <stdint.h>
@@ -198,6 +200,35 @@ extern "C" void host_launch(const float* o, const float* d,
     }
 }
 ''', [P, P, P, I, P, I, I, P, P] + [I] * 6 + [F] * 7 + [P] * 2),
+    "staged_march": ('''
+extern "C" void host_launch(
+    const void* o, const void* d, const void* t_min, const void* t_max,
+    const void* admit, const void* coarse, int coarse_words, const void* l2,
+    int l2_words, const void* fine, int nb, int fine_off, int n, int nx,
+    int ny, int bx, int by, int bz, float ogx, float ogy, float ogz,
+    float vs, float half, float bwf, float scale, int k_first, int k_drain,
+    int max_groups, int smem_words, void* t_out, void* lin_out,
+    void* unresolved, void* next_ray, int stripes) {
+  const StagedArgs a = staged_args(
+      o, d, t_min, t_max, admit, coarse, coarse_words, l2, l2_words, fine, nb,
+      fine_off, n, nx, ny, bx, by, bz, ogx, ogy, ogz, vs, half, bwf, scale,
+      k_first, k_drain, max_groups, smem_words, t_out, lin_out, unresolved,
+      next_ray, stripes);
+  if (a.l2_words) memcpy(host_shared, a.l2, sizeof(uint32_t) * a.l2_words);
+  if (a.coarse_smem)
+    memcpy(host_shared + a.l2_words, a.coarse,
+           sizeof(uint32_t) * a.coarse_words);
+  // one block of one-lane warps: the first thread takes every chunk from
+  // the stripe counters, group by group, the others find them exhausted
+  blockDim.x = kThreads;
+  gridDim.x = 1;
+  blockIdx.x = 0;
+  for (unsigned t = 0; t < blockDim.x; ++t) {
+    threadIdx.x = t;
+    staged_march_kernel(a);
+  }
+}
+''', [P] * 6 + [I, P, I, P] + [I] * 8 + [F] * 7 + [I] * 4 + [P] * 4 + [I]),
     "tri_march": ('''
 extern "C" void host_launch(
     const void* o, const void* d, const void* t_min, const void* t_max,
@@ -747,6 +778,87 @@ def test_host_k4_fine_window_matches_plain(host_kernels):
         assert (lin_k >= 0).sum() > 1000
 
 
+def _staged_scene(kind, rng):
+    """(accel, o, d, t_min, t_max) for a staged_march host case: the K3/K4
+    scenes (camera rays and rays from inside, per-ray bounds), the boxes
+    grid seen from a camera inside it, the edge-grazing rays, or a Z-slab
+    accel (rows 48 to 95 of the 115x54x121 knot, with its halo, so its
+    fine table is a window) on rays aimed at brick edges and corners."""
+    if kind in ("shell", "boxes"):
+        return _walk_scene(kind)
+    if kind == "inside":
+        accel = _walk_scene("boxes")[0]
+        ext = np.asarray(accel.dims, np.float64) * accel.voxel_size
+        center = np.asarray(accel.origin_key) + ext / 2
+        cam = Camera(eye=tuple(center + np.asarray([0.05, 0.02, -0.03])
+                               * ext.max()),
+                     center=tuple(center + np.asarray([0.3, 0.1, 0.2])
+                                  * ext.max()))
+        _, _, vi, pi = cam.matrices(64, 48)
+        o, d = make_camera_rays(64, 48, vi, pi)
+        o, d = o.reshape(-1, 3).numpy().copy(), d.reshape(-1, 3).numpy().copy()
+    elif kind == "edge":
+        occ, org, vs, o, d = _edge_scene(rng)
+        accel = build_accel(torch.from_numpy(occ), org, vs)
+    else:
+        from test_torch_trace import _brick_edge_rays
+
+        from voxelray_torch.models.grids import GridBool
+        from voxelray_torch.ops.traverse_fast import build_accel_slab
+        v, f = meshes.torus_knot(2, 3, 256, 32)
+        bb_min, bb_max = geometry.mesh_bbox(v)
+        ext = float(max(bb_max - bb_min))
+        g = GridBool.from_mesh(v, f, ext / 120, device="cpu")
+        occ = g.occupancy()
+        z0, z1 = 48, 96
+        accel = build_accel_slab(occ[z0:z1], z0, occ.shape[0], g.origin,
+                                 g.voxel_size, below=occ[z0 - 8:z0],
+                                 above=occ[z1:z1 + 8])
+        assert accel.fine_off > 0
+        o, d = _brick_edge_rays(g, ext, 4000, 0)
+    n = len(o)
+    return (accel, o, d, np.full(n, TMIN, np.float32),
+            np.full(n, TMAX, np.float32))
+
+
+@pytest.mark.parametrize("kind", ["shell", "boxes", "inside", "edge",
+                                  "slab"])
+@pytest.mark.parametrize("two_level", [False, True])
+@pytest.mark.parametrize("k,sparse", [(5, False), (4, True)])
+def test_host_staged_march_matches_plain(host_kernels, kind, two_level, k,
+                                         sparse):
+    """staged_march built for the host (one-lane warps, so a lane takes a
+    new ray after every group, as on the card) against staged_march_plain,
+    the lap loop over K3 and K4: t bits and lin equal, unresolved 0 on
+    both sides; k 5 as the primary trace calls it, k 4 with a sparse
+    admit mask (~5%) as the shadow pass does, whose other rays the
+    kernel's fetch writes as misses."""
+    rng = np.random.default_rng(11)
+    accel, o, d, tmn, tmx = _staged_scene(kind, rng)
+    t = torch.from_numpy
+    n = len(o)
+    admit = t(rng.random(n) < 0.05) if sparse else None
+    args = (t(o), t(d), accel, t(tmn), t(tmx), admit, k, two_level)
+    want_t, want_lin, want_unres = staged_march.staged_march_plain(*args)
+    assert want_unres == 0
+    outs = (torch.full((n,), 7.0), torch.full((n,), 7, dtype=torch.int32),
+            torch.zeros((), dtype=torch.int64))
+    l2 = accel.l2 if two_level else None
+    launch = staged_march._launch_args(
+        t(o), t(d), t(tmn), t(tmx), admit, accel, l2, k, outs,
+        torch.zeros(staged_march.STRIPES * 32, dtype=torch.int32))
+    host_kernels["staged_march"](*[x.data_ptr() if torch.is_tensor(x) else x
+                                   for x in launch])
+    got_t, got_lin, unresolved = outs
+    assert int(unresolved) == 0
+    assert torch.equal(got_lin, want_lin)
+    assert torch.equal(got_t.view(torch.int32), want_t.view(torch.int32))
+    hits = int((want_lin >= 0).sum())
+    assert hits > (5 if sparse else 100)
+    if sparse:
+        assert not (got_lin[~admit] >= 0).any()
+
+
 def _tri_scene(name, res):
     """(triangles (F, 3, 3), TriAccel on the CPU) of a small mesh, or of
     "pair": a knot and a sphere far apart along x, an empty superbrick
@@ -846,27 +958,25 @@ def test_host_tri_march_matches_plain(host_kernels, name, res, kind,
         assert n_sup > 1 and not bits.all()
 
 
-@pytest.fixture(scope="module")
-def counting_march(tmp_path_factory):
-    """tri_march built for the host with two counters added: the brick
-    walk's iterations in staged_first_cell and K4's cell steps in
-    fine_brick.  Returns a launcher with host_launch's arguments that
-    gives (brick steps, cell steps)."""
-    out = tmp_path_factory.mktemp("counting_march")
+def _counting_build(out, name):
+    """Kernel `name` (tri_march or staged_march) built for the host with
+    two counters added to brick_walk.cuh: the brick walk's iterations in
+    staged_group and K4's cell steps in fine_brick.  Returns a launcher
+    with host_launch's arguments that gives (brick steps, cell steps)."""
     hdr = (CSRC / "brick_walk.cuh").read_text()
     cell_loop = "  for (int step = 0; step < kSteps; ++step) {\n"
     assert hdr.count(cell_loop) == 1
+    brick_loop = ("  for (int step = 0; step < max_steps && active; "
+                  "++step) {\n")
+    assert hdr.count(brick_loop) == 1
     hdr = hdr.replace("namespace {\n", "static unsigned long long "
                       "g_bricks = 0, g_cells = 0;\nnamespace {\n", 1)
     (out / "brick_walk.cuh").write_text(
-        hdr.replace(cell_loop, cell_loop + "    ++g_cells;\n"))
-    src = (CSRC / "tri_march.cu").read_text()
-    brick_loop = ("    for (int step = 0; step < max_steps && active; "
-                  "++step) {\n")
-    assert src.count(brick_loop) == 1
-    driver, argtypes = DRIVERS["tri_march"]
-    lib = _host_build(out, "tri_march_counting",
-                      src.replace(brick_loop, brick_loop + "      ++g_bricks;\n"),
+        hdr.replace(cell_loop, cell_loop + "    ++g_cells;\n")
+        .replace(brick_loop, brick_loop + "    ++g_bricks;\n"))
+    driver, argtypes = DRIVERS[name]
+    lib = _host_build(out, f"{name}_counting",
+                      (CSRC / f"{name}.cu").read_text(),
                       driver + '''
 extern "C" void host_counts(unsigned long long* c) {
   c[0] = g_bricks;
@@ -878,11 +988,28 @@ extern "C" void host_counts(unsigned long long* c) {
     lib.host_launch.restype = None
 
     def run(*args):
-        lib.host_launch(*args)
+        lib.host_launch(*[x.data_ptr() if torch.is_tensor(x) else x
+                          for x in args])
         c = (ctypes.c_ulonglong * 2)()
         lib.host_counts(c)
         return int(c[0]), int(c[1])
     return run
+
+
+@pytest.fixture(scope="module")
+def counting_march(tmp_path_factory):
+    """tri_march built for the host with the step counters
+    (_counting_build)."""
+    return _counting_build(tmp_path_factory.mktemp("counting_march"),
+                           "tri_march")
+
+
+@pytest.fixture(scope="module")
+def counting_staged(tmp_path_factory):
+    """staged_march built for the host with the step counters
+    (_counting_build)."""
+    return _counting_build(tmp_path_factory.mktemp("counting_staged"),
+                           "staged_march")
 
 
 @pytest.mark.parametrize("name,res", [("icosphere", 24), ("knot", 32),
@@ -905,9 +1032,37 @@ def test_host_tri_march_work_count_is_the_kernels(counting_march, name, res,
             torch.empty(n), torch.empty(n), torch.zeros(1, dtype=torch.int64))
     args = tri_march._launch_args(o, d, tmn, tmx, ta, None, outs,
                                   torch.zeros(1, dtype=torch.int32))
-    bricks, cells = counting_march(*[x.data_ptr() if torch.is_tensor(x)
-                                     else x for x in args])
+    bricks, cells = counting_march(*args)
     want, work, _ = march_work(o, d, tmn, tmx, ta)
     assert torch.equal(outs[1], want[1])
+    assert cells > 0 and bricks > 0
+    assert (work["brick_steps"], work["cell_steps"]) == (bricks, cells)
+
+
+@pytest.mark.parametrize("kind", ["boxes", "edge", "slab"])
+@pytest.mark.parametrize("k,sparse", [(5, False), (4, True)])
+def test_host_staged_march_work_count_is_the_kernels(counting_staged, kind,
+                                                     k, sparse):
+    """chip_smoke.py's bound for staged_march counts the brick and cell
+    steps from the plain lap loop (staged_work, through counted_walks,
+    the same count as tri_march's): they are the very steps the kernel
+    takes on these rays."""
+    import sys
+    sys.path.insert(0, str(HERE.parent))
+    from chip_smoke import staged_work
+    rng = np.random.default_rng(11)
+    accel, o, d, tmn, tmx = _staged_scene(kind, rng)
+    t = torch.from_numpy
+    n = len(o)
+    admit = t(rng.random(n) < 0.05) if sparse else None
+    args = (t(o), t(d), accel, t(tmn), t(tmx), admit, k, None)
+    outs = (torch.empty(n), torch.empty(n, dtype=torch.int32),
+            torch.zeros((), dtype=torch.int64))
+    l2 = accel.l2 if staged_march.use_two_level(accel, None) else None
+    bricks, cells = counting_staged(*staged_march._launch_args(
+        t(o), t(d), t(tmn), t(tmx), admit, accel, l2, k, outs,
+        torch.zeros(staged_march.STRIPES * 32, dtype=torch.int32)))
+    want, work, _ = staged_work(*args)
+    assert torch.equal(outs[1], want[1]) and int(outs[2]) == 0
     assert cells > 0 and bricks > 0
     assert (work["brick_steps"], work["cell_steps"]) == (bricks, cells)

@@ -168,7 +168,7 @@ def test_nvcc_command_targets_hopper_without_fma_contraction():
     assert "-shared" in link
     srcs = {Path(c).name for cmd in compiles for c in cmd if c.endswith(".cu")}
     assert srcs == {"voxel_accum.cu", "mega_trace.cu", "grid_walk.cu",
-                    "brick_fine.cu", "tri_march.cu"}
+                    "brick_fine.cu", "tri_march.cu", "staged_march.cu"}
     assert len(compiles) == len(srcs)
     # the shared header brick_walk.cuh is found through -I csrc
     for cmd in compiles:

@@ -5,7 +5,8 @@ The same numpy inputs (two grids, rays from outside and inside them,
 per-ray t_min / t_max drawn from a seed) go to both packages.  XLA:CPU
 crashes on these Pallas modules in a long-lived process (tests/_isolate.py),
 so every JAX result is computed once, in one subprocess (`_JAX_SCRIPT`),
-and written to an .npz that the parametrised cases below read.
+and written to an .npz that the parametrised cases below read (and those
+of tests/test_torch_staged_march.py, through `jax_reference`).
 
 Tolerances: candidate bricks, `cont`, resume cells, hit masks and hit
 cells are bit-equal.  t: K4 evaluates the reference slab expression
@@ -16,6 +17,7 @@ two constants of JAX's kernel into one, (i + 0.5) * vs + (origin -+ half),
 and JAX's t is bit-equal to numpy's evaluation of that folded expression
 instead; the two differ by an ulp of the box face over |d|.
 """
+import fcntl
 import os
 import subprocess
 import sys
@@ -183,19 +185,37 @@ def _inputs(rng):
     return inp
 
 
+def jax_reference(tmp_path_factory):
+    """(inputs, JAX outputs), computed once per pytest session: the first
+    module to ask runs `_JAX_SCRIPT` in a subprocess and leaves its .npz in
+    a directory every worker of the session shares (pytest-xdist gives
+    each worker its own base temp directory under the session's); the
+    others wait on the lock file and read it (tests/test_torch_staged_march.py
+    uses this module's `ref` too)."""
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent
+    tmp = base / "staged_jax_reference"
+    tmp.mkdir(exist_ok=True)
+    inp = _inputs(np.random.default_rng(7))
+    with open(tmp / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not (tmp / "out.npz").is_file():
+            np.savez(tmp / "in.npz", **inp)
+            env = dict(os.environ, JAX_PLATFORMS="cpu")
+            proc = subprocess.run(
+                [sys.executable, "-c", _JAX_SCRIPT, str(tmp / "in.npz"),
+                 str(tmp / "part.npz")], cwd=REPO, env=env,
+                capture_output=True, text=True, timeout=900)
+            assert proc.returncode == 0, proc.stderr[-4000:]
+            os.replace(tmp / "part.npz", tmp / "out.npz")
+    return inp, dict(np.load(tmp / "out.npz"))
+
+
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
     """(inputs, JAX outputs, port accels) for the whole module."""
-    tmp = tmp_path_factory.mktemp("staged")
-    inp = _inputs(np.random.default_rng(7))
-    np.savez(tmp / "in.npz", **inp)
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
-    proc = subprocess.run(
-        [sys.executable, "-c", _JAX_SCRIPT, str(tmp / "in.npz"),
-         str(tmp / "out.npz")], cwd=REPO, env=env, capture_output=True,
-        text=True, timeout=900)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    out = dict(np.load(tmp / "out.npz"))
+    inp, out = jax_reference(tmp_path_factory)
     accels = {g: build_accel(torch.from_numpy(inp[f"{g}_occ"]),
                              inp[f"{g}_origin"], float(inp[f"{g}_vs"]))
               for g in GRIDS}

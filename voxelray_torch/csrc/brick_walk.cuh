@@ -1,6 +1,7 @@
 // The staged brick walk's device code, shared by K3 (grid_walk.cu), K4
-// (brick_fine.cu) and the triangle march (tri_march.cu), which runs both
-// per ray.  One copy of each walk, so the three kernels cannot drift.
+// (brick_fine.cu), the staged trace (staged_march.cu) and the triangle
+// march (tri_march.cu); the last two run both per ray (staged_group,
+// staged_first_cell).  One copy of each walk, so the kernels cannot drift.
 //
 // K3, the brick-level walk (the Pallas kernels of
 // voxelray_tpu/ops/pallas/grid_walk.py): walk_init is _fused_init (bbox
@@ -375,6 +376,108 @@ __device__ __forceinline__ bool fine_brick(const Ray& r, const FineGrid& g,
     if (!(inb && tmn <= r.t_hi)) return false;
   }
   return false;
+}
+
+// ---- the staged walk of one ray: K3's groups and K4 over them --------------
+
+// The lap loop's schedule (ops/kernels/staged_march.py, staged_march_plain):
+// candidate bricks of the first K4 call and of each drain call, and K4
+// calls (groups) per staged trace at most
+struct Schedule {
+  int k_first, k_drain, max_groups;
+};
+
+// One ray's staged walk between groups: K3's resume state (brick, whether
+// the walk goes on), the groups run, and the first accepted cell (t, lin),
+// (+inf, -1) while there is none
+struct Staged {
+  int cx, cy, cz, group;
+  bool active;
+  float t;
+  int lin;
+};
+
+// How a group ends: the walk goes on, the ray is done (s.lin is its cell,
+// -1 a miss), or the ray is left at the group bound (a miss, counted as
+// unresolved by the lap loop; never reached, by construction)
+enum class StagedEnd { kMore, kDone, kBound };
+
+// K3's fused init from r.t_lo
+__device__ __forceinline__ void staged_start(const Ray& r, const WalkGrid& wg,
+                                             Staged& s) {
+  s.active = walk_init(wg, r, r.t_lo, s.cx, s.cy, s.cz);
+  s.group = 0;
+  s.t = __int_as_float(0x7f800000);
+  s.lin = -1;
+}
+
+// One group, one K4 call of the lap loop: K3 brick steps collecting k_first
+// (later k_drain) occupied bricks, K4 over each brick as it is collected,
+// in slot order; the group ends with a candidate that ends the search, and
+// then the ray is done.  Otherwise the ray goes on (K3's `cont`) from where
+// K3 stopped.  l2 is null for the single-level walk; coarse may be in shared
+// memory.  kWindow: the fine table is a window (probe_cell), and a brick
+// outside it counts as no candidate, as in K4.
+template <bool kWindow>
+__device__ __forceinline__ StagedEnd staged_group(
+    const Ray& r, const WalkGrid& wg, const FineGrid& fg, const uint32_t* l2,
+    const uint32_t* coarse, const uint32_t* __restrict__ fine,
+    const Schedule& sc, Staged& s) {
+  const int k = s.group == 0 ? sc.k_first : sc.k_drain;
+  const int max_steps = wg.bx + wg.by + wg.bz + 3;
+  int cx = s.cx, cy = s.cy, cz = s.cz;
+  bool active = s.active;
+  float best_t = __int_as_float(0x7f800000);
+  int best_lin = -1;
+  int nhit = 0;
+  bool done = false;
+  for (int step = 0; step < max_steps && active; ++step) {
+    if (l2 != nullptr) walk_land(wg, r, l2, cx, cy, cz);
+    int lin;
+    if (walk_occupied<false>(wg, coarse, cx, cy, cz, lin)) {
+      ++nhit;
+      // K4 over the collected brick; once K4 is done with this group the
+      // walk still collects the group's bricks (its resume state)
+      if (!done && (!kWindow || (lin >= fg.off && lin - fg.off < fg.nb)) &&
+          fine_brick<kWindow>(r, fg, fine, lin, best_t, best_lin)) {
+        if (best_lin >= 0) {
+          s.t = best_t;
+          s.lin = best_lin;
+          return StagedEnd::kDone;
+        }
+        done = true;
+      }
+    }
+    const float tmn = walk_step(wg, r, cx, cy, cz);
+    active = nhit < k && in_grid(wg, cx, cy, cz) && tmn <= r.t_hi;
+  }
+  if (best_lin >= 0) {
+    s.t = best_t;
+    s.lin = best_lin;
+    return StagedEnd::kDone;
+  }
+  if (!(in_grid(wg, cx, cy, cz) && (active || nhit >= k)))
+    return StagedEnd::kDone;
+  s.cx = cx;
+  s.cy = cy;
+  s.cz = cz;
+  s.active = true;
+  return ++s.group == sc.max_groups ? StagedEnd::kBound : StagedEnd::kMore;
+}
+
+// The first accepted cell after r.t_lo along the staged walk, in s (the
+// (t, lin) trace_grid_fast(mega=False, k_hits=sc.k_first) gives this ray).
+template <bool kWindow>
+__device__ __forceinline__ StagedEnd staged_first_cell(
+    const Ray& r, const WalkGrid& wg, const FineGrid& fg, const uint32_t* l2,
+    const uint32_t* coarse, const uint32_t* __restrict__ fine,
+    const Schedule& sc, Staged& s) {
+  staged_start(r, wg, s);
+  StagedEnd end;
+  do {
+    end = staged_group<kWindow>(r, wg, fg, l2, coarse, fine, sc, s);
+  } while (end == StagedEnd::kMore);
+  return end;
 }
 
 }  // anonymous namespace

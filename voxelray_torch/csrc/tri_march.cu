@@ -24,7 +24,8 @@
 //     float up where that does not move it) and the ray marches on until
 //     t_cur passes t_max.
 // A ray still active after its lap bound adds one to `unresolved` (0 by
-// construction).  The walks are brick_walk.cuh's, shared with K3 and K4.
+// construction).  The walks are brick_walk.cuh's (staged_first_cell, the
+// staged trace of one ray), shared with K3, K4 and staged_march.
 //
 // What bounds it on the H100: the latency of the longest rays, not
 // bandwidth or arithmetic.  Each lap is a dependent chain: brick words, a
@@ -59,50 +60,6 @@
 namespace {
 
 constexpr int kThreads = 128;
-
-// The plain march's schedule of the staged walk: candidate bricks of the
-// first K4 call and of the drain calls, K4 calls per staged trace, laps
-struct Schedule {
-  int k_first, k_drain, max_groups, max_laps;
-};
-
-// The first accepted cell after r.t_lo along the staged walk (the cell
-// trace_grid_fast(mega=False, k_hits=k_first) gives this ray), -1 if none.
-// l2 is null for the single-level walk; coarse may be in shared memory.
-__device__ __forceinline__ int staged_first_cell(
-    const Ray& r, const WalkGrid& wg, const FineGrid& fg,
-    const uint32_t* l2, const uint32_t* coarse,
-    const uint32_t* __restrict__ fine, const Schedule& sc) {
-  int cx, cy, cz;
-  bool active = walk_init(wg, r, r.t_lo, cx, cy, cz);
-  const int max_steps = wg.bx + wg.by + wg.bz + 3;
-  for (int group = 0; group < sc.max_groups; ++group) {
-    const int k = group == 0 ? sc.k_first : sc.k_drain;
-    float best_t = __int_as_float(0x7f800000);
-    int best_lin = -1;
-    int nhit = 0;
-    bool done = false;
-    for (int step = 0; step < max_steps && active; ++step) {
-      if (l2 != nullptr) walk_land(wg, r, l2, cx, cy, cz);
-      int lin;
-      if (walk_occupied<false>(wg, coarse, cx, cy, cz, lin)) {
-        ++nhit;
-        // K4 over the collected brick; once K4 is done with this group
-        // the walk still collects the group's bricks (its resume state)
-        if (!done && fine_brick<false>(r, fg, fine, lin, best_t, best_lin)) {
-          if (best_lin >= 0) return best_lin;
-          done = true;
-        }
-      }
-      const float tmn = walk_step(wg, r, cx, cy, cz);
-      active = nhit < k && in_grid(wg, cx, cy, cz) && tmn <= r.t_hi;
-    }
-    if (best_lin >= 0) return best_lin;
-    if (!(in_grid(wg, cx, cy, cz) && (active || nhit >= k))) return -1;
-    active = true;
-  }
-  return -1;
-}
 
 // Moller-Trumbore of the ray against triangle v = (v0 | v1 | v2), with
 // hit_triangles' expressions (ops/intersect.py:95-124): whether it hits
@@ -195,7 +152,7 @@ struct MarchArgs {
   const uint32_t *coarse, *l2, *fine;
   const int *cell_slot, *cell_tris;
   const float *tri9, *tri_origin;
-  int coarse_words, coarse_smem, l2_words, n, nz, l_width;
+  int coarse_words, coarse_smem, l2_words, n, nz, l_width, max_laps;
   WalkGrid wg;
   FineGrid fg, tg;
   Schedule sc;
@@ -261,8 +218,9 @@ __device__ __forceinline__ bool march_lap(const MarchArgs& a,
                                           March& m) {
   const float inf = __int_as_float(0x7f800000);
   m.r.t_lo = m.t_cur;
-  const int lin = staged_first_cell(m.r, a.wg, a.fg, s_l2, cmask, a.fine,
-                                    a.sc);
+  Staged s;
+  staged_first_cell<false>(m.r, a.wg, a.fg, s_l2, cmask, a.fine, a.sc, s);
+  const int lin = s.lin;
   bool done = lin < 0;
   if (!done) {
     float t0, t1, t, u, v;
@@ -281,7 +239,7 @@ __device__ __forceinline__ bool march_lap(const MarchArgs& a,
     const float mid = 0.5f * (t0 + t1);
     m.t_cur = mid > m.t_cur ? mid : nextafterf(m.t_cur, inf);
     done = !(m.t_cur <= m.r.t_hi);
-    if (!done && ++m.lap == a.sc.max_laps) {
+    if (!done && ++m.lap == a.max_laps) {
       atomicAdd(a.unresolved, 1ull);
       done = true;
     }
@@ -372,7 +330,8 @@ MarchArgs march_args(
   a.tg.vs = tri_vs;
   a.tg.half = tri_half;
   a.sc.k_first = k_first; a.sc.k_drain = k_drain;
-  a.sc.max_groups = max_groups; a.sc.max_laps = max_laps;
+  a.sc.max_groups = max_groups;
+  a.max_laps = max_laps;
   a.t_out = static_cast<float*>(t_out);
   a.id_out = static_cast<int*>(id_out);
   a.u_out = static_cast<float*>(u_out);

@@ -8,8 +8,9 @@ lap's staged walk, the cell row's Moller-Trumbore test and the advance.
 
 `tri_march_plain` is the march (round 0, then laps; ops/tri_accel.py
 states its semantics) as the lap loop over tensors: every lap one staged
-trace (trace_grid_fast with mega=False, which launches K3 and K4 on CUDA
-tensors), the gather of each ray's cell row and Moller-Trumbore over it.
+trace (staged_march_plain, the lap loop over K3 and K4, which launches
+them on CUDA tensors), the gather of each ray's cell row and
+Moller-Trumbore over it.
 
 CUDA tensors launch the kernel (`tri_march_cuda`); CPU tensors run
 `tri_march_plain`, whose (t, id, u, v) the kernel gives bit for bit.
@@ -24,10 +25,10 @@ import torch
 
 from ..geometry import div_scalar, floor_cell
 from ..intersect import hit_triangles
-from ..traverse_fast import (_DRAIN_K, max_drain_laps, trace_grid_fast,
-                             use_two_level)
 from . import brick_fine
 from ._build import check, load_library
+from .staged_march import (_DRAIN_K, max_drain_laps, staged_march_plain,
+                           use_two_level)
 
 __all__ = ["tri_march_plain", "tri_march_cuda", "launches", "INNER_K"]
 
@@ -104,7 +105,7 @@ def _mt_cell(ta, o, d, slot_rows, t_lo, span_hi, t_max, work=None):
 def tri_march_plain(o, d, t_min, t_max, ta, two_level=None, work=None):
     """The march as tensor code.  o, d: (N, 3) float32; t_min, t_max: (N,)
     float32; ta: a TriAccel on their device; two_level: the staged walk's
-    superbrick skip (None: trace_grid_fast's default).  Returns (t, id, u,
+    superbrick skip (None: use_two_level's default).  Returns (t, id, u,
     v, unresolved): t = +inf, id = -1, u = v = 0 on a miss; unresolved
     counts rays still active at the lap bound (0 by construction).
 
@@ -163,10 +164,9 @@ def tri_march_plain(o, d, t_min, t_max, ta, two_level=None, work=None):
         if work is not None:
             work.setdefault("active", []).append(act.numel())
             work["ray_laps"][act] += 1
-        t_cell, lin = trace_grid_fast(o[act], d[act], ta.brick,
-                                      t_min=t_cur[act], t_max=t_max[act],
-                                      mega=False, k_hits=INNER_K,
-                                      two_level=two_level)
+        t_cell, lin, _ = staged_march_plain(o[act], d[act], ta.brick,
+                                            t_cur[act], t_max[act], None,
+                                            INNER_K, two_level)
         sel = act[torch.isfinite(t_cell)]       # rays with no cell: misses
         linc = lin[torch.isfinite(t_cell)].long()
         oc, dc = o[sel], d[sel]

@@ -39,7 +39,12 @@ __all__ = ["trace_grid_dda", "any_hit_grid_dda", "trace_grid_dda_chunked",
 
 
 def _per_ray(x, n, device):
-    """Scalar or (...)-shaped bound -> (n,) float32 tensor."""
+    """Scalar or (...)-shaped bound -> (n,) float32 tensor.  A Python or
+    numpy scalar is filled in on the device (no host-to-device copy, which
+    would wait for the device)."""
+    if not torch.is_tensor(x) and np.ndim(x) == 0:
+        return torch.full((n,), float(np.float32(x)), dtype=torch.float32,
+                          device=device)
     t = torch.as_tensor(np.asarray(x, np.float32) if not torch.is_tensor(x)
                         else x, dtype=torch.float32, device=device)
     return t.expand(n) if t.dim() == 0 else t.reshape(-1)

@@ -16,18 +16,19 @@ on.
 
   mega=True (with fine_sb)  the megakernel K2 (ops/kernels/mega_trace.py),
                             one launch per trace;
-  mega=False                the staged walk: rounds of the brick walk K3
-                            (ops/kernels/grid_walk.py), which finds each
+  mega=False                the staged walk (ops/kernels/staged_march.py):
+                            groups of brick steps of K3, which finds each
                             ray's next k_hits occupied bricks, and the
-                            per-voxel walk K4 (ops/kernels/brick_fine.py)
-                            through them, over the rays still active,
-                            until none is.
+                            per-voxel walk K4 through them, until each ray
+                            has its first accepted cell or retires.  On
+                            CUDA tensors one staged_march launch per trace,
+                            with no host sync; on CPU tensors the lap loop
+                            over K3's and K4's plain versions.
 
 The staged backend ports the semantics of JAX's `_trace_fast_impl`, not
 its TPU scheduling (resident/fine/admit/drain buffer fractions, group
 compaction, chunk sizes): each ray gets its first accepted cell along
-its brick walk, and no ray is dropped.  Active rays are kept as an
-index set (torch.nonzero), so every lap costs one host sync.
+its brick walk, and no ray is dropped.
 """
 from __future__ import annotations
 
@@ -39,8 +40,7 @@ import torch
 
 from ..models.grids import pack_words
 from .intersect import TMAX, TMIN
-from .kernels.brick_fine import fine_walk_multi
-from .kernels.grid_walk import coarse_walk, coarse_walk_init
+from .kernels import staged_march
 from .kernels.mega_trace import build_fine_sb, trace_grid_mega
 from .traverse import _per_ray
 
@@ -49,8 +49,6 @@ __all__ = ["BrickAccel", "build_accel", "build_accel_slab",
 
 BRICK = 8
 LANES = 128
-# occupied bricks per ray that each drain lap of the staged walk finds
-_DRAIN_K = 8
 
 
 @dataclass(frozen=True)
@@ -192,98 +190,43 @@ def build_accel_slab(occ_slab, z0, full_nz, origin, voxel_size, *,
         fine_off=bx * by * lo)
 
 
-def use_two_level(accel, two_level):
-    """The staged walk's superbrick skip: two_level, or with None the
-    skip when `coarse` has more than 4 rows."""
-    return accel.coarse.shape[0] > 4 if two_level is None else bool(two_level)
-
-
-def max_drain_laps(bdims):
-    """Drain laps of one staged trace at most: each consumes _DRAIN_K
-    occupied bricks of a walk of at most bx+by+bz+3 steps."""
-    bx, by, bz = bdims
-    return (bx + by + bz + 3 + _DRAIN_K - 1) // _DRAIN_K + 1
-
-
-def _trace_staged(o, d, accel, tmn, tmx, admit, k_hits, two_level):
-    """The staged trace over (N, 3) rays with (N,) bounds.
-
-    Round 1 walks every ray, or with an admit mask only the admitted
-    ones, seeded in K3 from the grid-bbox clip and t_min (the start
-    fast-forwards to o + d * t_min: the cells before it have slab
-    t0 < t_min, which K4's accept rejects anyway); K4 resolves each
-    ray's k_hits candidate bricks in walk order.  Rays with no accepted
-    cell that can go on are walked again, _DRAIN_K bricks at a time,
-    until none is left; each such lap consumes _DRAIN_K occupied bricks
-    or retires the ray, so the laps are bounded by the walk's step bound.
-    Returns (t, lin, unresolved): unresolved counts rays still active at
-    that bound and is 0 by construction.
-    """
-    n, dev = o.shape[0], o.device
-    l2 = accel.l2 if use_two_level(accel, two_level) else None
-    wkw = dict(bdims=accel.bdims, origin_key=accel.origin_key,
-               brick_world=float(accel.voxel_size * BRICK))
-    fkw = dict(dims=accel.dims, bdims=accel.bdims,
-               origin_key=accel.origin_key, voxel_size=accel.voxel_size,
-               fine_off=accel.fine_off)
-    best_t = torch.full((n,), float("inf"), device=dev)
-    best_lin = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    if admit is None:
-        idx = torch.arange(n, device=dev)
-        hits, cell, cont = coarse_walk_init(o, d, tmn, tmx, accel.coarse,
-                                            l2, k_hits=k_hits, **wkw)
-    else:
-        idx = torch.nonzero(admit).squeeze(1)
-        hits, cell, cont = coarse_walk_init(o[idx], d[idx], tmn[idx],
-                                            tmx[idx], accel.coarse, l2,
-                                            k_hits=k_hits, **wkw)
-    max_laps = max_drain_laps(accel.bdims)
-    for lap in range(max_laps + 1):
-        t, lin = fine_walk_multi(o[idx], d[idx], hits, accel.fine, tmn[idx],
-                                 tmx[idx], **fkw)
-        got = torch.isfinite(t)
-        best_t[idx[got]] = t[got]
-        best_lin[idx[got]] = lin[got]
-        keep = torch.nonzero(~got & (cont > 0)).squeeze(1)
-        idx, cell = idx[keep], cell[keep]
-        if idx.numel() == 0 or lap == max_laps:
-            break
-        hits, cell, cont = coarse_walk(
-            o[idx], d[idx], cell,
-            torch.ones(idx.shape, dtype=torch.int32, device=dev), tmx[idx],
-            accel.coarse, l2, k_hits=_DRAIN_K, **wkw)
-    return best_t, best_lin, idx.numel()
-
-
 def trace_grid_fast(origins, dirs, accel: BrickAccel, t_min=TMIN,
                     t_max=TMAX, admit=None, return_stats=False, mega=True,
                     k_hits=5, two_level=None):
     """(t, cell_lin) nearest voxel hit; same contract as trace_grid_dda.
 
     mega=True with an accel that carries fine_sb runs the megakernel K2;
-    mega=False (or no fine_sb) the staged walk K3 + K4.  admit: optional
+    mega=False (or no fine_sb) the staged walk (staged_march: one kernel
+    launch on CUDA tensors, the K3 + K4 lap loop on CPU tensors; any
+    other device raises).  admit: optional
     bool mask (batch shape): only admitted rays trace, the others miss.
     t_min/t_max: scalars or per-ray tensors.  k_hits (candidate bricks
     per ray in the first round) and two_level (None = the superbrick
     skip when coarse has more than 4 rows) apply to the staged walk and
     move only its cost.  return_stats=True also returns `unresolved`
-    (rays left at the step bound; 0 = provably exhaustive).
+    (rays left at the step bound; 0 = provably exhaustive; on CUDA
+    tensors a 0-d tensor on the device).
     """
     if mega and accel.fine_sb is not None:
         return trace_grid_mega(origins, dirs, accel, t_min, t_max,
                                admit=admit, return_stats=return_stats)
     batch = origins.shape[:-1]
     dev = origins.device
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type == "cuda":
+        trace = staged_march.staged_march_cuda
+    elif dev.type == "cpu":
+        trace = staged_march.staged_march_plain
+    else:
         raise ValueError(f"trace_grid_fast: unsupported device {dev}")
     o = origins.reshape(-1, 3).to(torch.float32).contiguous()
     d = dirs.reshape(-1, 3).to(torch.float32).contiguous()
     n = o.shape[0]
     tmn = _per_ray(t_min, n, dev).contiguous()
     tmx = _per_ray(t_max, n, dev).contiguous()
-    adm = None if admit is None else admit.reshape(-1).to(torch.bool)
-    t, lin, unresolved = _trace_staged(o, d, accel, tmn, tmx, adm, k_hits,
-                                       two_level)
+    adm = None if admit is None else \
+        admit.reshape(-1).to(torch.bool).contiguous()
+    t, lin, unresolved = trace(o, d, accel, tmn, tmx, adm, k_hits,
+                               two_level)
     t, lin = t.reshape(batch), lin.reshape(batch)
     if return_stats:
         return t, lin, unresolved
