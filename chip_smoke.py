@@ -154,6 +154,18 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
             "bound_ms": round(b_ms, 5), "bound_by": b_by, "library_ms": None}
 
 
+def ptxas_of(log, kernel):
+    """ptxas's lines (registers, stack, spills) for the entry function
+    whose name holds `kernel`."""
+    out, inside = [], False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            inside = kernel in ln
+        elif inside and ("registers" in ln or "spill" in ln):
+            out.append(ln.strip().removeprefix("ptxas info    : "))
+    return out
+
+
 def smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1897,6 +1909,12 @@ def run(device):
         "voxelray_tpu/ops/pallas/brick_fine.py:296; "
         "voxelray_tpu/ops/tri_accel.py:242-320",
         tri_counts["tri_march"], 0.0, tm_ms, tm_plain_ms, tm_bytes, tm_ops))
+    # the rows' staging: its chunk C, the ray schedule's settings, the
+    # shared memory and occupancy they take, and ptxas's report of the
+    # kernel
+    rows[-1].update(tri_march.launch_config(ta),
+                    ptxas=ptxas_of(_build.build_log(), "tri_march_kernel"))
+    log(f"tri_march launch: {rows[-1]}")
     return rows, smi_line()
 
 

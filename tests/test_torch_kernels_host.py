@@ -7,11 +7,12 @@ off, SHIM below standing in for the CUDA runtime, csrc/ on the include
 path for the shared brick_walk.cuh) and each kernel runs thread by
 thread on the CPU.  Shared memory is one host array that the host program
 fills before the threads run, so running them one at a time never reads
-a word before it is written.  Every warp is one lane wide (K1 and K2 take
-their warp width from VOXELRAY_WARP, which SHIM sets to 1), so warp-wide
-steps (K1's window scan and hit reduction, K2's, staged_march's and
-tri_march's ray fetch) are exact and K1's set_calls is compared
-too.  Both sides use IEEE float32 without contraction, as on the card, so
+a word before it is written.  Every warp is one lane wide (the kernels
+take their warp width from VOXELRAY_WARP, which SHIM sets to 1), so
+warp-wide steps (K1's window scan and hit reduction, K2's, staged_march's
+and tri_march's ray fetch, tri_march's shared row test) are exact and
+K1's set_calls is compared too; asynchronous copies are made at once.
+Both sides use IEEE float32 without contraction, as on the card, so
 this holds the kernels' logic (windows, SAT, walk, near-tie probes, ray
 schedules) to the plain versions without a GPU.  Skips where g++ is
 missing.
@@ -46,15 +47,25 @@ torch.set_num_threads(2)
 HERE = Path(__file__).resolve().parent
 CSRC = HERE.parent / "voxelray_torch" / "csrc"
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# tri_march's row chunk: the triangles a lane loads together from its row
+ROW_CHUNK = int(re.search(r"constexpr int kRowChunk = (\d+);",
+                          (CSRC / "tri_march.cu").read_text()).group(1))
+# tri_march's ray schedule in the two host builds that the march tests
+# run (-D settings csrc/tri_march.cu reads): "own", every row through its
+# lane's row_test and no ray deferred; "shared", every lap's row through
+# shared_rows (a one-lane warp holds one ray) and rays deferred after 2
+# laps and taken back once the ray counter is spent
+TRI_SCHEDULES = {"own": ["-DTRI_SHARE_LANES=0", "-DTRI_LAP_BUDGET=0"],
+                 "shared": ["-DTRI_SHARE_LANES=1", "-DTRI_LAP_BUDGET=2"]}
 
 # The CUDA subset csrc/*.cu uses, for a host build.  Each "thread" runs
 # to completion one after another, as a warp of one lane: K1 and K2 see
-# a warp width of 1 (lane 0), and so does staged_march; tri_march takes
-# threadIdx.x & 31 as its lane, which its host launcher sets as
-# host_lane.  Shuffles return the lane's own value, ballots its own bit.
+# a warp width of 1 (lane 0), and so do staged_march and tri_march.
+# Shuffles return the lane's own value, ballots its own bit.
 SHIM = '''
 #include <math.h>
 #include <stdint.h>
+#include <stdlib.h>
 #include <string.h>
 
 #include <algorithm>
@@ -65,6 +76,7 @@ using std::min;
 #define __global__
 #define __device__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __restrict__
 #define __shared__ static
 #define __syncthreads()
@@ -72,7 +84,6 @@ using std::min;
 #define __launch_bounds__(...)
 
 static uint32_t host_shared[1 << 16];
-static unsigned host_lane = 0;
 
 struct HostDim3 {
   unsigned x = 0, y = 0, z = 0;
@@ -86,6 +97,42 @@ inline float __int_as_float(int i) {
   memcpy(&f, &i, 4);
   return f;
 }
+inline int __float_as_int(float f) {
+  int i;
+  memcpy(&i, &f, 4);
+  return i;
+}
+inline float __uint_as_float(uint32_t i) {
+  float f;
+  memcpy(&f, &i, 4);
+  return f;
+}
+// asynchronous copies (tri_march's row staging): the copy is made at once,
+// so committing and waiting have nothing to do
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {
+  memcpy(dst, src, n);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
+// tri_march's deferred rays: one thread at a time runs to its end, so
+// fences and waits have nothing to order
+struct int4 {
+  int x, y, z, w;
+};
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
+inline void __threadfence() {}
+inline void __nanosleep(unsigned) {}
+inline void __trap() { abort(); }
+inline long long clock64() {
+  static long long t = 0;
+  return t++;
+}
+template <class T>
+inline T atomicSub(T* p, T v) {
+  const T old = *p;
+  *p -= v;
+  return old;
+}
 template <class T>
 inline T atomicAdd(T* p, T v) {
   const T old = *p;
@@ -98,10 +145,13 @@ template <class T>
 inline T __shfl_up_sync(unsigned, T v, int) { return v; }
 template <class T>
 inline T __shfl_down_sync(unsigned, T v, int) { return v; }
+template <class T>
+inline T __shfl_xor_sync(unsigned, T v, int) { return v; }
 inline unsigned __ballot_sync(unsigned, int p) {
-  return p ? 1u << host_lane : 0u;
+  return p ? 1u : 0u;
 }
 inline bool __all_sync(unsigned, int p) { return p != 0; }
+inline bool __any_sync(unsigned, int p) { return p != 0; }
 inline int __ffs(unsigned x) { return __builtin_ffs(x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 typedef int cudaError_t;
@@ -239,13 +289,13 @@ extern "C" void host_launch(
     float half, float bwf, float scale, float tri_vs, float tri_half,
     int l_width, int k_first, int k_drain, int max_groups, int max_laps,
     int smem_words, void* t_out, void* id_out, void* u_out, void* v_out,
-    void* unresolved, void* next_ray) {
+    void* unresolved, void* sched, void* deferred) {
   const MarchArgs a = march_args(
       o, d, t_min, t_max, coarse, coarse_words, l2, l2_words, fine, nb,
       cell_slot, cell_tris, tri9, tri_origin, n, nx, ny, nz, bx, by, bz, ogx,
       ogy, ogz, vs, half, bwf, scale, tri_vs, tri_half, l_width, k_first,
       k_drain, max_groups, max_laps, smem_words, t_out, id_out, u_out, v_out,
-      unresolved, next_ray);
+      unresolved, sched, deferred);
   if (a.l2_words) memcpy(host_shared, a.l2, sizeof(uint32_t) * a.l2_words);
   if (a.coarse_smem)
     memcpy(host_shared + a.l2_words, a.coarse,
@@ -257,18 +307,18 @@ extern "C" void host_launch(
   blockIdx.x = 0;
   for (unsigned t = 0; t < blockDim.x; ++t) {
     threadIdx.x = t;
-    host_lane = t & 31;
     tri_march_kernel(a);
   }
 }
 ''', [P] * 5 + [I, P, I, P, I] + [P] * 4 + [I] * 7 + [F] * 9 + [I] * 6
-        + [P] * 6),
+        + [P] * 7),
 }
 
 
-def _host_build(out, name, src, driver, include):
+def _host_build(out, name, src, driver, include, defines=()):
     """g++ build of kernel source `src` (launch stub cut off) with the
-    host driver appended, headers from `include`: the loaded library."""
+    host driver appended, headers from `include`, macros `defines` (-D
+    flags): the loaded library."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels for the host")
@@ -276,28 +326,35 @@ def _host_build(out, name, src, driver, include):
     body = src[:src.index("}  // namespace")]
     body = body.replace("#include <cuda_runtime.h>",
                         '#include "cuda_host_shim.h"')
+    body = body.replace("#include <cuda_pipeline.h>\n", "")
     body = re.sub(r"extern __shared__ uint32_t (\w+)\[\];",
                   r"uint32_t* \1 = host_shared;", body)
     cpp = out / f"{name}.cpp"
     cpp.write_text(body + "}  // namespace\n" + driver)
     lib = out / f"lib{name}.so"
-    subprocess.run([gxx, "-O1", "-ffp-contract=off", "-std=c++17", "-I",
-                    str(include), "-I", str(out), "-shared", "-fPIC", "-o",
-                    str(lib), str(cpp)], check=True, capture_output=True,
-                   timeout=300)
+    subprocess.run([gxx, "-O1", "-ffp-contract=off", "-std=c++17",
+                    *defines, "-I", str(include), "-I", str(out), "-shared",
+                    "-fPIC", "-o", str(lib), str(cpp)], check=True,
+                   capture_output=True, timeout=300)
     return ctypes.CDLL(str(lib))
 
 
 @pytest.fixture(scope="module")
 def host_kernels(tmp_path_factory):
+    """Each kernel's host launcher by name; tri_march's once per ray
+    schedule, as "tri_march/own" and "tri_march/shared"."""
     out = tmp_path_factory.mktemp("host_kernels")
     fns = {}
     for name, (driver, argtypes) in DRIVERS.items():
-        fn = _host_build(out, name, (CSRC / f"{name}.cu").read_text(),
-                         driver, CSRC).host_launch
-        fn.argtypes = argtypes
-        fn.restype = None
-        fns[name] = fn
+        builds = ({f"{name}/{k}": v for k, v in TRI_SCHEDULES.items()}
+                  if name == "tri_march" else {name: ()})
+        for key, defines in builds.items():
+            fn = _host_build(out, key.replace("/", "_"),
+                             (CSRC / f"{name}.cu").read_text(), driver, CSRC,
+                             defines).host_launch
+            fn.argtypes = argtypes
+            fn.restype = None
+            fns[key] = fn
     return fns
 
 
@@ -862,15 +919,18 @@ def test_host_staged_march_matches_plain(host_kernels, kind, two_level, k,
 def _tri_scene(name, res):
     """(triangles (F, 3, 3), TriAccel on the CPU) of a small mesh, or of
     "pair": a knot and a sphere far apart along x, an empty superbrick
-    between them."""
+    between them.  "long-rows" is the knot on a grid coarse enough that
+    rows span several of tri_march's row chunks; "capped" the knot with
+    rows cut at ROW_CHUNK + 5 triangles (max_l_width: the cells beyond it
+    overflow, and a full row ends inside its second chunk)."""
     kv, kf = meshes.torus_knot(2, 3, 64, 8)
     sv, sf = meshes.icosphere(3)
-    tri = {"icosphere": lambda: sv[sf], "knot": lambda: kv[kf],
-           "pair": lambda: np.concatenate([
+    tri = {"icosphere": lambda: sv[sf], "pair": lambda: np.concatenate([
                kv[kf], sv[sf] * np.float32(0.4) + np.float32([9.0, 0, 0])])
-           }[name]()
+           }.get(name, lambda: kv[kf])()
+    cap = {"capped": ROW_CHUNK + 5}.get(name, 512)
     return tri, build_tri_accel(tri[:, 0], tri[:, 1], tri[:, 2], res=res,
-                                device="cpu")
+                                max_l_width=cap, device="cpu")
 
 
 def _tri_rays(kind, tri, ta, rng):
@@ -919,18 +979,32 @@ def _tri_rays(kind, tri, ta, rng):
 
 
 @pytest.mark.parametrize("name,res", [("icosphere", 24), ("knot", 32),
-                                      ("pair", 192)])
+                                      ("pair", 192), ("long-rows", 6),
+                                      ("capped", 8)])
 @pytest.mark.parametrize("kind", ["camera", "inside", "shadow", "grazing"])
 @pytest.mark.parametrize("two_level", [False, True])
 def test_host_tri_march_matches_plain(host_kernels, name, res, kind,
                                       two_level):
     """The march kernel built for the host (its warps one lane wide, so
     the lane takes a new ray from the counter after every lap, as on the
-    card) against tri_march_plain (the lap loop over the staged walk): t
-    and id bit-equal, u and v bit-equal where there is a hit, unresolved
-    0 on both sides.  The pair's grid has an empty superbrick, so its
-    two-level walk takes the landing step."""
+    card; its asynchronous row copies made at once) against
+    tri_march_plain (the lap loop over the staged walk), with every row
+    tested by its own lane and with every lap's row through the shared
+    row test (the two builds of TRI_SCHEDULES): t and id bit-equal, u and
+    v bit-equal where there is a hit, unresolved 0 on both sides.  The
+    pair's grid has an empty superbrick, so its two-level walk takes the
+    landing step; "long-rows" has rows longer
+    than one row chunk, ending at and inside a chunk; "capped" rows cut
+    by l_width."""
     tri, ta = _tri_scene(name, res)
+    per_row = (ta.cell_tris >= 0).sum(1)
+    if name == "long-rows":
+        assert ta.l_width > 2 * ROW_CHUNK
+        assert bool(((per_row > ROW_CHUNK) & (per_row % ROW_CHUNK != 0))
+                    .any())
+    if name == "capped":
+        assert ta.overflow_cells > 0 and ta.l_width == ROW_CHUNK + 5
+        assert bool((per_row == ta.l_width).any())
     o, d, tmn, tmx = _tri_rays(kind, tri, ta, np.random.default_rng(res))
     t = torch.from_numpy
     want = tri_march_plain(t(o), t(d), t(tmn), t(tmx), ta,
@@ -938,19 +1012,21 @@ def test_host_tri_march_matches_plain(host_kernels, name, res, kind,
     n = len(o)
     hit = want[1] >= 0
     assert want[4] == 0 and int(hit.sum()) > 20
-    outs = (torch.empty(n), torch.empty(n, dtype=torch.int32),
-            torch.empty(n), torch.empty(n), torch.zeros(1, dtype=torch.int64))
-    args = tri_march._launch_args(
-        t(o), t(d), t(tmn), t(tmx), ta, ta.brick.l2 if two_level else None,
-        outs, torch.zeros(1, dtype=torch.int32))
-    host_kernels["tri_march"](*[x.data_ptr() if torch.is_tensor(x) else x
-                                for x in args])
-    got_t, got_id, got_u, got_v, unresolved = outs
-    assert int(unresolved) == 0
-    assert torch.equal(got_id, want[1])
-    assert torch.equal(got_t, want[0])
-    assert torch.equal(got_u[hit], want[2][hit])
-    assert torch.equal(got_v[hit], want[3][hit])
+    for schedule in TRI_SCHEDULES:
+        outs = (torch.empty(n), torch.empty(n, dtype=torch.int32),
+                torch.empty(n), torch.empty(n),
+                torch.zeros(1, dtype=torch.int64))
+        args = tri_march._launch_args(
+            t(o), t(d), t(tmn), t(tmx), ta,
+            ta.brick.l2 if two_level else None, outs)
+        host_kernels[f"tri_march/{schedule}"](
+            *[x.data_ptr() if torch.is_tensor(x) else x for x in args])
+        got_t, got_id, got_u, got_v, unresolved = outs
+        assert int(unresolved) == 0
+        assert torch.equal(got_id, want[1])
+        assert torch.equal(got_t, want[0])
+        assert torch.equal(got_u[hit], want[2][hit])
+        assert torch.equal(got_v[hit], want[3][hit])
     if name == "pair":
         n_sup = int(np.prod([-(-b // 8) for b in ta.brick.bdims]))
         bits = np.unpackbits(ta.brick.l2.numpy().view(np.uint8),
@@ -1030,8 +1106,7 @@ def test_host_tri_march_work_count_is_the_kernels(counting_march, name, res,
     n = o.shape[0]
     outs = (torch.empty(n), torch.empty(n, dtype=torch.int32),
             torch.empty(n), torch.empty(n), torch.zeros(1, dtype=torch.int64))
-    args = tri_march._launch_args(o, d, tmn, tmx, ta, None, outs,
-                                  torch.zeros(1, dtype=torch.int32))
+    args = tri_march._launch_args(o, d, tmn, tmx, ta, None, outs)
     bricks, cells = counting_march(*args)
     want, work, _ = march_work(o, d, tmn, tmx, ta)
     assert torch.equal(outs[1], want[1])

@@ -11,7 +11,8 @@
 // tri_march_plain) runs the same laps as tensor ops launched from the
 // host; this kernel gives its (t, id, u, v) bit for bit.
 //
-// One thread holds one ray through every lap, its state in registers:
+// A lane holds a ray through its laps, its state in registers (a deferred
+// ray moves to another lane, below):
 //  1. round 0: the cell holding o + d * t_min, its triangle row tested with
 //     t_lo = t_min and the cell's exit as the upper bound;
 //  2. laps (at most nx + ny + nz + 4): the first accepted cell after t_cur
@@ -31,35 +32,110 @@
 // bandwidth or arithmetic.  Each lap is a dependent chain: brick words, a
 // fine word per cell, the cell's row of cell_tris (<= l_width ids) and
 // 36 bytes of tri9 per triangle; most rays stop within a few laps, a few
-// run ~100 (on the bench frame the longest ray alone takes ~1 ms).  The
-// design: no intermediate tensors and no host round trips between laps
-// (the lap loop's ~150 launches and a host sync per lap); persistent
-// warps whose lanes take a new ray after every lap once theirs is done,
-// so lanes do not idle behind the longest ray of their warp or block (on
-// the bench frame this beat one thread per ray and warps taking 32-ray
-// batches, PERF.md); a row's triangles loaded kRowChunk at a time, their loads
-// in flight together; the superbrick mask and, when it fits the 48 KB
-// default shared memory together with it, the brick mask copied into
-// shared memory once per block; fine, cell_slot, cell_tris and tri9 read
-// through the read-only path (at res 256 cell_tris and tri9 are ~74 MB,
-// more than the 50 MB L2, but rays come in render_image's 8x128 tile
-// order, so neighbouring lanes walk the same bricks and read the same
-// rows).
+// run ~100.  Neighbouring rays graze the same surfaces, so the long rays
+// come in clusters, and in one warp their walks diverge and take turns:
+// on the bench frame the 39 rays with >= 64 laps take 3x as long in two
+// warps as one to a warp (PERF.md).  The design:
+//  - no intermediate tensors and no host round trips between laps (the
+//    lap loop's ~150 launches and a host sync per lap);
+//  - persistent warps whose lanes take a new ray (in tile order, one
+//    counter add per warp) after every lap once theirs is done;
+//  - when rays outnumber lanes, a ray still marching after kLapBudget
+//    laps is deferred (its index, t_cur and laps to a slot; a lap
+//    restarts the walk from t_cur, so any lane can take it on) and its
+//    lane takes a new ray; once the counter is spent, warps take the
+//    deferred rays back by ticket, at most max(kShareLanes, 1) and their
+//    share of those waiting each, so the long rays spread over the card;
+//  - a lane's own row loaded kRowChunk triangles at a time, their loads
+//    in flight together; while at most kShareLanes lanes of a warp hold
+//    a ray (a deferred long ray in its warp), the whole warp tests each
+//    of their rows (shared_rows): a lane stages its positions of the row
+//    in shared memory with cp.async (ids, then their tri9 rows), the next
+//    row's copies in flight while a row is tested, and a shuffle
+//    reduction picks the nearest hit, so a long ray's row costs two copy
+//    stages and two tests instead of ~2 dependent loads per 4 triangles
+//    (the walk, shared with staged_march, is then most of its lap);
+//  - the superbrick mask and, when it fits the 48 KB default shared
+//    memory together with it, the brick mask copied into shared memory
+//    once per block; fine, cell_slot, cell_tris and tri9 read through the
+//    read-only path (at res 256 cell_tris and tri9 are ~74 MB, more than
+//    the 50 MB L2, but rays in render_image's 8x128 tile order walk the
+//    same bricks and read the same rows as their neighbours).
+// Every lane's row staged in shared memory instead (measured, PERF.md)
+// cost more than it saved: the staging takes 84 bytes a lane per row
+// slot, so the multiprocessor held fewer lanes and the bulk of short
+// rays, bound by throughput, slowed.
 //
 // Numerics: built with --fmad=false and without fast math (see
 // ops/kernels/_build.py); every constant is a float literal, as the plain
 // version's float32 tensors round Python scalars; sums are taken left to
 // right as ops/intersect._dot, cross products as _cross, the direction's
 // inverse is one IEEE reciprocal (as `1.0 / d`), and min/max propagate NaN.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "brick_walk.cuh"
 
+
 namespace {
 
 constexpr int kThreads = 128;
+// the warp width: 32 on the card; the host build of the tests sets 1
+#ifndef VOXELRAY_WARP
+#define VOXELRAY_WARP 32
+#endif
+constexpr int kWarp = VOXELRAY_WARP;
+
+// The ray schedule's two settings (scripts/torch_tri_march_laps.py builds
+// other values with -D): while at most kShareLanes lanes of a warp hold a
+// ray, the warp tests each of their rows with all its lanes; when rays
+// outnumber lanes, a ray still marching after kLapBudget laps is deferred
+// (0: none).
+#ifndef TRI_SHARE_LANES
+#define TRI_SHARE_LANES 1
+#endif
+#ifndef TRI_LAP_BUDGET
+#define TRI_LAP_BUDGET 8
+#endif
+constexpr int kShareLanes = TRI_SHARE_LANES;
+constexpr int kLapBudget = TRI_LAP_BUDGET;
+
+// The lap split (scripts/torch_tri_march_laps.py builds this file with
+// -DTRI_MARCH_LAP_CLOCKS; ops/kernels/_build.py never does): each lane's
+// clock64 cycles in the staged walk, the row's loads and the tests,
+// summed over the rays of a launch into g_lap_clocks with the ray-laps.
+#ifdef TRI_MARCH_LAP_CLOCKS
+__device__ unsigned long long g_lap_clocks[4];  // walk, loads, tests, laps
+struct LapClocks {
+  long long t;
+  unsigned long long part[3];
+  int lap0;
+};
+// from lap `lap` of a ray on
+__device__ __forceinline__ void lap_start(LapClocks& c, int lap) {
+  c = LapClocks();
+  c.t = clock64();
+  c.lap0 = lap;
+}
+__device__ __forceinline__ void lap_stamp(LapClocks& c, int part) {
+  const long long now = clock64();
+  c.part[part] += now - c.t;
+  c.t = now;
+}
+// the ray after `laps` laps in all
+__device__ __forceinline__ void lap_flush(const LapClocks& c, int laps) {
+  for (int k = 0; k < 3; ++k) atomicAdd(&g_lap_clocks[k], c.part[k]);
+  atomicAdd(&g_lap_clocks[3], static_cast<unsigned long long>(laps - c.lap0));
+}
+#else
+struct LapClocks {};
+__device__ __forceinline__ void lap_start(LapClocks&, int) {}
+__device__ __forceinline__ void lap_stamp(LapClocks&, int) {}
+__device__ __forceinline__ void lap_flush(const LapClocks&, int) {}
+#endif
+enum { kClkWalk = 0, kClkLoads = 1, kClkTests = 2 };
 
 // Moller-Trumbore of the ray against triangle v = (v0 | v1 | v2), with
 // hit_triangles' expressions (ops/intersect.py:95-124): whether it hits
@@ -86,21 +162,41 @@ __device__ __forceinline__ bool tri_hit(const Ray& r, const float* v,
          t < r.t_hi && t <= span_hi;
 }
 
-// A row's triangles are loaded kRowChunk at a time before any of them is
-// tested, so that their loads are in flight together instead of one chain
-// of id load, vertex loads and test per triangle
+// A row test's result: the nearest hit (t, id, u, v); id -1 (t +inf): none
+struct Hit {
+  float t;
+  int id;
+  float u, v;
+};
+
+__device__ __forceinline__ Hit no_hit() {
+  return Hit{__int_as_float(0x7f800000), -1, 0.0f, 0.0f};
+}
+
+// One ray's march between laps: the ray, t_cur, the laps run, whether it
+// was deferred and taken back (and, in the lap-split build, its clocks).
+struct March {
+  Ray r;
+  float t_cur;
+  int lap;
+  bool resumed;
+  LapClocks clk;
+};
+
+// A lane's own row is loaded kRowChunk triangles at a time before any of
+// them is tested, so that their loads are in flight together instead of
+// one chain of id load, vertex loads and test per triangle
 constexpr int kRowChunk = 4;
 
 // Moller-Trumbore over row `slot` of cell_tris (ids ascending, -1 pads
-// last): the nearest hit with t_lo < t < r.t_hi and t <= span_hi, ties to
-// the lowest id.  Returns whether there is one, in (t, id, u, v).
-__device__ __forceinline__ bool row_test(
-    const Ray& r, const int* __restrict__ cell_tris,
+// last) by one lane with the ray of m: the nearest hit with t_lo < t <
+// r.t_hi and t <= span_hi, ties to the lowest id, into h.
+__device__ __forceinline__ void row_test(
+    March& m, const int* __restrict__ cell_tris,
     const float* __restrict__ tri9, int slot, int l_width, float t_lo,
-    float span_hi, float& t_out, int& id_out, float& u_out, float& v_out) {
-  float best = __int_as_float(0x7f800000);
-  int best_id = -1;
-  float best_u = 0.0f, best_v = 0.0f;
+    float span_hi, Hit& h) {
+  const Ray& r = m.r;
+  h = no_hit();
   const int* row = cell_tris + static_cast<size_t>(slot) * l_width;
   bool more = true;
   for (int j0 = 0; j0 < l_width && more; j0 += kRowChunk) {
@@ -116,6 +212,19 @@ __device__ __forceinline__ bool row_test(
         tv[k][c] = ids[k] >= 0
                        ? __ldg(tri9 + static_cast<size_t>(ids[k]) * 9 + c)
                        : 0.0f;
+#ifdef TRI_MARCH_LAP_CLOCKS
+    // the loads land before the stamp: a volatile store of their bits
+    {
+      uint32_t bits = 0u;
+#pragma unroll
+      for (int k = 0; k < kRowChunk; ++k)
+#pragma unroll
+        for (int c = 0; c < 9; ++c) bits ^= __float_as_uint(tv[k][c]);
+      volatile uint32_t sink = bits;
+      (void)sink;
+    }
+#endif
+    lap_stamp(m.clk, kClkLoads);
 #pragma unroll
     for (int k = 0; k < kRowChunk; ++k) {
       if (ids[k] < 0) {
@@ -123,21 +232,183 @@ __device__ __forceinline__ bool row_test(
         break;
       }
       float t, u, v;
-      if (tri_hit(r, tv[k], t_lo, span_hi, t, u, v) && t < best) {
-        best = t;
-        best_id = ids[k];
-        best_u = u;
-        best_v = v;
-      }
+      if (tri_hit(r, tv[k], t_lo, span_hi, t, u, v) && t < h.t)
+        h = Hit{t, ids[k], u, v};
     }
+    lap_stamp(m.clk, kClkTests);
   }
-  if (best_id < 0) return false;
-  t_out = best;
-  id_out = best_id;
-  u_out = best_u;
-  v_out = best_v;
-  return true;
 }
+
+// A row shared by the warp is staged in the lanes' slices of the block's
+// dynamic shared memory with asynchronous copies (cp.async, 4 bytes
+// each): a lane copies its kShareSlots positions of the row's ids, then
+// their tri9 rows, all of a stage's copies in flight together.  Three id
+// buffers and two tri9 buffers, so that the next row's tri9 rows and the
+// one after's ids fly while a row is tested.  A lane's word w lies at
+// stage[w * kThreads] (lanes never share a bank).
+constexpr int kShareSlots = 2;  // one round covers rows of <= 64
+constexpr int kIdBufs = 3, kTriBufs = 2;
+constexpr int kStageWords = (kIdBufs + 9 * kTriBufs) * kShareSlots;
+
+__device__ __forceinline__ uint32_t* stage_ids(uint32_t* stage, int buf) {
+  return stage + buf * kShareSlots * kThreads;
+}
+__device__ __forceinline__ uint32_t* stage_tris(uint32_t* stage, int buf) {
+  return stage + (kIdBufs + 9 * buf) * kShareSlots * kThreads;
+}
+
+// The tri9 rows of the cnt landed ids in `ids` up to the first -1 pad into
+// tri buffer `dst` (copies issued); returns how many ids precede the pad.
+__device__ __forceinline__ int copy_tris(const uint32_t* ids, int cnt,
+                                         const float* __restrict__ tri9,
+                                         uint32_t* dst) {
+  int k = 0;
+  for (; k < cnt; ++k) {
+    const int id = static_cast<int>(ids[k * kThreads]);
+    if (id < 0) break;
+    const float* src = tri9 + static_cast<size_t>(id) * 9;
+#pragma unroll
+    for (int c = 0; c < 9; ++c)
+      __pipeline_memcpy_async(dst + (9 * k + c) * kThreads, src + c, 4);
+  }
+  return k;
+}
+
+// Moller-Trumbore over the m landed triangles of (ids, tris) in slot
+// order, ids ascending: a nearer hit replaces h (ties keep the lower id).
+// Two at a time, so that their loads and divisions overlap.
+__device__ __forceinline__ void test_staged(const Ray& r, const uint32_t* ids,
+                                            const uint32_t* tris, int m,
+                                            float t_lo, float span_hi,
+                                            Hit& h) {
+  for (int k0 = 0; k0 < m; k0 += 2) {
+    bool hit[2];
+    float t[2], u[2], w[2];
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const int k = min(k0 + b, m - 1);
+      float v[9];
+#pragma unroll
+      for (int c = 0; c < 9; ++c)
+        v[c] = __uint_as_float(tris[(9 * k + c) * kThreads]);
+      hit[b] = tri_hit(r, v, t_lo, span_hi, t[b], u[b], w[b]) && k == k0 + b;
+    }
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+      if (hit[b] && t[b] < h.t)
+        h = Hit{t[b], static_cast<int>(ids[(k0 + b) * kThreads]), u[b], w[b]};
+  }
+}
+
+// One lap's cell: its row's slot, its t-span and the bounds of its test
+struct LapCell {
+  int slot;
+  float t0, t1, t_lo, span_hi;
+};
+
+// The rows of the lanes in `rows` (a ballot; each lane's own ray in m and
+// cell in c), each tested by the whole warp, one after another.  Job j is
+// round j % per_row of the row of the (j / per_row)-th lane of `rows`:
+// lane L takes its positions L, L + kWarp, ... (kShareSlots of them) from
+// the round's first, stages them and tests them with the owner's ray.
+// After a row's last round, its nearest hit, ties to the lowest id, is
+// reduced with shuffles into the owner's h.  The same (t, id, u, v) as
+// row_test: each triangle's test is the same expression.  Called by the
+// whole warp.
+__device__ __forceinline__ void shared_rows(
+    March& m, const int* __restrict__ cell_tris,
+    const float* __restrict__ tri9, uint32_t* stage, int l_width,
+    unsigned rows, const LapCell& c, Hit& h) {
+  const Ray& r = m.r;
+  const unsigned all = 0xffffffffu;
+  const int lane = threadIdx.x % kWarp;
+  const int span = kWarp * kShareSlots;
+  const int per_row = (l_width + span - 1) / span;
+  const int jobs = __popc(rows) * per_row;
+  // the lane of `rows` whose row job j tests
+  const auto owner = [&](int j) {
+    unsigned left = rows;
+    for (int k = j / per_row; k > 0; --k) left &= left - 1u;
+    return __ffs(left) - 1;
+  };
+  // this lane's first position in job j and how many it takes
+  const auto first = [&](int j) { return (j % per_row) * span + lane; };
+  const auto count = [&](int j) {
+    const int j0 = first(j);
+    return j0 < l_width ? min(kShareSlots, (l_width - j0 + kWarp - 1) / kWarp)
+                        : 0;
+  };
+  const auto copy_ids = [&](int j) {
+    const int slot = __shfl_sync(all, c.slot, owner(j));
+    const int* src = cell_tris + static_cast<size_t>(slot) * l_width +
+                     first(j);
+    uint32_t* dst = stage_ids(stage, j % kIdBufs);
+    for (int k = 0; k < count(j); ++k)
+      __pipeline_memcpy_async(dst + k * kThreads, src + k * kWarp, 4);
+  };
+  if (jobs == 0) return;
+  copy_ids(0);
+  if (jobs > 1) copy_ids(1);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  int got = copy_tris(stage_ids(stage, 0), count(0), tri9,
+                      stage_tris(stage, 0));
+  __pipeline_commit();
+  Hit b = no_hit();
+  for (int j = 0; j < jobs; ++j) {
+    // job j's tri9 rows and job j + 1's ids have landed
+    __pipeline_wait_prior(0);
+    lap_stamp(m.clk, kClkLoads);
+    int got_next = 0;
+    if (j + 1 < jobs) {
+      got_next = copy_tris(stage_ids(stage, (j + 1) % kIdBufs), count(j + 1),
+                         tri9, stage_tris(stage, (j + 1) % kTriBufs));
+      if (j + 2 < jobs) copy_ids(j + 2);
+      __pipeline_commit();
+    }
+    lap_stamp(m.clk, kClkLoads);
+    const int o = owner(j);
+    Ray q = r;
+    q.ox = __shfl_sync(all, r.ox, o);
+    q.oy = __shfl_sync(all, r.oy, o);
+    q.oz = __shfl_sync(all, r.oz, o);
+    q.dx = __shfl_sync(all, r.dx, o);
+    q.dy = __shfl_sync(all, r.dy, o);
+    q.dz = __shfl_sync(all, r.dz, o);
+    q.t_hi = __shfl_sync(all, r.t_hi, o);
+    test_staged(q, stage_ids(stage, j % kIdBufs),
+                stage_tris(stage, j % kTriBufs), got,
+                __shfl_sync(all, c.t_lo, o), __shfl_sync(all, c.span_hi, o),
+                b);
+    if (j % per_row == per_row - 1) {
+      for (int off = kWarp / 2; off > 0; off /= 2) {
+        const Hit x{__shfl_xor_sync(all, b.t, off),
+                    __shfl_xor_sync(all, b.id, off),
+                    __shfl_xor_sync(all, b.u, off),
+                    __shfl_xor_sync(all, b.v, off)};
+        if (x.t < b.t || (x.t == b.t && x.id < b.id)) b = x;
+      }
+      if (lane == o) h = b;
+      b = no_hit();
+    }
+    lap_stamp(m.clk, kClkTests);
+    got = got_next;
+  }
+}
+
+// The ray schedule's counters, each on a 128-byte line of its own (zeroed
+// ints on the device, counter k at sched[k * kLine]): the next ray to
+// start, the rays deferred, the tickets for deferred rays handed out, and
+// the rays from the counter done or deferred (each ray once: once it
+// reaches n, no ray is deferred any more).  An idle warp sleeps between
+// passes, kIdleNs at first, twice as long each pass up to 32 times that;
+// one idle for kIdleCycles (~4 s) traps, so that the launch fails instead
+// of hanging or leaving a ray unwritten (never by construction).
+enum { kNextRay = 0, kDeferred = 1, kTicket = 2, kSettled = 3 };
+constexpr int kLine = 32;
+constexpr int kSchedWords = 4 * kLine;
+constexpr int kIdleNs = 256;
+constexpr long long kIdleCycles = 1ll << 33;
 
 // Everything one trace reads and writes.  o, d: (n, 3); t_min, t_max:
 // (n,); coarse (coarse_words), l2 (l2_words, null for one level), fine
@@ -145,14 +416,16 @@ __device__ __forceinline__ bool row_test(
 // (rows, l_width), tri9 (F + 1, 9), tri_origin (3): the tri accel.  tg is
 // the tri grid, its origin read from tri_origin in the kernel.  Outputs t,
 // id, u, v (n,) (+inf, -1, 0, 0 on a miss); *unresolved counts the rays
-// left at the lap bound; next_ray is the zeroed counter from which the
-// warps take their rays.
+// left at the lap bound; sched holds the schedule's counters and
+// deferred (n) the deferred rays (i, t_cur bits, laps run, a ready
+// flag), both zeroed; deferred null: no ray is deferred.
 struct MarchArgs {
   const float *o, *d, *t_min, *t_max;
   const uint32_t *coarse, *l2, *fine;
   const int *cell_slot, *cell_tris;
   const float *tri9, *tri_origin;
-  int coarse_words, coarse_smem, l2_words, n, nz, l_width, max_laps;
+  int coarse_words, coarse_smem, l2_words, table_words, n, nz, l_width,
+      max_laps;
   WalkGrid wg;
   FineGrid fg, tg;
   Schedule sc;
@@ -160,14 +433,8 @@ struct MarchArgs {
   int* id_out;
   float *u_out, *v_out;
   unsigned long long* unresolved;
-  int* next_ray;
-};
-
-// One ray's march between laps: the ray, t_cur and the laps run.
-struct March {
-  Ray r;
-  float t_cur;
-  int lap;
+  int* sched;
+  int4* deferred;
 };
 
 __device__ __forceinline__ void write_hit(const MarchArgs& a, int i, float t,
@@ -178,17 +445,24 @@ __device__ __forceinline__ void write_hit(const MarchArgs& a, int i, float t,
   a.v_out[i] = v;
 }
 
-// Starts ray i: loads it and runs round 0, the cell holding the start
-// point o + d * t_min.  Returns true when that ends the ray (a hit, written).
-__device__ __forceinline__ bool march_start(const MarchArgs& a,
-                                            const FineGrid& tg, int i,
-                                            March& m) {
-  const float tmin = a.t_min[i];
-  m.r = load_ray(a.o, a.d, i, tmin, a.t_max[i]);
+// Takes up ray i at t_cur after `lap` laps (0: a new ray, t_cur its
+// t_min; more: a deferred ray).
+__device__ __forceinline__ void start_ray(const MarchArgs& a, int i,
+                                          float t_cur, int lap, March& m) {
+  m.r = load_ray(a.o, a.d, i, a.t_min[i], a.t_max[i]);
   set_tie_eps(m.r, a.fg);
-  m.t_cur = tmin;
-  m.lap = 0;
+  m.t_cur = t_cur;
+  m.lap = lap;
+  m.resumed = lap > 0;
+  lap_start(m.clk, lap);
+}
+
+// Round 0 of a new ray i: the cell holding the start point o + d * t_min.
+// Returns true when that ends the ray (a hit, written).
+__device__ __forceinline__ bool round0(const MarchArgs& a, const FineGrid& tg,
+                                       int i, March& m) {
   const Ray& r = m.r;
+  const float tmin = m.t_cur;
   const int c0x = floor_cell(((r.ox + r.dx * tmin) - tg.ogx) / tg.vs);
   const int c0y = floor_cell(((r.oy + r.dy * tmin) - tg.ogy) / tg.vs);
   const int c0z = floor_cell(((r.oz + r.dz * tmin) - tg.ogz) / tg.vs);
@@ -197,61 +471,123 @@ __device__ __forceinline__ bool march_start(const MarchArgs& a,
     return false;
   const int slot = __ldg(a.cell_slot + c0x + tg.nx * (c0y + tg.ny * c0z));
   if (slot < 0) return false;
-  float t0, t1, t, u, v;
-  int id;
+  float t0, t1;
   cell_slab(r, tg, c0x, c0y, c0z, t0, t1);
-  if (!row_test(r, a.cell_tris, a.tri9, slot, a.l_width, tmin,
-                t1 * 1.000001f + 1e-7f, t, id, u, v))
-    return false;
-  write_hit(a, i, t, id, u, v);
+  Hit h;
+  row_test(m, a.cell_tris, a.tri9, slot, a.l_width, tmin,
+           t1 * 1.000001f + 1e-7f, h);
+  if (h.id < 0) return false;
+  write_hit(a, i, h.t, h.id, h.u, h.v);
+  lap_flush(m.clk, 0);
   return true;
 }
 
-// One lap of ray i: the next nonempty cell, its triangle row, the advance.
-// Returns true when the ray is done (its outputs written): a hit, no next
-// cell, t_cur past t_max, or the lap bound (counted as unresolved;
-// max_laps >= 1).
-__device__ __forceinline__ bool march_lap(const MarchArgs& a,
-                                          const FineGrid& tg,
-                                          const uint32_t* s_l2,
-                                          const uint32_t* cmask, int i,
-                                          March& m) {
-  const float inf = __int_as_float(0x7f800000);
+// A lap of ray i is its walk (lap_cell), its cell's row test (row_test,
+// or shared_rows in a warp with few rays left) and its end (lap_end).
+
+// The walk: the next nonempty cell after t_cur, into c.  Returns false when
+// there is none (the ray's miss written).
+__device__ __forceinline__ bool lap_cell(const MarchArgs& a,
+                                         const FineGrid& tg,
+                                         const uint32_t* s_l2,
+                                         const uint32_t* cmask, int i,
+                                         March& m, LapCell& c) {
   m.r.t_lo = m.t_cur;
   Staged s;
   staged_first_cell<false>(m.r, a.wg, a.fg, s_l2, cmask, a.fine, a.sc, s);
+  lap_stamp(m.clk, kClkWalk);
   const int lin = s.lin;
-  bool done = lin < 0;
-  if (!done) {
-    float t0, t1, t, u, v;
-    int id;
-    cell_slab(m.r, tg, lin % tg.nx, (lin / tg.nx) % tg.ny,
-              lin / (tg.nx * tg.ny), t0, t1);
-    const int slot = max(__ldg(a.cell_slot + lin), 0);
-    if (row_test(m.r, a.cell_tris, a.tri9, slot, a.l_width,
-                 jmax(m.t_cur, t0 * 0.999999f - 1e-7f),
-                 t1 * 1.000001f + 1e-7f, t, id, u, v)) {
-      write_hit(a, i, t, id, u, v);
-      return true;
-    }
-    // advance to the tested cell's midpoint, never backward (one float up
-    // where a span of length 0 does not move it)
-    const float mid = 0.5f * (t0 + t1);
-    m.t_cur = mid > m.t_cur ? mid : nextafterf(m.t_cur, inf);
-    done = !(m.t_cur <= m.r.t_hi);
-    if (!done && ++m.lap == a.max_laps) {
-      atomicAdd(a.unresolved, 1ull);
-      done = true;
-    }
+  if (lin < 0) {
+    write_hit(a, i, __int_as_float(0x7f800000), -1, 0.0f, 0.0f);
+    lap_flush(m.clk, m.lap + 1);
+    return false;
   }
-  if (done) write_hit(a, i, inf, -1, 0.0f, 0.0f);
+  cell_slab(m.r, tg, lin % tg.nx, (lin / tg.nx) % tg.ny,
+            lin / (tg.nx * tg.ny), c.t0, c.t1);
+  c.slot = max(__ldg(a.cell_slot + lin), 0);
+  c.t_lo = jmax(m.t_cur, c.t0 * 0.999999f - 1e-7f);
+  c.span_hi = c.t1 * 1.000001f + 1e-7f;
+  return true;
+}
+
+// The lap's end after the row test h: the hit, or the advance.  Returns
+// true when the ray is done (its outputs written): a hit, t_cur past
+// t_max, or the lap bound (counted as unresolved; max_laps >= 1).
+__device__ __forceinline__ bool lap_end(const MarchArgs& a, int i,
+                                        const LapCell& c, const Hit& h,
+                                        March& m) {
+  const float inf = __int_as_float(0x7f800000);
+  if (h.id >= 0) {
+    write_hit(a, i, h.t, h.id, h.u, h.v);
+    lap_flush(m.clk, m.lap + 1);
+    return true;
+  }
+  // advance to the tested cell's midpoint, never backward (one float up
+  // where a span of length 0 does not move it)
+  const float mid = 0.5f * (c.t0 + c.t1);
+  m.t_cur = mid > m.t_cur ? mid : nextafterf(m.t_cur, inf);
+  bool done = !(m.t_cur <= m.r.t_hi);
+  if (!done && ++m.lap == a.max_laps) {
+    atomicAdd(a.unresolved, 1ull);
+    done = true;
+  }
+  if (done) {
+    write_hit(a, i, inf, -1, 0.0f, 0.0f);
+    lap_flush(m.clk, m.lap + 1);
+  }
   return done;
+}
+
+__device__ __forceinline__ int* counter(const MarchArgs& a, int k) {
+  return a.sched + k * kLine;
+}
+
+// Defers ray i at t_cur after `lap` laps: its state into the next slot of
+// `deferred` (its count at *count), the ready flag written last, then one
+// more ray settled.  (Out of line, as take_slot: both are rare, and
+// inlined they cost the lap loop registers.)
+__device__ __noinline__ void defer_ray(int* count, int* settled,
+                                       int4* deferred, int i, float t_cur,
+                                       int lap) {
+  int4* slot = deferred + atomicAdd(count, 1);
+  slot->x = i;
+  slot->y = __float_as_int(t_cur);
+  slot->z = lap;
+  __threadfence();
+  *reinterpret_cast<volatile int*>(&slot->w) = 1;
+  __threadfence();
+  atomicAdd(settled, 1);
+}
+
+// Whether deferred slot k is written (k < n: at most n rays are deferred)
+__device__ __forceinline__ bool slot_ready(const MarchArgs& a, int k) {
+  return k < a.n &&
+         reinterpret_cast<volatile int*>(&a.deferred[k].w)[0] != 0;
+}
+
+// The written deferred slot `slot`: (ray, t_cur bits, laps, flag).
+__device__ __noinline__ int4 take_slot(const int4* slot) {
+  __threadfence();
+  const volatile int4* v = slot;
+  return make_int4(v->x, v->y, v->z, v->w);
 }
 
 // Persistent warps, launched as many as fit on the card at once.  After
 // every lap the lanes whose ray is done take the next rays (in tile order)
 // from a global counter, one add for all of them, so no lane waits for the
-// longest ray of its warp or block.
+// longest ray of its warp or block.  When rays outnumber lanes, a ray
+// still marching after kLapBudget laps is deferred and its lane takes a
+// new ray: the long rays cluster (neighbouring rays graze the same
+// surface), and in one warp their walks diverge and take turns.  Once the
+// counter is spent, a warp's lanes take tickets for deferred rays (in the
+// order they were deferred) while the warp holds fewer rays and tickets
+// than max(kShareLanes, 1) plus its share of those waiting, so that the
+// long rays spread over the warps; a lane with a ticket takes its ray once
+// the ray's slot is written.  While at most kShareLanes lanes of a warp
+// hold a ray, the whole warp tests each of their rows (shared_rows).  A
+// warp ends once it holds no ray and no ray can be deferred any more.
+// Dynamic shared memory: the l2 and (when it fits) the brick mask, then
+// kStageWords per thread for the rows.
 __global__ void __launch_bounds__(kThreads) tri_march_kernel(MarchArgs a) {
   extern __shared__ uint32_t s_tab[];
   for (int w = threadIdx.x; w < a.l2_words; w += blockDim.x)
@@ -262,28 +598,144 @@ __global__ void __launch_bounds__(kThreads) tri_march_kernel(MarchArgs a) {
   __syncthreads();
   const uint32_t* s_l2 = a.l2 != nullptr ? s_tab : nullptr;
   const uint32_t* cmask = a.coarse_smem ? s_tab + a.l2_words : a.coarse;
+  uint32_t* stage = s_tab + a.table_words + threadIdx.x;
   FineGrid tg = a.tg;
   tg.ogx = __ldg(a.tri_origin);
   tg.ogy = __ldg(a.tri_origin + 1);
   tg.ogz = __ldg(a.tri_origin + 2);
-  const int lane = threadIdx.x & 31;
+  const unsigned all = 0xffffffffu;
+  const int lane = threadIdx.x % kWarp;
+  const unsigned below = (1u << lane) - 1u;   // the lanes before this one
+  const int warps = gridDim.x * (kThreads / kWarp);
+  // rays are deferred only when there are more of them than lanes: then a
+  // deferred ray's lane takes a new one (and the slots are given)
+  const bool defer = kLapBudget > 0 && a.deferred != nullptr &&
+                     a.n > gridDim.x * kThreads;
   March m;
-  int i = -1;                       // this lane's ray; -1 none, n retired
+  int i = -1;                       // this lane's ray; -1 none
+  int ticket = -1;                  // its deferred ray's slot; -1 none
+  bool spent = false;               // the ray counter is spent (warp-wide)
+  int sleep_ns = kIdleNs;           // the next idle pass's sleep
+  long long idle_since = -1;        // clock64 when the warp fell idle
+  // Once the counter is spent: tickets for deferred rays into free lanes
+  // while the warp holds fewer rays and tickets than max(kShareLanes, 1)
+  // plus its share of the deferred rays waiting (deferred - tickets, read
+  // before the pass's lap).
+  const auto take_tickets = [&](int deferred, int tickets) {
+    deferred = __shfl_sync(all, deferred, 0);
+    tickets = __shfl_sync(all, tickets, 0);
+    const unsigned free_lanes = __ballot_sync(all, i < 0 && ticket < 0);
+    const int waiting = deferred - tickets;
+    const int held = kWarp - __popc(free_lanes);     // rays and tickets
+    const int room = waiting <= 0 ? 0
+                                  : min(min(__popc(free_lanes), waiting),
+                                        max(kShareLanes, 1) +
+                                            waiting / warps - held);
+    if (room <= 0) return;
+    int first = 0;
+    if (lane == 0) first = atomicAdd(counter(a, kTicket), room);
+    first = __shfl_sync(all, first, 0);
+    if (i < 0 && ticket < 0 && __popc(free_lanes & below) < room)
+      ticket = first + __popc(free_lanes & below);
+  };
   for (;;) {
-    const bool need = i < 0;
-    const unsigned want = __ballot_sync(0xffffffffu, need);
-    if (want != 0u) {
-      const int leader = __ffs(want) - 1;
-      int base = 0;
-      if (lane == leader) base = atomicAdd(a.next_ray, __popc(want));
-      base = __shfl_sync(0xffffffffu, base, leader);
-      if (need) {
-        i = min(base + __popc(want & ((1u << lane) - 1u)), a.n);
-        if (i < a.n && march_start(a, tg, i, m)) i = -1;
+    bool fin = false;               // this lane's ray is done this pass
+    int take = -1;                  // the ray this lane takes up this pass
+    float take_t = 0.0f;
+    int take_lap = 0;
+    int deferred = 0, tickets = 0;
+    if (spent && lane == 0) {
+      deferred = *reinterpret_cast<volatile int*>(counter(a, kDeferred));
+      tickets = *reinterpret_cast<volatile int*>(counter(a, kTicket));
+    }
+    if (!spent) {
+      const unsigned want = __ballot_sync(all, i < 0);
+      if (want != 0u) {
+        const int leader = __ffs(want) - 1;
+        int base = 0;
+        if (lane == leader)
+          base = atomicAdd(counter(a, kNextRay), __popc(want));
+        base = __shfl_sync(all, base, leader);
+        spent = base + __popc(want) >= a.n;
+        const int k = base + __popc(want & below);
+        if (i < 0 && k < a.n) {
+          take = k;
+          take_t = a.t_min[k];
+        }
+      }
+    } else if (ticket >= 0 && slot_ready(a, ticket)) {
+      const int4 v = take_slot(a.deferred + ticket);
+      take = v.x;
+      take_t = __int_as_float(v.y);
+      take_lap = v.z;
+      ticket = -1;
+    }
+    if (__all_sync(all, i < 0 && take < 0)) {
+      // no ray this pass: once no ray can be deferred any more, tickets
+      // past the last deferred ray are dropped, and a warp with no ticket
+      // is done; otherwise take tickets and sleep, longer each time (and
+      // trap, never by construction, after kIdleCycles)
+      if (spent) {
+        int settled = a.n;
+        if (defer && lane == 0) {
+          __threadfence();
+          settled = *reinterpret_cast<volatile int*>(counter(a, kSettled));
+          __threadfence();
+          deferred = *reinterpret_cast<volatile int*>(counter(a, kDeferred));
+        }
+        settled = __shfl_sync(all, settled, 0);
+        if (settled >= a.n && ticket >= __shfl_sync(all, deferred, 0))
+          ticket = -1;
+        take_tickets(deferred, tickets);
+        if (settled >= a.n && __all_sync(all, ticket < 0)) break;
+      }
+      const long long now = clock64();
+      if (idle_since < 0) idle_since = now;
+      if (now - idle_since > kIdleCycles) __trap();
+      __nanosleep(sleep_ns);
+      sleep_ns = min(2 * sleep_ns, 32 * kIdleNs);
+      continue;
+    }
+    sleep_ns = kIdleNs;
+    idle_since = -1;
+    if (take >= 0) {
+      i = take;
+      start_ray(a, i, take_t, take_lap, m);
+      if (take_lap == 0 && round0(a, tg, i, m)) {
+        fin = true;
+        i = -1;
       }
     }
-    if (__all_sync(0xffffffffu, i >= a.n)) break;
-    if (i >= 0 && i < a.n && march_lap(a, tg, s_l2, cmask, i, m)) i = -1;
+    const bool live = i >= 0;
+    LapCell c;
+    const bool has_row = live && lap_cell(a, tg, s_l2, cmask, i, m, c);
+    if (live && !has_row) {
+      fin = true;
+      i = -1;
+    }
+    Hit h = no_hit();
+    if (__popc(__ballot_sync(all, live)) <= kShareLanes)
+      shared_rows(m, a.cell_tris, a.tri9, stage, a.l_width,
+                  __ballot_sync(all, has_row), c, h);
+    else if (has_row)
+      row_test(m, a.cell_tris, a.tri9, c.slot, a.l_width, c.t_lo, c.span_hi,
+               h);
+    if (has_row) {
+      if (lap_end(a, i, c, h, m)) {
+        fin = true;
+        i = -1;
+      } else if (defer && !m.resumed && m.lap >= kLapBudget) {
+        defer_ray(counter(a, kDeferred), counter(a, kSettled), a.deferred,
+                  i, m.t_cur, m.lap);
+        lap_flush(m.clk, m.lap);
+        i = -1;
+      }
+    }
+    if (spent) take_tickets(deferred, tickets);
+    // rays from the counter done this pass are settled
+    const unsigned settled = __ballot_sync(all, fin && !m.resumed);
+    if (defer && lane == 0 && settled != 0u)
+      atomicAdd(counter(a, kSettled), __popc(settled));
   }
 }
 
@@ -298,7 +750,7 @@ MarchArgs march_args(
     float half, float bwf, float scale, float tri_vs, float tri_half,
     int l_width, int k_first, int k_drain, int max_groups, int max_laps,
     int smem_words, void* t_out, void* id_out, void* u_out, void* v_out,
-    void* unresolved, void* next_ray) {
+    void* unresolved, void* sched, void* deferred) {
   MarchArgs a;
   a.o = static_cast<const float*>(o);
   a.d = static_cast<const float*>(d);
@@ -314,6 +766,7 @@ MarchArgs march_args(
   a.coarse_words = coarse_words;
   a.l2_words = l2 != nullptr ? l2_words : 0;
   a.coarse_smem = a.l2_words + coarse_words <= smem_words;
+  a.table_words = a.l2_words + (a.coarse_smem ? coarse_words : 0);
   a.n = n;
   a.nz = nz;
   a.l_width = l_width;
@@ -337,14 +790,49 @@ MarchArgs march_args(
   a.u_out = static_cast<float*>(u_out);
   a.v_out = static_cast<float*>(v_out);
   a.unresolved = static_cast<unsigned long long*>(unresolved);
-  a.next_ray = static_cast<int*>(next_ray);
+  a.sched = static_cast<int*>(sched);
+  a.deferred = static_cast<int4*>(deferred);
   return a;
 }
 
 }  // namespace
 
-// next_ray: a zeroed int counter on the device.  Launches as many blocks as
-// fit on the card at once (no more than the rays need).
+// Dynamic shared memory of a block, in bytes: the tables and the staging.
+static size_t smem_bytes(int table_words) {
+  return sizeof(uint32_t) *
+         (static_cast<size_t>(table_words) + kStageWords * kThreads);
+}
+
+// The opt-in above the default 48 KB, then the blocks a multiprocessor
+// holds with that shared memory.
+static cudaError_t blocks_per_sm(size_t smem, int* per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(
+      tri_march_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, tri_march_kernel, kThreads, smem);
+  return err;
+}
+
+// The launch configuration for `table_words` words of tables (the l2 mask
+// and, when it goes to shared memory, the brick mask): out = {a lane's row
+// chunk, a lane's slots of a shared row, kShareLanes, kLapBudget, threads
+// a block, dynamic shared memory bytes, blocks a multiprocessor}.
+extern "C" int tri_march_config(int table_words, int* out) {
+  const size_t smem = smem_bytes(table_words);
+  out[0] = kRowChunk;
+  out[1] = kShareSlots;
+  out[2] = kShareLanes;
+  out[3] = kLapBudget;
+  out[4] = kThreads;
+  out[5] = static_cast<int>(smem);
+  return static_cast<int>(blocks_per_sm(smem, &out[6]));
+}
+
+// sched: kSchedWords zeroed ints; deferred: n zeroed int4 where n exceeds
+// the lanes the launch holds (else null), on the device.  Launches as many
+// blocks as fit on the card at once (no more than the rays need).
 extern "C" int tri_march_launch(
     const void* o, const void* d, const void* t_min, const void* t_max,
     const void* coarse, int coarse_words, const void* l2, int l2_words,
@@ -354,26 +842,36 @@ extern "C" int tri_march_launch(
     float half, float bwf, float scale, float tri_vs, float tri_half,
     int l_width, int k_first, int k_drain, int max_groups, int max_laps,
     int smem_words, void* t_out, void* id_out, void* u_out, void* v_out,
-    void* unresolved, void* next_ray, void* stream) {
+    void* unresolved, void* sched, void* deferred, void* stream) {
   if (n <= 0) return 0;
   const MarchArgs a = march_args(
       o, d, t_min, t_max, coarse, coarse_words, l2, l2_words, fine, nb,
       cell_slot, cell_tris, tri9, tri_origin, n, nx, ny, nz, bx, by, bz, ogx,
       ogy, ogz, vs, half, bwf, scale, tri_vs, tri_half, l_width, k_first,
       k_drain, max_groups, max_laps, smem_words, t_out, id_out, u_out, v_out,
-      unresolved, next_ray);
-  const size_t smem =
-      sizeof(uint32_t) * (a.l2_words + (a.coarse_smem ? coarse_words : 0));
+      unresolved, sched, deferred);
+  const size_t smem = smem_bytes(a.table_words);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, tri_march_kernel, kThreads, smem);
+  if (err == cudaSuccess) err = blocks_per_sm(smem, &per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = min((n + kThreads - 1) / kThreads, sms * per_sm);
   tri_march_kernel<<<blocks, kThreads, smem,
                      static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef TRI_MARCH_LAP_CLOCKS
+// The lap split summed since the last call (walk, loads, tests cycles,
+// ray-laps) into out[4], then zeroed.
+extern "C" int tri_march_lap_clocks(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_lap_clocks,
+                                         4 * sizeof(unsigned long long));
+  const unsigned long long zero[4] = {0, 0, 0, 0};
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(g_lap_clocks, zero, sizeof(zero));
+  return static_cast<int>(err);
+}
+#endif

@@ -3,8 +3,11 @@
 Replaces, on the triangle path, the lap loop that drives K3 and K4 (the
 Pallas kernels voxelray_tpu/ops/pallas/grid_walk.py:496/:569 and
 brick_fine.py:296, with the lap glue of voxelray_tpu/ops/tri_accel.py)
-by one launch per trace: one thread holds one ray through round 0, every
-lap's staged walk, the cell row's Moller-Trumbore test and the advance.
+by one launch per trace: a lane holds a ray through round 0, its laps'
+staged walks, the cell rows' Moller-Trumbore tests and the advances (a
+long ray is deferred and taken on by a lane of another warp once the
+other rays are started; a warp with few rays tests each row with all its
+lanes).
 
 `tri_march_plain` is the march (round 0, then laps; ops/tri_accel.py
 states its semantics) as the lap loop over tensors: every lap one staged
@@ -30,7 +33,8 @@ from ._build import check, load_library
 from .staged_march import (_DRAIN_K, max_drain_laps, staged_march_plain,
                            use_two_level)
 
-__all__ = ["tri_march_plain", "tri_march_cuda", "launches", "INNER_K"]
+__all__ = ["tri_march_plain", "tri_march_cuda", "launch_config",
+           "launches", "INNER_K"]
 
 launches = 0
 
@@ -41,10 +45,13 @@ _PAIRS = 1 << 23
 # candidate bricks the staged walk finds per ray in a lap's first K4 call
 # (cost only: the cell it returns does not depend on it)
 INNER_K = 2
-# shared memory for the superbrick and brick masks: the 48 KB a block
-# gets without opting in; the brick mask is read from global memory when
-# both do not fit
+# shared memory for the superbrick and brick masks (the kernel's row
+# staging comes on top): the 48 KB a block gets without opting in; the
+# brick mask is read from global memory when both do not fit
 SMEM_WORDS = 48 * 1024 // 4
+# the schedule's counters, one 128-byte line each (csrc/tri_march.cu,
+# kSchedWords)
+_SCHED_WORDS = 4 * 32
 
 
 def _cell_span(lin, o, d, ta):
@@ -194,32 +201,70 @@ def tri_march_plain(o, d, t_min, t_max, ta, two_level=None, work=None):
     return best_t, best_id, best_u, best_v, act.numel()
 
 
-def _launch_args(o, d, t_min, t_max, ta, l2, outs, next_ray):
+def _launch_args(o, d, t_min, t_max, ta, l2, outs, lanes=0):
     """tri_march_launch's arguments but the stream, in order, tensors as
     tensors: inputs, the tables of `ta` (l2 None: single level), the grid
     constants, the plain march's step bounds, the outputs `outs` (t, id,
-    u, v, unresolved), then the zeroed (1,) int32 ray counter."""
+    u, v, unresolved), then the schedule's zeroed counters and
+    deferred-ray slots (allocated here, on o's device; None, no ray
+    deferred, where the rays do not outnumber `lanes`, the lanes the
+    launch holds at once)."""
+    n = o.shape[0]
     br = ta.brick
     og, vs, half, bwf, scale = brick_fine._consts(br.origin_key,
                                                   br.voxel_size, br.bdims)
     tri_vs = np.float32(ta.voxel_size)
     return (o, d, t_min, t_max, br.coarse, br.coarse.numel(), l2,
             0 if l2 is None else l2.numel(), br.fine, br.fine.shape[1],
-            ta.cell_slot, ta.cell_tris, ta.tri9, ta.origin, o.shape[0],
+            ta.cell_slot, ta.cell_tris, ta.tri9, ta.origin, n,
             *ta.dims, *br.bdims, *map(float, og), float(vs), float(half),
             float(bwf), float(scale), float(tri_vs),
             float(np.float32(0.5) * tri_vs), ta.l_width, INNER_K, _DRAIN_K,
             max_drain_laps(br.bdims) + 1, sum(ta.dims) + 4, SMEM_WORDS,
-            *outs, next_ray)
+            *outs,
+            torch.zeros((_SCHED_WORDS,), dtype=torch.int32, device=o.device),
+            torch.zeros((n, 4), dtype=torch.int32, device=o.device)
+            if n > lanes else None)
 
 
-def _lib():
-    fn = load_library().tri_march_launch
+def _lib(lib=None):
+    """tri_march_launch of the kernel library (or of `lib`, a build of
+    csrc/tri_march.cu alone) with its argument types."""
+    fn = (lib or load_library()).tri_march_launch
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = ([vp] * 5 + [ci] + [vp] + [ci] + [vp] + [ci] + [vp] * 4
-                   + [ci] * 7 + [cf] * 9 + [ci] * 6 + [vp] * 7)
+                   + [ci] * 7 + [cf] * 9 + [ci] * 6 + [vp] * 8)
     fn.restype = ci
     return fn
+
+
+def launch_config(ta, lib=None, two_level=None):
+    """How the kernel launches on `ta` with the current device: {"chunk":
+    the triangles a lane loads together from its own row, "share_slots":
+    the positions of a shared row a lane stages per round, "share_lanes":
+    the rays a warp holds at most when it shares their rows, "lap_budget":
+    the laps after which a ray is deferred (0: never), "threads": a
+    block's, "smem_bytes": its dynamic shared memory (the l2 and brick
+    masks, then the shared rows' staging), "blocks_per_sm": the blocks a
+    multiprocessor holds, "lanes": the rays the card holds at once}.  lib:
+    another build of csrc/tri_march.cu (default the kernel library);
+    two_level: as tri_march_cuda's."""
+    br = ta.brick
+    l2_words = br.l2.numel() if use_two_level(br, two_level) else 0
+    coarse = br.coarse.numel()
+    table_words = l2_words + (coarse if l2_words + coarse <= SMEM_WORDS
+                              else 0)
+    fn = (lib or load_library()).tri_march_config
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 7)()
+    check(fn(table_words, out), "tri_march_config")
+    cfg = dict(zip(("chunk", "share_slots", "share_lanes", "lap_budget",
+                    "threads", "smem_bytes", "blocks_per_sm"), out))
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    cfg["lanes"] = cfg["threads"] * cfg["blocks_per_sm"] * sms
+    return cfg
 
 
 def _check(name, x, dev, dtype, shape):
@@ -232,10 +277,12 @@ def _check(name, x, dev, dtype, shape):
         raise ValueError(f"tri_march_cuda: {name} not contiguous")
 
 
-def tri_march_cuda(o, d, t_min, t_max, ta, two_level=None):
+def tri_march_cuda(o, d, t_min, t_max, ta, two_level=None, lib=None):
     """Launch the kernel; arguments and outputs as tri_march_plain, every
     tensor contiguous on one CUDA device.  unresolved comes back as a
-    (1,) int64 tensor on the device (reading it waits for the kernel)."""
+    (1,) int64 tensor on the device (reading it waits for the kernel).
+    lib: another build of csrc/tri_march.cu (default the kernel
+    library)."""
     global launches
     dev = o.device
     n = o.shape[0]
@@ -277,10 +324,10 @@ def tri_march_cuda(o, d, t_min, t_max, ta, two_level=None):
             torch.zeros((1,), dtype=torch.int64, device=dev))
     if n == 0:
         return outs
-    args = _launch_args(o, d, t_min, t_max, ta, l2, outs,
-                        torch.zeros((1,), dtype=i32, device=dev))
-    fn = _lib()
+    fn = _lib(lib)
     with torch.cuda.device(dev):
+        lanes = launch_config(ta, lib, two_level)["lanes"]
+        args = _launch_args(o, d, t_min, t_max, ta, l2, outs, lanes)
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*[x.data_ptr() if torch.is_tensor(x) else x for x in args],
                  stream)
