@@ -34,8 +34,9 @@ Drives the port's paths the way a user calls them, at the bench's size:
     sentinel pad runs; render_sharded (K2 per row shard) of the frame;
     render_zslab_sharded of the frame with the grid in 4 Z-slabs of 128
     rows (each a build_accel_slab accel, one staged_march launch per
-    slab trace with a fine window, no host sync between the slabs), its
-    merged trace bit-equal to the monolithic staged walk's; the DDA
+    slab trace with a fine window, bit-equal to the lap loop over K3/K4
+    on every slab, no host sync between the slabs), its merged trace
+    bit-equal to the monolithic staged walk's; the DDA
     Z-slab render at gate 2's bunny (128^3, 1280x720); gate 5's mesh.
   * the bench (phase 11): `python -m voxelray_torch.bench`'s run() at
     the full preset in this process (K1 through voxelize_planned, K2;
@@ -1168,11 +1169,22 @@ def check_zslab_fast(scene, grid, vi, pi, rays, k2_trace, img_k2, occ_np,
         require(counts == {"staged_march": 1, "grid_walk": 0,
                            "brick_fine": 0},
                 f"slab {i}: the staged trace is not one staged_march launch")
+        # the slab's staged_march bit-equal to the lap loop over K3/K4
+        args = (o, d, sl, tmn, tmx, None, 5, None)
+        got = staged_march.staged_march_cuda(*args)
+        lap = staged_march.staged_march_plain(*args)
+        require(int(got[2]) == lap[2] == 0
+                and torch.equal(got[1], lap[1])
+                and torch.equal(got[0].view(torch.int32),
+                                lap[0].view(torch.int32)),
+                f"slab {i}: staged_march differs from the lap loop or left "
+                "rays unresolved")
         t_ms = cuda_ms(lambda: trace_grid_fast(o, d, sl), 3)
         log(f"slab {i} (rows {z0}-{z1 - 1}): build {b_ms:.2f} ms on the "
             f"card, fine window {sl.fine.shape[1]} bricks from brick "
             f"{sl.fine_off} ({sl.fine.numel() * 4} bytes), primary staged "
-            f"trace {t_ms:.3f} ms (mean of 3), launches {counts} [{smi}]")
+            f"trace {t_ms:.3f} ms (mean of 3), launches {counts}, "
+            f"bit-equal to the lap loop, unresolved 0 [{smi}]")
     (hits, _, _), *_ = check_walk("Z-slab 1 round 1", o, d, tmn, tmx,
                                   zs.slabs[1], 5)
     check_fine("Z-slab 1 round 1", o, d, hits, tmn, tmx, zs.slabs[1])
@@ -1903,6 +1915,12 @@ def run(device):
         "voxelray_tpu/ops/traverse_fast.py:365",
         staged_counts["staged_march"], 0.0, sm_ms, sm_plain_ms, sm_bytes,
         sm_ops))
+    # the ray schedule's settings, the shared memory and occupancy they
+    # take, and ptxas's report of the kernel
+    rows[-1].update(staged_march.launch_config(accel),
+                    ptxas=ptxas_of(_build.build_log(),
+                                   "staged_march_kernel"))
+    log(f"staged_march launch: {rows[-1]}")
     rows.append(kernel_row(
         "tri_march", "tri_march.cu",
         "voxelray_tpu/ops/pallas/grid_walk.py:496,:569; "

@@ -26,10 +26,16 @@ one kernel with CUDA events:
       as a triangle model;
   staged  the staged trace as trace_grid_fast(mega=False) runs it on the
       card (one staged_march launch where the tree has that kernel,
-      else the lap loop over K3 and K4) on the primary rays (k 5) and on
+      else the lap loop over K3 and K4) on the primary rays (k 5), on
       the frame's shadow pass as render_image calls it (the admit mask,
-      k 4, scalar TMIN): host ms per call with the device synchronized
-      (the lap loop syncs inside);
+      k 4, scalar TMIN), on slab 1 of render_zslab_sharded's four Z-slabs
+      (its build_accel_slab accel, k 5), and on the primary rays with the
+      most groups (the TOP_STAGED of them, which a first child on this
+      checkout finds with scripts/torch_staged_march_laps.py's
+      clock-split build and saves for the others) packed as their tile
+      order packs them and one to a warp (each followed by 31 rays that
+      miss the grid): device ms per call (CUDA events; a tree whose
+      staged trace is the lap loop syncs inside it);
   frame  the voxel frame (render_image, backend "fast": K2 for the
       primary and the shadow pass) from the bench camera, shadows on
       and off: wall ms per frame (host clock, synchronized), and one
@@ -41,6 +47,9 @@ kernels agree) and ptxas's report for the kernel.  The card's name and
 power limit come last.
 
     python3 scripts/torch_k3_ab.py [--kernel k1|k2|k3|k4|staged|frame] TREE_A TREE_B [OUT.json]
+
+(k4's tri_march rows: the primary rays and the triangle frame's shadow
+rays, hit and facing the light.)
 
 Needs one CUDA device and nvcc; imports no JAX.
 """
@@ -59,6 +68,7 @@ MESH = dict(p=2, q=3, segments=1024, tube_segments=512)
 GRID_RES = 512
 WIDTH, HEIGHT = 1920, 1080
 REPS, ROUNDS = 50, 5
+TOP_STAGED = 40
 ENTRY = {"k1": ("voxel_accum_kernel",), "k2": ("mega_trace_kernel",),
          "k3": ("grid_walk_kernel",),
          "k4": ("brick_fine_kernel", "tri_march_kernel"),
@@ -293,11 +303,13 @@ def child_k4(tree):
     from voxelray_torch.models.scene import build_scene
     from voxelray_torch.ops.intersect import TMAX, TMIN
     from voxelray_torch.ops.kernels import brick_fine, grid_walk, tri_march
+    from voxelray_torch.render import pipeline
     dev, v, f, _, _, vs, o, d = inputs(tree)
     n = o.shape[0]
     tmn = torch.full((n,), float(TMIN), device=dev)
     tmx = torch.full((n,), float(TMAX), device=dev)
-    ta = build_scene(models=[knot_model(v, f)], device=dev).tri_accel
+    tscene = build_scene(models=[knot_model(v, f)], device=dev)
+    ta = tscene.tri_accel
     ms, outs = {}, []
     for name, accel, k in (("512^3 round 1, k 5",
                             voxel_scene(dev, v, f, vs).accel, 5),
@@ -312,15 +324,55 @@ def child_k4(tree):
                   origin_key=accel.origin_key, voxel_size=accel.voxel_size)
         outs += brick_fine.fine_cuda(*args, **kw)
         ms[name] = timed(lambda: brick_fine.fine_cuda(*args, **kw))
-    outs += tri_march.tri_march_cuda(o, d, tmn, tmx, ta)[:4]
+    prim = tri_march.tri_march_cuda(o, d, tmn, tmx, ta)
+    outs += prim[:4]
     ms["tri_march primary"] = timed(
         lambda: tri_march.tri_march_cuda(o, d, tmn, tmx, ta))
+    surf = pipeline.surface_terms(
+        tscene, o, d, torch.full((n,), float("inf"), device=dev),
+        torch.full((n,), -1, dtype=torch.int32, device=dev), tri=prim[:4])
+    sel = torch.nonzero(surf.hit & surf.facing).squeeze(1)
+    shadow = (surf.world_pos[sel].contiguous(), surf.l_vec[sel].contiguous(),
+              torch.full((sel.numel(),), float(TMIN), device=dev),
+              surf.light_dist[sel].contiguous())
+    outs += tri_march.tri_march_cuda(*shadow, ta)[:4]
+    ms["tri_march shadow"] = timed(
+        lambda: tri_march.tri_march_cuda(*shadow, ta))
     return {"rays": n, "ms": ms, "checksum": sha(*outs)}
 
 
-def child_staged(tree):
+def child_prep_staged(path):
+    """On this checkout: the TOP_STAGED primary rays with the most groups
+    of the staged walk (the clock-split build of
+    scripts/torch_staged_march_laps.py), saved in tile order."""
+    import torch
+    sys.path[:0] = [str(REPO)]
+    from scripts.torch_staged_march_laps import PARTS, rows_of
+    from scripts.torch_tri_march_laps import build_libs
+    from voxelray_torch.ops.intersect import TMAX, TMIN
+    from voxelray_torch.ops.kernels import staged_march
+    dev, v, f, _, _, vs, o, d = inputs(REPO)
+    accel = voxel_scene(dev, v, f, vs).accel
+    n = o.shape[0]
+    tmn = torch.full((n,), float(TMIN), device=dev)
+    tmx = torch.full((n,), float(TMAX), device=dev)
+    (lib, _), = build_libs(REPO, [["-DSTAGED_MARCH_CLOCKS"]], "staged_march")
+    rows, _ = rows_of(lib, lambda o_, d_, tmn_, tmx_: (
+        staged_march.staged_march_cuda(o_, d_, accel, tmn_, tmx_, None, 5,
+                                       None, lib=lib)), (o, d, tmn, tmx))
+    groups = rows[:, len(PARTS)]
+    top = torch.sort(torch.argsort(groups, descending=True)[:TOP_STAGED])
+    torch.save(top.values.cpu(), path)
+    print(json.dumps({"staged groups of the longest rays":
+                      groups[top.values].tolist()}), flush=True)
+    return 0
+
+
+def child_staged(tree, prep_path):
+    import torch
     from voxelray_torch.ops.intersect import TMIN
     from voxelray_torch.ops.traverse_fast import trace_grid_fast
+    from voxelray_torch.parallel.comm import make_mesh, split_zslabs
     from voxelray_torch.render import pipeline
     dev, v, f, _, _, vs, o, d = inputs(tree)
     scene = voxel_scene(dev, v, f, vs)
@@ -330,16 +382,30 @@ def child_staged(tree):
     admit = surf.hit & surf.facing
     so, sd = surf.world_pos.contiguous(), surf.l_vec.contiguous()
     dist = surf.light_dist.contiguous()
-
-    def shadow():
-        return trace_grid_fast(so, sd, accel, t_min=float(TMIN), t_max=dist,
-                               admit=admit, mega=False, k_hits=4)
-
-    ms = {"primary, k 5": wall_timed(
-              lambda: trace_grid_fast(o, d, accel, mega=False)),
-          "shadow pass, admit mask, k 4": wall_timed(shadow)}
+    slab = split_zslabs(scene, make_mesh(devices=[dev] * 4),
+                        "fast").slabs[1]
+    top = torch.load(prep_path).to(dev)
+    to, td = o[top].contiguous(), d[top].contiguous()
+    # each long ray beside 31 rays that miss the grid: one to a warp
+    far_o, far_d = o[:1] - d[:1] * 1e6, -d[:1]
+    wo = torch.cat([torch.cat([to[k:k + 1], far_o.expand(31, 3)])
+                    for k in range(top.numel())]).contiguous()
+    wd = torch.cat([torch.cat([td[k:k + 1], far_d.expand(31, 3)])
+                    for k in range(top.numel())]).contiguous()
+    calls = {
+        "primary, k 5": lambda: trace_grid_fast(o, d, accel, mega=False),
+        "shadow pass, admit mask, k 4": lambda: trace_grid_fast(
+            so, sd, accel, t_min=float(TMIN), t_max=dist, admit=admit,
+            mega=False, k_hits=4),
+        "Z-slab 1, k 5": lambda: trace_grid_fast(o, d, slab, mega=False),
+        f"the {top.numel()} longest, packed": lambda: trace_grid_fast(
+            to, td, accel, mega=False),
+        f"the {top.numel()} longest, one to a warp": lambda: trace_grid_fast(
+            wo, wd, accel, mega=False)}
+    outs = [x for fn in calls.values() for x in fn()]
+    ms = {name: timed(fn) for name, fn in calls.items()}
     return {"rays": o.shape[0], "admitted": int(admit.sum()), "ms": ms,
-            "checksum": sha(t, lin, *shadow())}
+            "checksum": sha(*outs)}
 
 
 def child_frame(tree):
@@ -362,14 +428,15 @@ def child_frame(tree):
     return {"ms": ms, "profiled": prof, "checksum": sha(*images)}
 
 
-def child(kernel, tree, classes_path):
+def child(kernel, tree, prep_path):
     sys.path[:0] = [str(Path(tree).resolve())]
     from voxelray_torch.ops.kernels import _build
     row = (child_k1(tree) if kernel == "k1" else
-           child_k2(tree, classes_path) if kernel == "k2" else
+           child_k2(tree, prep_path) if kernel == "k2" else
            child_k3(tree) if kernel == "k3" else
            child_k4(tree) if kernel == "k4" else
-           child_staged(tree) if kernel == "staged" else child_frame(tree))
+           child_staged(tree, prep_path) if kernel == "staged" else
+           child_frame(tree))
     row = {"tree": str(tree), "kernel": kernel, **row}
     for entry in ENTRY[kernel]:
         row[f"ptxas_{entry}"] = ptxas_report(_build.build_log(), entry)
@@ -388,6 +455,8 @@ def run(cmd):
 def main():
     if len(sys.argv) >= 2 and sys.argv[1] == "--prep":
         return child_prep(sys.argv[2])
+    if len(sys.argv) >= 2 and sys.argv[1] == "--prep-staged":
+        return child_prep_staged(sys.argv[2])
     if len(sys.argv) >= 2 and sys.argv[1] == "--child":
         return child(sys.argv[2], sys.argv[3], sys.argv[4])
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -402,13 +471,15 @@ def main():
         return 2
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
-        classes = str(Path(tmp) / "k2_classes.pt")
-        if args.kernel == "k2":
-            rows.append(run([sys.executable, __file__, "--prep", classes]))
+        prep = str(Path(tmp) / "prep.pt")
+        if args.kernel in ("k2", "staged"):
+            rows.append(run([sys.executable, __file__,
+                             "--prep" if args.kernel == "k2"
+                             else "--prep-staged", prep]))
             print(json.dumps(rows[-1]), flush=True)
         for tree in (args.tree_a, args.tree_b, args.tree_b, args.tree_a):
             rows.append(run([sys.executable, __file__, "--child",
-                             args.kernel, tree, classes]))
+                             args.kernel, tree, prep]))
             print(json.dumps(rows[-1]), flush=True)
     sums = {json.dumps(r["checksum"]) for r in rows if "checksum" in r}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -31,11 +31,19 @@ rows) or TRI_LAP_BUDGET (the laps after which a ray is deferred; 0:
 none); the kernel's defaults are chosen from these.  ptxas's report and
 the blocks a multiprocessor holds come with each build.
 
+With --idle, instead: the longest stretch in which a warp held no ray
+(the wait of an idle warp for the rays that running warps hold), in
+clock64 cycles and in ns, from a build of tri_march.cu alone with
+-DTRI_MARCH_IDLE_CLOCKS, on the frame's primary and shadow rays and on
+the primary rays through a triangle accel whose rows are capped at
+kRowChunk + 5 triangles (the host tests' "capped" scene at full scale:
+its overflowing cells keep their first triangles).
+
 Prints one JSON line per measurement and the card's name and power
 limit.
 
     python3 scripts/torch_tri_march_laps.py [--tree TREE] [--share 0,4]
-        [--budget 0,16] [OUT.json]
+        [--budget 0,16] [--idle] [OUT.json]
 
 TREE (default: this checkout) is the source tree whose voxelray_torch
 and chip_smoke.py are imported, e.g. another commit unpacked with `git
@@ -50,6 +58,7 @@ import argparse
 import ctypes
 import hashlib
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -61,21 +70,21 @@ LONG = 16
 PARTS = ("walk", "loads", "tests")
 
 
-def build_libs(tree, variants):
-    """csrc/tri_march.cu of `tree` built alone once for each list of -D
+def build_libs(tree, variants, name="tri_march"):
+    """csrc/<name>.cu of `tree` built alone once for each list of -D
     flags in `variants`, all nvcc's at once, each into
     voxelray_torch/_build/laps-<hash>/: [(CDLL, nvcc's log)]."""
     from voxelray_torch.ops.kernels import _build
-    src = Path(tree) / "voxelray_torch" / "csrc" / "tri_march.cu"
+    src = Path(tree) / "voxelray_torch" / "csrc" / f"{name}.cu"
     jobs = []
     for defines in variants:
         flags = [*_build.NVCC_FLAGS, *defines]
-        h = hashlib.sha256(" ".join(flags).encode())
+        h = hashlib.sha256(" ".join(flags + [name]).encode())
         for f in sorted(src.parent.glob("*.cu*")):
             h.update(f.read_bytes())
         out = _build.BUILD_DIR / f"laps-{h.hexdigest()[:16]}"
         out.mkdir(parents=True, exist_ok=True)
-        lib = out / "libtri_march.so"
+        lib = out / f"lib{name}.so"
         jobs.append((lib, subprocess.Popen(
             [_build.find_nvcc(), *flags, "-I", str(src.parent), "-shared",
              "-o", str(lib), str(src)], stdout=subprocess.PIPE,
@@ -178,6 +187,35 @@ def spread(rays, far):
     return tuple(out)
 
 
+def idle_waits(lib, sets, smi):
+    """The idle-wait build's longest idle stretch of a warp on each ray set
+    (the last also through the capped accel), checked equal to the lap
+    loop: [row]."""
+    import torch
+    from voxelray_torch.ops.kernels import tri_march
+    fn = lib.tri_march_idle_clocks
+    fn.argtypes = [ctypes.c_void_p]
+    out = (ctypes.c_ulonglong * 2)()
+    rows = []
+    for name, accel, rays in sets:
+        want = tri_march.tri_march_plain(*rays, accel)
+        fn(out)
+        got = tri_march.tri_march_cuda(*rays, accel, lib=lib)
+        torch.cuda.synchronize()
+        if fn(out) != 0:
+            raise RuntimeError("tri_march_idle_clocks failed")
+        if not same(got, want):
+            raise RuntimeError(f"{name}: the idle-wait build differs from "
+                               "the lap loop")
+        rows.append({"rays": name, "n": rays[0].shape[0],
+                     "l_width": accel.l_width,
+                     "overflow_cells": accel.overflow_cells,
+                     "longest_idle_cycles": int(out[0]),
+                     "longest_idle_ms": int(out[1]) / 1e6, "card": smi})
+        print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", default=str(REPO))
@@ -187,6 +225,8 @@ def main():
     ap.add_argument("--budget", default="",
                     help="comma-separated TRI_LAP_BUDGET values: a build "
                     "of tri_march.cu with each, timed")
+    ap.add_argument("--idle", action="store_true",
+                    help="measure the longest idle wait of a warp instead")
     ap.add_argument("out", nargs="?")
     args = ap.parse_args()
     import torch
@@ -206,7 +246,9 @@ def main():
     dev = torch.device("cuda", 0)
     src = (tree / "voxelray_torch/csrc/tri_march.cu").read_text()
     variants = {}
-    if "TRI_MARCH_LAP_CLOCKS" in src:
+    if args.idle:
+        variants["idle"] = ["-DTRI_MARCH_IDLE_CLOCKS"]
+    elif "TRI_MARCH_LAP_CLOCKS" in src:
         variants["lap split"] = ["-DTRI_MARCH_LAP_CLOCKS"]
     if "TRI_SHARE_LANES" in src:
         variants.update({f"share {k}": [f"-DTRI_SHARE_LANES={int(k)}"]
@@ -238,6 +280,25 @@ def main():
                        surf.l_vec[sel].contiguous(),
                        torch.full((sel.numel(),), float(TMIN), device=dev),
                        surf.light_dist[sel].contiguous())}
+    if args.idle:
+        from voxelray_torch.ops.tri_accel import build_tri_accel
+        chunk = int(re.search(r"constexpr int kRowChunk = (\d+);",
+                              src).group(1))
+        capped = build_tri_accel(
+            *(x.cpu().numpy() for x in (scene.tri_v0, scene.tri_v1,
+                                        scene.tri_v2)),
+            res=256, max_l_width=chunk + 5, device=dev)  # build_scene's res
+        smi = smi_line()
+        rows = idle_waits(libs["idle"][0], [("primary", ta, sets["primary"]),
+                           ("shadow", ta, sets["shadow"]),
+                           ("primary, rows capped", capped,
+                            sets["primary"])], smi)
+        if args.out:
+            out = Path(args.out).resolve()
+            out.parent.mkdir(parents=True, exist_ok=True)
+            out.write_text(json.dumps(rows, indent=1))
+        print(f"card: {smi}")
+        return 0
     work = {}
     tri_march.tri_march_plain(o, d, tmn, tmx, ta, work=work)
     laps = work["ray_laps"]

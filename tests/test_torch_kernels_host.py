@@ -14,13 +14,18 @@ and tri_march's ray fetch, tri_march's shared row test) are exact and
 K1's set_calls is compared too; asynchronous copies are made at once.
 Both sides use IEEE float32 without contraction, as on the card, so
 this holds the kernels' logic (windows, SAT, walk, near-tie probes, ray
-schedules) to the plain versions without a GPU.  Skips where g++ is
-missing.
+schedules) to the plain versions without a GPU.  The held runs of
+staged_march and tri_march run two of their warps at once on two host
+threads, one of them stopped inside its first ray until the other has
+idled, to show that an idle warp waits for a running warp's ray however
+long that takes.  Skips where g++ is missing.
 """
 import ctypes
+import json
 import re
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -57,18 +62,32 @@ ROW_CHUNK = int(re.search(r"constexpr int kRowChunk = (\d+);",
 # laps and taken back once the ray counter is spent
 TRI_SCHEDULES = {"own": ["-DTRI_SHARE_LANES=0", "-DTRI_LAP_BUDGET=0"],
                  "shared": ["-DTRI_SHARE_LANES=1", "-DTRI_LAP_BUDGET=2"]}
+# staged_march's ray schedule in the two host builds that its tests run
+# (-D settings csrc/staged_march.cu reads): "undeferred", no ray
+# deferred; "deferred", rays deferred after 1 group and taken back once
+# the stripes are spent
+STAGED_SCHEDULES = {"undeferred": ["-DSTAGED_GROUP_BUDGET=0"],
+                    "deferred": ["-DSTAGED_GROUP_BUDGET=1"]}
+# the host clock's step in the held runs: one step is past 2^33 cycles,
+# the idle timeout tri_march once trapped at
+HELD_CLOCK_STEP = 1 << 34
+# idle passes of the free warp before the held warp goes on
+HELD_PASSES = 4
 
 # The CUDA subset csrc/*.cu uses, for a host build.  Each "thread" runs
 # to completion one after another, as a warp of one lane: K1 and K2 see
 # a warp width of 1 (lane 0), and so do staged_march and tri_march.
-# Shuffles return the lane's own value, ballots its own bit.
+# Shuffles return the lane's own value, ballots its own bit.  A held run
+# (host_set_held, host_run) runs threads 1 and 0 at once instead.
 SHIM = '''
 #include <math.h>
+#include <sched.h>
 #include <stdint.h>
 #include <stdlib.h>
 #include <string.h>
 
 #include <algorithm>
+#include <thread>
 using std::max;
 using std::min;
 
@@ -88,10 +107,66 @@ static uint32_t host_shared[1 << 16];
 struct HostDim3 {
   unsigned x = 0, y = 0, z = 0;
 };
-static HostDim3 blockIdx, blockDim, threadIdx, gridDim;
+static HostDim3 blockDim, gridDim;
+static thread_local HostDim3 blockIdx, threadIdx;
+
+// The held run: thread 1 stops at its first read of the fine table
+// [host_fine_lo, host_fine_hi) (its ray taken, not done) until thread 0 has
+// slept host_held_passes idle passes (or ended); host_idle_passes counts
+// them.  0 passes: no held run.
+static int host_held_passes = 0, host_idle_passes = 0;
+static int host_release = 1, host_held = 0;
+static const void *host_fine_lo = nullptr, *host_fine_hi = nullptr;
+static thread_local int host_holder = 0;
+extern "C" void host_set_held(int passes) { host_held_passes = passes; }
+extern "C" int host_idle_count() { return host_idle_passes; }
+inline void host_hold(const void* p) {
+  if (!host_holder || p < host_fine_lo || p >= host_fine_hi) return;
+  host_holder = 0;
+  __atomic_store_n(&host_held, 1, __ATOMIC_SEQ_CST);
+  while (!__atomic_load_n(&host_release, __ATOMIC_SEQ_CST)) sched_yield();
+}
+inline void __nanosleep(unsigned) {
+  if (__atomic_add_fetch(&host_idle_passes, 1, __ATOMIC_SEQ_CST) >=
+      host_held_passes)
+    __atomic_store_n(&host_release, 1, __ATOMIC_SEQ_CST);
+  sched_yield();
+}
+// The kernel's threads 0 .. threads - 1 one after another; in a held run
+// threads 1 (held) and 0 at once, and no other
+template <class F>
+inline void host_run(unsigned threads, F kernel) {
+  if (host_held_passes <= 0) {
+    for (unsigned t = 0; t < threads; ++t) {
+      threadIdx.x = t;
+      kernel();
+    }
+    return;
+  }
+  host_release = 0;
+  host_held = 0;
+  host_idle_passes = 0;
+  std::thread held([&] {
+    threadIdx.x = 1;
+    host_holder = 1;
+    kernel();
+    __atomic_store_n(&host_held, 1, __ATOMIC_SEQ_CST);
+  });
+  while (!__atomic_load_n(&host_held, __ATOMIC_SEQ_CST)) sched_yield();
+  std::thread free_warp([&] {
+    threadIdx.x = 0;
+    kernel();
+    __atomic_store_n(&host_release, 1, __ATOMIC_SEQ_CST);
+  });
+  free_warp.join();
+  held.join();
+}
 
 template <class T>
-inline T __ldg(const T* p) { return *p; }
+inline T __ldg(const T* p) {
+  host_hold(p);
+  return *p;
+}
 inline float __int_as_float(int i) {
   float f;
   memcpy(&f, &i, 4);
@@ -107,37 +182,39 @@ inline float __uint_as_float(uint32_t i) {
   memcpy(&f, &i, 4);
   return f;
 }
-// asynchronous copies (tri_march's row staging): the copy is made at once,
-// so committing and waiting have nothing to do
+// asynchronous copies (the staging of tri_march's rows and staged_march's
+// brick words): the copy is made at once, so committing and waiting have
+// nothing to do
 inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n) {
+  host_hold(src);
   memcpy(dst, src, n);
 }
 inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(size_t) {}
-// tri_march's deferred rays: one thread at a time runs to its end, so
-// fences and waits have nothing to order
+// the deferred rays' slots, fenced as on the card (a held run has two
+// threads)
 struct int4 {
   int x, y, z, w;
 };
 inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
-inline void __threadfence() {}
-inline void __nanosleep(unsigned) {}
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
 inline void __trap() { abort(); }
+// the clock advances HOST_CLOCK_STEP cycles a read
+#ifndef HOST_CLOCK_STEP
+#define HOST_CLOCK_STEP 1
+#endif
 inline long long clock64() {
   static long long t = 0;
-  return t++;
+  return __atomic_fetch_add(&t, static_cast<long long>(HOST_CLOCK_STEP),
+                            __ATOMIC_SEQ_CST);
 }
 template <class T>
 inline T atomicSub(T* p, T v) {
-  const T old = *p;
-  *p -= v;
-  return old;
+  return __atomic_fetch_sub(p, v, __ATOMIC_SEQ_CST);
 }
 template <class T>
 inline T atomicAdd(T* p, T v) {
-  const T old = *p;
-  *p += v;
-  return old;
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
 template <class T>
 inline T __shfl_sync(unsigned, T v, int) { return v; }
@@ -258,27 +335,28 @@ extern "C" void host_launch(
     int ny, int bx, int by, int bz, float ogx, float ogy, float ogz,
     float vs, float half, float bwf, float scale, int k_first, int k_drain,
     int max_groups, int smem_words, void* t_out, void* lin_out,
-    void* unresolved, void* next_ray, int stripes) {
+    void* unresolved, void* next_ray, int stripes, void* sched,
+    void* deferred, void* deferred_group) {
   const StagedArgs a = staged_args(
       o, d, t_min, t_max, admit, coarse, coarse_words, l2, l2_words, fine, nb,
       fine_off, n, nx, ny, bx, by, bz, ogx, ogy, ogz, vs, half, bwf, scale,
       k_first, k_drain, max_groups, smem_words, t_out, lin_out, unresolved,
-      next_ray, stripes);
+      next_ray, stripes, sched, deferred, deferred_group);
   if (a.l2_words) memcpy(host_shared, a.l2, sizeof(uint32_t) * a.l2_words);
   if (a.coarse_smem)
     memcpy(host_shared + a.l2_words, a.coarse,
            sizeof(uint32_t) * a.coarse_words);
+  host_fine_lo = fine;
+  host_fine_hi = static_cast<const uint32_t*>(fine) + 16 * nb;
   // one block of one-lane warps: the first thread takes every chunk from
   // the stripe counters, group by group, the others find them exhausted
   blockDim.x = kThreads;
   gridDim.x = 1;
   blockIdx.x = 0;
-  for (unsigned t = 0; t < blockDim.x; ++t) {
-    threadIdx.x = t;
-    staged_march_kernel(a);
-  }
+  host_run(kThreads, [&] { staged_march_kernel(a); });
 }
-''', [P] * 6 + [I, P, I, P] + [I] * 8 + [F] * 7 + [I] * 4 + [P] * 4 + [I]),
+''', [P] * 6 + [I, P, I, P] + [I] * 8 + [F] * 7 + [I] * 4 + [P] * 4 + [I]
+        + [P] * 3),
     "tri_march": ('''
 extern "C" void host_launch(
     const void* o, const void* d, const void* t_min, const void* t_max,
@@ -300,15 +378,14 @@ extern "C" void host_launch(
   if (a.coarse_smem)
     memcpy(host_shared + a.l2_words, a.coarse,
            sizeof(uint32_t) * a.coarse_words);
+  host_fine_lo = fine;
+  host_fine_hi = static_cast<const uint32_t*>(fine) + 16 * nb;
   // one block of one-lane warps: the first thread takes every ray from
   // the counter, lap by lap, the others find it exhausted
   blockDim.x = kThreads;
   gridDim.x = 1;
   blockIdx.x = 0;
-  for (unsigned t = 0; t < blockDim.x; ++t) {
-    threadIdx.x = t;
-    tri_march_kernel(a);
-  }
+  host_run(kThreads, [&] { tri_march_kernel(a); });
 }
 ''', [P] * 5 + [I, P, I, P, I] + [P] * 4 + [I] * 7 + [F] * 9 + [I] * 6
         + [P] * 7),
@@ -334,20 +411,23 @@ def _host_build(out, name, src, driver, include, defines=()):
     lib = out / f"lib{name}.so"
     subprocess.run([gxx, "-O1", "-ffp-contract=off", "-std=c++17",
                     *defines, "-I", str(include), "-I", str(out), "-shared",
-                    "-fPIC", "-o", str(lib), str(cpp)], check=True,
-                   capture_output=True, timeout=300)
+                    "-fPIC", "-pthread", "-o", str(lib), str(cpp)],
+                   check=True, capture_output=True, timeout=300)
     return ctypes.CDLL(str(lib))
 
 
 @pytest.fixture(scope="module")
 def host_kernels(tmp_path_factory):
-    """Each kernel's host launcher by name; tri_march's once per ray
-    schedule, as "tri_march/own" and "tri_march/shared"."""
+    """Each kernel's host launcher by name; tri_march's and staged_march's
+    once per ray schedule, as "tri_march/own", "tri_march/shared",
+    "staged_march/undeferred" and "staged_march/deferred"."""
     out = tmp_path_factory.mktemp("host_kernels")
     fns = {}
+    schedules = {"tri_march": TRI_SCHEDULES,
+                 "staged_march": STAGED_SCHEDULES}
     for name, (driver, argtypes) in DRIVERS.items():
-        builds = ({f"{name}/{k}": v for k, v in TRI_SCHEDULES.items()}
-                  if name == "tri_march" else {name: ()})
+        builds = ({f"{name}/{k}": v for k, v in schedules[name].items()}
+                  if name in schedules else {name: ()})
         for key, defines in builds.items():
             fn = _host_build(out, key.replace("/", "_"),
                              (CSRC / f"{name}.cu").read_text(), driver, CSRC,
@@ -878,34 +958,44 @@ def _staged_scene(kind, rng):
             np.full(n, TMAX, np.float32))
 
 
+# staged_march_plain's outputs by case, computed once for every schedule
+_STAGED_PLAIN = {}
+
+
 @pytest.mark.parametrize("kind", ["shell", "boxes", "inside", "edge",
                                   "slab"])
 @pytest.mark.parametrize("two_level", [False, True])
 @pytest.mark.parametrize("k,sparse", [(5, False), (4, True)])
+@pytest.mark.parametrize("schedule", list(STAGED_SCHEDULES))
 def test_host_staged_march_matches_plain(host_kernels, kind, two_level, k,
-                                         sparse):
+                                         sparse, schedule):
     """staged_march built for the host (one-lane warps, so a lane takes a
-    new ray after every group, as on the card) against staged_march_plain,
-    the lap loop over K3 and K4: t bits and lin equal, unresolved 0 on
-    both sides; k 5 as the primary trace calls it, k 4 with a sparse
-    admit mask (~5%) as the shadow pass does, whose other rays the
-    kernel's fetch writes as misses."""
+    new ray after every group, as on the card) in each build of
+    STAGED_SCHEDULES against staged_march_plain, the lap loop over K3 and
+    K4: t bits and lin equal, unresolved 0 on both sides; k 5 as the
+    primary trace calls it (rays outnumber the block's 128 lanes, so the
+    "deferred" build defers the rays still walking after a group and takes
+    them back), k 4 with a sparse admit mask (~5%) as the shadow pass
+    does, whose other rays the kernel's fetch writes as misses."""
     rng = np.random.default_rng(11)
     accel, o, d, tmn, tmx = _staged_scene(kind, rng)
     t = torch.from_numpy
     n = len(o)
     admit = t(rng.random(n) < 0.05) if sparse else None
     args = (t(o), t(d), accel, t(tmn), t(tmx), admit, k, two_level)
-    want_t, want_lin, want_unres = staged_march.staged_march_plain(*args)
+    key = (kind, two_level, k, sparse)
+    if key not in _STAGED_PLAIN:
+        _STAGED_PLAIN[key] = staged_march.staged_march_plain(*args)
+    want_t, want_lin, want_unres = _STAGED_PLAIN[key]
     assert want_unres == 0
     outs = (torch.full((n,), 7.0), torch.full((n,), 7, dtype=torch.int32),
             torch.zeros((), dtype=torch.int64))
     l2 = accel.l2 if two_level else None
     launch = staged_march._launch_args(
-        t(o), t(d), t(tmn), t(tmx), admit, accel, l2, k, outs,
-        torch.zeros(staged_march.STRIPES * 32, dtype=torch.int32))
-    host_kernels["staged_march"](*[x.data_ptr() if torch.is_tensor(x) else x
-                                   for x in launch])
+        t(o), t(d), t(tmn), t(tmx), admit, accel, l2, k, outs, lanes=128)
+    assert (launch[-1] is None) == sparse and n > 128
+    host_kernels[f"staged_march/{schedule}"](
+        *[x.data_ptr() if torch.is_tensor(x) else x for x in launch])
     got_t, got_lin, unresolved = outs
     assert int(unresolved) == 0
     assert torch.equal(got_lin, want_lin)
@@ -914,6 +1004,115 @@ def test_host_staged_march_matches_plain(host_kernels, kind, two_level, k,
     assert hits > (5 if sparse else 100)
     if sparse:
         assert not (got_lin[~admit] >= 0).any()
+    elif schedule == "deferred":
+        # rays were deferred, and every ticket handed out was taken
+        sched = launch[-3]
+        assert int(sched[0]) > 0 and int(sched[32]) >= int(sched[0])
+
+
+def _run_held(lib_path, args, passes):
+    """host_launch of the host build at lib_path in a held run (SHIM's
+    host_run: thread 1 stops inside its first ray until thread 0 has
+    slept `passes` idle passes), in a subprocess, so that a build that
+    aborts fails the run and not the test process.  args: host_launch's
+    arguments (tensors, None, ints, floats); the tensors are written back
+    with the run's results.  Returns (exit code, idle passes slept)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        arrays, spec = {}, []
+        for k, x in enumerate(args):
+            if torch.is_tensor(x):
+                arrays[f"a{k}"] = x.numpy()
+                spec.append(["a", f"a{k}"])
+            else:
+                spec.append(["n" if x is None else
+                             "f" if isinstance(x, float) else "i", x])
+        np.savez(Path(tmp) / "in.npz", **arrays)
+        (Path(tmp) / "spec.json").write_text(json.dumps(spec))
+        runner = Path(tmp) / "run.py"
+        runner.write_text(f"""
+import ctypes, json, sys
+import numpy as np
+tmp = {str(tmp)!r}
+lib = ctypes.CDLL({str(lib_path)!r})
+arrays = dict(np.load(tmp + "/in.npz"))
+args = []
+for kind, v in json.load(open(tmp + "/spec.json")):
+    args.append(ctypes.c_void_p(arrays[v].ctypes.data) if kind == "a" else
+                None if kind == "n" else ctypes.c_float(v) if kind == "f"
+                else ctypes.c_int(v))
+lib.host_set_held({passes})
+lib.host_launch(*args)
+np.savez(tmp + "/out.npz", **arrays)
+print(lib.host_idle_count())
+""")
+        proc = subprocess.run([sys.executable, str(runner)],
+                              capture_output=True, text=True, timeout=120)
+        if proc.returncode != 0:
+            return proc.returncode, 0
+        out = np.load(Path(tmp) / "out.npz")
+        for k, x in enumerate(args):
+            if torch.is_tensor(x):
+                x.copy_(torch.from_numpy(out[f"a{k}"]))
+        return 0, int(proc.stdout.split()[-1])
+
+
+@pytest.fixture(scope="module")
+def held_builds(tmp_path_factory):
+    """The host builds of the held runs, by kernel: tri_march's "shared"
+    schedule and staged_march's "deferred" one, each with a clock that
+    advances HELD_CLOCK_STEP a read; paths of the libraries."""
+    out = tmp_path_factory.mktemp("held")
+    paths = {}
+    for name, defines in (("tri_march", TRI_SCHEDULES["shared"]),
+                          ("staged_march", STAGED_SCHEDULES["deferred"])):
+        _host_build(out, name, (CSRC / f"{name}.cu").read_text(),
+                    DRIVERS[name][0], CSRC,
+                    [*defines, f"-DHOST_CLOCK_STEP={HELD_CLOCK_STEP}ll"])
+        paths[name] = out / f"lib{name}.so"
+    return paths
+
+
+@pytest.mark.parametrize("kernel", ["tri_march", "staged_march"])
+def test_host_idle_warp_waits_out_a_held_ray(held_builds, kernel):
+    """An idle warp never gives up on a ray that a running warp holds, and
+    no trace fails on a timer however long its slowest warp takes: two
+    one-lane warps run at once, the first stopped inside its first ray
+    until the second, done with every other ray (deferring and taking
+    back the long ones), has slept HELD_PASSES idle passes in a row, the
+    host clock advancing 2^34 cycles a read (past the 2^33 after which
+    tri_march once trapped, aborting the launch).  The outputs are the
+    lap loop's bit for bit, unresolved 0."""
+    t = torch.from_numpy
+    if kernel == "tri_march":
+        tri, ta = _tri_scene("knot", 32)
+        o, d, tmn, tmx = map(t, _tri_rays("camera", tri, ta,
+                                          np.random.default_rng(32)))
+        n = o.shape[0]
+        want = tri_march_plain(o, d, tmn, tmx, ta)
+        outs = (torch.empty(n), torch.empty(n, dtype=torch.int32),
+                torch.empty(n), torch.empty(n),
+                torch.zeros(1, dtype=torch.int64))
+        args = tri_march._launch_args(o, d, tmn, tmx, ta, None, outs,
+                                      lanes=128)
+    else:
+        accel, o, d, tmn, tmx = map(
+            lambda x: t(x) if isinstance(x, np.ndarray) else x,
+            _staged_scene("boxes", np.random.default_rng(11)))
+        n = o.shape[0]
+        want = staged_march.staged_march_plain(o, d, accel, tmn, tmx, None,
+                                               5, True)
+        outs = (torch.empty(n), torch.empty(n, dtype=torch.int32),
+                torch.zeros((), dtype=torch.int64))
+        args = staged_march._launch_args(o, d, tmn, tmx, None, accel,
+                                         accel.l2, 5, outs, lanes=128)
+    rc, idle = _run_held(held_builds[kernel], args, HELD_PASSES)
+    assert rc == 0, f"the held run failed (exit code {rc})"
+    assert idle >= HELD_PASSES
+    assert int(outs[-1].sum()) == 0 and want[-1] == 0
+    assert torch.equal(outs[1], want[1])
+    assert torch.equal(outs[0].view(torch.int32), want[0].view(torch.int32))
+    assert int((want[1] >= 0).sum()) > 100
 
 
 def _tri_scene(name, res):
@@ -1135,8 +1334,7 @@ def test_host_staged_march_work_count_is_the_kernels(counting_staged, kind,
             torch.zeros((), dtype=torch.int64))
     l2 = accel.l2 if staged_march.use_two_level(accel, None) else None
     bricks, cells = counting_staged(*staged_march._launch_args(
-        t(o), t(d), t(tmn), t(tmx), admit, accel, l2, k, outs,
-        torch.zeros(staged_march.STRIPES * 32, dtype=torch.int32)))
+        t(o), t(d), t(tmn), t(tmx), admit, accel, l2, k, outs))
     want, work, _ = staged_work(*args)
     assert torch.equal(outs[1], want[1]) and int(outs[2]) == 0
     assert cells > 0 and bricks > 0

@@ -182,3 +182,39 @@ def test_kernel_matches_the_plain_loop_on_cuda(cuda):
             assert torch.equal(t.view(torch.int32), ref_t.view(torch.int32))
         assert int((lin >= 0).sum()) > (5 if adm is not None else 100)
 
+
+
+@pytest.mark.cuda
+def test_kernel_defers_long_rays_on_cuda(cuda):
+    """With more rays than the card's lanes and no admit mask, the kernel
+    defers the rays still walking after its group budget and takes them
+    back: (t bits, lin) equal the lap loop's with the K3/K4 kernels,
+    unresolved 0, and every deferred ray got a ticket.  (The rays are the
+    small accel's, repeated past the lanes the launch holds.)"""
+    accel, o, d = _small_accel(cuda)
+    cfg = staged_march.launch_config(accel)
+    assert cfg["group_budget"] > 0 and cfg["blocks_per_sm"] >= 1
+    reps = cfg["lanes"] // o.shape[0] + 2
+    o, d = o.repeat(reps, 1).contiguous(), d.repeat(reps, 1).contiguous()
+    n = o.shape[0]
+    tmn = torch.full((n,), 0.01, device=cuda)
+    tmx = torch.full((n,), 2.5, device=cuda)
+    outs = (torch.empty((n,), device=cuda),
+            torch.empty((n,), dtype=torch.int32, device=cuda),
+            torch.zeros((), dtype=torch.int64, device=cuda))
+    args = staged_march._launch_args(o, d, tmn, tmx, None, accel, accel.l2,
+                                     5, outs, cfg["lanes"])
+    sched, slots = args[-3], args[-2]
+    assert slots is not None and slots.shape == (n, 4)
+    fn = staged_march._lib()
+    err = fn(*[x.data_ptr() if torch.is_tensor(x) else x for x in args],
+             torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    want = staged_march.staged_march_plain(o, d, accel, tmn, tmx, None, 5,
+                                           True)
+    torch.cuda.synchronize()
+    assert int(outs[2]) == want[2] == 0
+    assert torch.equal(outs[1], want[1])
+    assert torch.equal(outs[0].view(torch.int32), want[0].view(torch.int32))
+    deferred, tickets = int(sched[0]), int(sched[32])
+    assert deferred > 0 and tickets >= deferred

@@ -5,9 +5,9 @@ A port of bench.py (the JAX package's benchmark), section by section: a
 (K1), the AABB extraction and grid bytes of the reference Benchmaker
 triple (hello_vulkan.h:224-239), the dispatch floor, the triple's
 pipelined form, 1920x1080 frames one call at a time and pipelined over
-orbit cameras (K2; K3 + K4 with BENCH_MEGA=0), the small-scene parity
-gate and the full-size exhaustiveness gate.  Prints ONE JSON line on
-stdout, detail on stderr:
+orbit cameras (K2; with BENCH_MEGA=0 the staged walk, one staged_march
+launch a trace), the small-scene parity gate and the full-size
+exhaustiveness gate.  Prints ONE JSON line on stdout, detail on stderr:
 
     python -m voxelray_torch.bench
 
@@ -16,7 +16,8 @@ Env knobs (bench.py's):
   BENCH_RUNS=N                  timed repetitions (default 5)
   BENCH_BACKEND=fast|dda|brute  traversal backend (default fast)
   BENCH_SKIP_PARITY=1           skip the parity and exhaustiveness gates
-  BENCH_MEGA=0                  the staged walk (K3 + K4) in place of K2
+  BENCH_MEGA=0                  the staged walk (staged_march: K3's and
+                                K4's walks in one launch) in place of K2
 
 The line has bench.py's keys with these changes.  The port has one
 voxelizer, K1: its in-bench gate holds the planned occupancy and

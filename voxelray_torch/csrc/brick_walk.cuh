@@ -262,12 +262,13 @@ __device__ __forceinline__ void probe_cell(
 // one, becomes (best_t, best_lin).  Returns true once the ray's hit is
 // decided (an accepted cell, or a probed candidate nearer than the current
 // cell's exit); false when the ray leaves the brick or passes r.t_hi
-// first.  Needs r.tie_eps (set_tie_eps).
-template <bool kWindow>
-__device__ __forceinline__ bool fine_brick(const Ray& r, const FineGrid& g,
-                                           const uint32_t* __restrict__ fine,
-                                           int bid, float& best_t,
-                                           int& best_lin) {
+// first.  Needs r.tie_eps (set_tie_eps).  The brick's own cell words come
+// from word(w), w = 0..15 (fine_brick reads them from the table; a caller
+// may read a copy of them); probes of other bricks read the table.
+template <bool kWindow, class Word>
+__device__ __forceinline__ bool fine_brick_words(
+    const Ray& r, const FineGrid& g, const uint32_t* __restrict__ fine,
+    int bid, float& best_t, int& best_lin, const Word& word) {
   const float inf = __int_as_float(0x7f800000);
   const float ia[3] = {fabsf(r.inv_x), fabsf(r.inv_y), fabsf(r.inv_z)};
   const float dk[3] = {r.dx, r.dy, r.dz};
@@ -311,14 +312,13 @@ __device__ __forceinline__ bool fine_brick(const Ray& r, const FineGrid& g,
                             bcz * kBrick + lz - (k == 2 ? sk[k] : 0),
                             best_t, best_lin);
   }
-  const uint32_t* words = fine + (kWindow ? bid - g.off : bid);
   for (int step = 0; step < kSteps; ++step) {
     const int lin_local = lx + kBrick * (ly + kBrick * lz);
-    const uint32_t word = __ldg(words + (lin_local >> 5) * g.nb);
+    const uint32_t cells = word(lin_local >> 5);
     const int gx = bcx * kBrick + lx;
     const int gy = bcy * kBrick + ly;
     const int gz = bcz * kBrick + lz;
-    if ((word >> (lin_local & 31)) & 1u) {
+    if ((cells >> (lin_local & 31)) & 1u) {
       float t0, t1;
       cell_slab(r, g, gx, gy, gz, t0, t1);
       if (accepts(r, t0, t1)) {
@@ -378,6 +378,19 @@ __device__ __forceinline__ bool fine_brick(const Ray& r, const FineGrid& g,
   return false;
 }
 
+// fine_brick_words with the brick's words read from the table
+template <bool kWindow>
+__device__ __forceinline__ bool fine_brick(const Ray& r, const FineGrid& g,
+                                           const uint32_t* __restrict__ fine,
+                                           int bid, float& best_t,
+                                           int& best_lin) {
+  const uint32_t* words = fine + (kWindow ? bid - g.off : bid);
+  const int nb = g.nb;
+  return fine_brick_words<kWindow>(
+      r, g, fine, bid, best_t, best_lin,
+      [words, nb](int w) { return __ldg(words + w * nb); });
+}
+
 // ---- the staged walk of one ray: K3's groups and K4 over them --------------
 
 // The lap loop's schedule (ops/kernels/staged_march.py, staged_march_plain):
@@ -417,12 +430,13 @@ __device__ __forceinline__ void staged_start(const Ray& r, const WalkGrid& wg,
 // then the ray is done.  Otherwise the ray goes on (K3's `cont`) from where
 // K3 stopped.  l2 is null for the single-level walk; coarse may be in shared
 // memory.  kWindow: the fine table is a window (probe_cell), and a brick
-// outside it counts as no candidate, as in K4.
-template <bool kWindow>
-__device__ __forceinline__ StagedEnd staged_group(
+// outside it counts as no candidate, as in K4.  k4(lin, best_t, best_lin)
+// is K4 over brick lin (fine_brick's contract; staged_group's is
+// fine_brick itself).
+template <bool kWindow, class K4>
+__device__ __forceinline__ StagedEnd staged_group_with(
     const Ray& r, const WalkGrid& wg, const FineGrid& fg, const uint32_t* l2,
-    const uint32_t* coarse, const uint32_t* __restrict__ fine,
-    const Schedule& sc, Staged& s) {
+    const uint32_t* coarse, const Schedule& sc, Staged& s, const K4& k4) {
   const int k = s.group == 0 ? sc.k_first : sc.k_drain;
   const int max_steps = wg.bx + wg.by + wg.bz + 3;
   int cx = s.cx, cy = s.cy, cz = s.cz;
@@ -439,7 +453,7 @@ __device__ __forceinline__ StagedEnd staged_group(
       // K4 over the collected brick; once K4 is done with this group the
       // walk still collects the group's bricks (its resume state)
       if (!done && (!kWindow || (lin >= fg.off && lin - fg.off < fg.nb)) &&
-          fine_brick<kWindow>(r, fg, fine, lin, best_t, best_lin)) {
+          k4(lin, best_t, best_lin)) {
         if (best_lin >= 0) {
           s.t = best_t;
           s.lin = best_lin;
@@ -463,6 +477,19 @@ __device__ __forceinline__ StagedEnd staged_group(
   s.cz = cz;
   s.active = true;
   return ++s.group == sc.max_groups ? StagedEnd::kBound : StagedEnd::kMore;
+}
+
+// staged_group_with K4 reading the fine table
+template <bool kWindow>
+__device__ __forceinline__ StagedEnd staged_group(
+    const Ray& r, const WalkGrid& wg, const FineGrid& fg, const uint32_t* l2,
+    const uint32_t* coarse, const uint32_t* __restrict__ fine,
+    const Schedule& sc, Staged& s) {
+  return staged_group_with<kWindow>(
+      r, wg, fg, l2, coarse, sc, s,
+      [&r, &fg, fine](int lin, float& best_t, int& best_lin) {
+        return fine_brick<kWindow>(r, fg, fine, lin, best_t, best_lin);
+      });
 }
 
 // The first accepted cell after r.t_lo along the staged walk, in s (the

@@ -137,6 +137,46 @@ __device__ __forceinline__ void lap_flush(const LapClocks&, int) {}
 #endif
 enum { kClkWalk = 0, kClkLoads = 1, kClkTests = 2 };
 
+// The idle waits (scripts/torch_tri_march_laps.py builds this file with
+// -DTRI_MARCH_IDLE_CLOCKS; ops/kernels/_build.py never does): the longest
+// stretch of passes in which a warp held no ray, in clock64 cycles and in
+// nanoseconds of the global timer, the largest over the warps of the
+// launches since the last read, in g_idle_max.
+#ifdef TRI_MARCH_IDLE_CLOCKS
+__device__ unsigned long long g_idle_max[2];  // cycles, ns
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+struct IdleClock {
+  long long c0 = -1;
+  unsigned long long n0 = 0;
+  // a pass without a ray: the stretch starts, or goes on
+  __device__ __forceinline__ void idle() {
+    if (c0 < 0) {
+      c0 = clock64();
+      n0 = global_ns();
+    }
+  }
+  // a pass with a ray, or the warp's end: the stretch ends
+  __device__ __forceinline__ void busy(int lane) {
+    if (c0 < 0) return;
+    if (lane == 0) {
+      atomicMax(&g_idle_max[0],
+                static_cast<unsigned long long>(clock64() - c0));
+      atomicMax(&g_idle_max[1], global_ns() - n0);
+    }
+    c0 = -1;
+  }
+};
+#else
+struct IdleClock {
+  __device__ __forceinline__ void idle() {}
+  __device__ __forceinline__ void busy(int) {}
+};
+#endif
+
 // Moller-Trumbore of the ray against triangle v = (v0 | v1 | v2), with
 // hit_triangles' expressions (ops/intersect.py:95-124): whether it hits
 // with t_lo < t < r.t_hi and t <= span_hi, and (t, u, v).
@@ -401,14 +441,28 @@ __device__ __forceinline__ void shared_rows(
 // start, the rays deferred, the tickets for deferred rays handed out, and
 // the rays from the counter done or deferred (each ray once: once it
 // reaches n, no ray is deferred any more).  An idle warp sleeps between
-// passes, kIdleNs at first, twice as long each pass up to 32 times that;
-// one idle for kIdleCycles (~4 s) traps, so that the launch fails instead
-// of hanging or leaving a ray unwritten (never by construction).
+// passes, kIdleNs at first, twice as long each pass up to 32 times that,
+// for as long as it must: it has no timer, so no trace fails however
+// long its slowest warp runs.  Why an idle warp never waits forever,
+// without assuming that every block is resident at once:
+//  - a warp idles only once the counter is spent, and it waits only for
+//    rays that running warps hold: a ray is taken by a lane of a running
+//    warp (the counter's add), and a warp holding a ray never idles: its
+//    laps are bounded (max_laps), so it ends or defers each ray, adding
+//    one to kSettled either way, and kSettled reaches n;
+//  - a ticket below kDeferred names a slot that a running lane has
+//    claimed (defer_ray's add) and writes, fenced, before its ray counts
+//    as settled; a ticket at or past kDeferred once kSettled reaches n
+//    (no ray can be deferred any more) is dropped;
+//  - no warp ends while a deferred ray has no ticket: a warp ends only
+//    holding no ray and no ticket with kSettled at n, and take_tickets
+//    then gives it one (kDeferred read after kSettled is final, kTicket
+//    read earlier is no larger than now);
+//  - a block not yet resident has taken nothing, so no warp waits on it.
 enum { kNextRay = 0, kDeferred = 1, kTicket = 2, kSettled = 3 };
 constexpr int kLine = 32;
 constexpr int kSchedWords = 4 * kLine;
 constexpr int kIdleNs = 256;
-constexpr long long kIdleCycles = 1ll << 33;
 
 // Everything one trace reads and writes.  o, d: (n, 3); t_min, t_max:
 // (n,); coarse (coarse_words), l2 (l2_words, null for one level), fine
@@ -616,7 +670,7 @@ __global__ void __launch_bounds__(kThreads) tri_march_kernel(MarchArgs a) {
   int ticket = -1;                  // its deferred ray's slot; -1 none
   bool spent = false;               // the ray counter is spent (warp-wide)
   int sleep_ns = kIdleNs;           // the next idle pass's sleep
-  long long idle_since = -1;        // clock64 when the warp fell idle
+  IdleClock idle;                   // (the idle-wait build's)
   // Once the counter is spent: tickets for deferred rays into free lanes
   // while the warp holds fewer rays and tickets than max(kShareLanes, 1)
   // plus its share of the deferred rays waiting (deferred - tickets, read
@@ -673,8 +727,7 @@ __global__ void __launch_bounds__(kThreads) tri_march_kernel(MarchArgs a) {
     if (__all_sync(all, i < 0 && take < 0)) {
       // no ray this pass: once no ray can be deferred any more, tickets
       // past the last deferred ray are dropped, and a warp with no ticket
-      // is done; otherwise take tickets and sleep, longer each time (and
-      // trap, never by construction, after kIdleCycles)
+      // is done; otherwise take tickets and sleep, longer each time
       if (spent) {
         int settled = a.n;
         if (defer && lane == 0) {
@@ -687,17 +740,18 @@ __global__ void __launch_bounds__(kThreads) tri_march_kernel(MarchArgs a) {
         if (settled >= a.n && ticket >= __shfl_sync(all, deferred, 0))
           ticket = -1;
         take_tickets(deferred, tickets);
-        if (settled >= a.n && __all_sync(all, ticket < 0)) break;
+        if (settled >= a.n && __all_sync(all, ticket < 0)) {
+          idle.busy(lane);
+          break;
+        }
       }
-      const long long now = clock64();
-      if (idle_since < 0) idle_since = now;
-      if (now - idle_since > kIdleCycles) __trap();
+      idle.idle();
       __nanosleep(sleep_ns);
       sleep_ns = min(2 * sleep_ns, 32 * kIdleNs);
       continue;
     }
     sleep_ns = kIdleNs;
-    idle_since = -1;
+    idle.busy(lane);
     if (take >= 0) {
       i = take;
       start_ray(a, i, take_t, take_lap, m);
@@ -862,6 +916,19 @@ extern "C" int tri_march_launch(
                      static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef TRI_MARCH_IDLE_CLOCKS
+// The longest idle stretch of a warp since the last call (clock64 cycles,
+// ns) into out[2], then zeroed.
+extern "C" int tri_march_idle_clocks(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_idle_max,
+                                         2 * sizeof(unsigned long long));
+  const unsigned long long zero[2] = {0, 0};
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbol(g_idle_max, zero, sizeof(zero));
+  return static_cast<int>(err);
+}
+#endif
 
 #ifdef TRI_MARCH_LAP_CLOCKS
 // The lap split summed since the last call (walk, loads, tests cycles,

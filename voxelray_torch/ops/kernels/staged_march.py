@@ -34,7 +34,7 @@ from .grid_walk import coarse_walk, coarse_walk_init
 from .mega_trace import STRIPES
 
 __all__ = ["staged_march_plain", "staged_march_cuda", "use_two_level",
-           "max_drain_laps", "launches"]
+           "max_drain_laps", "launch_config", "launches"]
 
 BRICK = 8
 # occupied bricks per ray that each drain lap of the staged walk finds
@@ -43,6 +43,8 @@ _DRAIN_K = 8
 # gets without opting in; the brick mask is read from global memory when
 # both do not fit
 SMEM_WORDS = 48 * 1024 // 4
+# the deferral's counters: three ints, each on a 128-byte line of its own
+_SCHED_WORDS = 3 * 32
 
 launches = 0
 
@@ -113,31 +115,72 @@ def staged_march_plain(o, d, accel, tmn, tmx, admit, k_hits, two_level):
     return best_t, best_lin, idx.numel()
 
 
-def _launch_args(o, d, tmn, tmx, admit, accel, l2, k_hits, outs, next_ray):
+def _launch_args(o, d, tmn, tmx, admit, accel, l2, k_hits, outs,
+                 lanes=None):
     """staged_march_launch's arguments but the stream, in order, tensors as
     tensors (None for a null pointer): inputs, the accel's tables (l2
     None: single level), the grid constants, the lap loop's schedule, the
-    outputs `outs` (t, lin, unresolved), then the zeroed stripe
-    counters."""
+    outputs `outs` (t, lin, unresolved), then the zeroed stripe counters,
+    and the deferral's zeroed counters and deferred-ray slots (allocated
+    here, on o's device, the zeroed parts in one buffer with the stripe
+    counters; None, no ray deferred, with an admit mask or where the rays
+    do not outnumber `lanes`, the lanes the launch holds at once; None:
+    as many as the rays)."""
     og, vs, half, bwf, scale = brick_fine._consts(
         accel.origin_key, accel.voxel_size, accel.bdims)
+    n, dev = o.shape[0], o.device
     adm = None if admit is None else admit.view(torch.uint8)
+    slots = admit is None and n > (n if lanes is None else lanes)
+    stripes = STRIPES * 32
+    zeroed = torch.zeros((stripes + (_SCHED_WORDS + n if slots else 0),),
+                         dtype=torch.int32, device=dev)
     return (o, d, tmn, tmx, adm, accel.coarse, accel.coarse.numel(), l2,
             0 if l2 is None else l2.numel(), accel.fine, accel.fine.shape[1],
-            int(accel.fine_off), o.shape[0], accel.dims[0], accel.dims[1],
+            int(accel.fine_off), n, accel.dims[0], accel.dims[1],
             *accel.bdims, *map(float, og), float(vs), float(half),
             float(bwf), float(scale), int(k_hits), _DRAIN_K,
-            max_drain_laps(accel.bdims) + 1, SMEM_WORDS, *outs, next_ray,
-            STRIPES)
+            max_drain_laps(accel.bdims) + 1, SMEM_WORDS, *outs,
+            zeroed[:stripes], STRIPES,
+            zeroed[stripes:stripes + _SCHED_WORDS] if slots else None,
+            torch.empty((n, 4), dtype=torch.int32, device=dev)
+            if slots else None,
+            zeroed[stripes + _SCHED_WORDS:] if slots else None)
 
 
-def _lib():
-    fn = load_library().staged_march_launch
+def _lib(lib=None):
+    """staged_march_launch of the kernel library (or of `lib`, a build of
+    csrc/staged_march.cu alone) with its argument types."""
+    fn = (lib or load_library()).staged_march_launch
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = ([vp] * 6 + [ci, vp, ci, vp] + [ci] * 8 + [cf] * 7
-                   + [ci] * 4 + [vp] * 4 + [ci, vp])
+                   + [ci] * 4 + [vp] * 4 + [ci] + [vp] * 4)
     fn.restype = ci
     return fn
+
+
+def launch_config(accel, lib=None, two_level=None):
+    """How the kernel launches on `accel` with the current device:
+    {"group_budget": the groups after which a ray is deferred (0: never),
+    "threads": a block's, "smem_bytes": its dynamic shared memory (the l2
+    and brick masks, then the lanes' slots for K4's brick words),
+    "blocks_per_sm": the blocks a multiprocessor holds, "lanes": the rays
+    the card holds at once}.  lib: another build of csrc/staged_march.cu
+    (default the kernel library); two_level: as staged_march_cuda's."""
+    l2_words = accel.l2.numel() if use_two_level(accel, two_level) else 0
+    coarse = accel.coarse.numel()
+    table_words = l2_words + (coarse if l2_words + coarse <= SMEM_WORDS
+                              else 0)
+    fn = (lib or load_library()).staged_march_config
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    check(fn(table_words, out), "staged_march_config")
+    cfg = dict(zip(("group_budget", "threads", "smem_bytes",
+                    "blocks_per_sm"), out))
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    cfg["lanes"] = cfg["threads"] * cfg["blocks_per_sm"] * sms
+    return cfg
 
 
 def _check(name, x, dev, dtype, shape):
@@ -150,11 +193,13 @@ def _check(name, x, dev, dtype, shape):
         raise ValueError(f"staged_march_cuda: {name} not contiguous")
 
 
-def staged_march_cuda(o, d, accel, tmn, tmx, admit, k_hits, two_level):
+def staged_march_cuda(o, d, accel, tmn, tmx, admit, k_hits, two_level,
+                      lib=None):
     """Launch the kernel; arguments and (t, lin) as staged_march_plain,
     every tensor contiguous on one CUDA device.  unresolved comes back as
     a 0-d int64 tensor on the device (reading it waits for the kernel);
-    nothing here waits for the device."""
+    nothing here waits for the device.  lib: another build of
+    csrc/staged_march.cu (default the kernel library)."""
     global launches
     dev = o.device
     n = o.shape[0]
@@ -192,10 +237,11 @@ def staged_march_cuda(o, d, accel, tmn, tmx, admit, k_hits, two_level):
             torch.zeros((), dtype=torch.int64, device=dev))
     if n == 0:
         return outs
-    args = _launch_args(o, d, tmn, tmx, admit, accel, l2, k_hits, outs,
-                        torch.zeros((STRIPES * 32,), dtype=i32, device=dev))
-    fn = _lib()
+    fn = _lib(lib)
     with torch.cuda.device(dev):
+        lanes = launch_config(accel, lib, two_level)["lanes"]
+        args = _launch_args(o, d, tmn, tmx, admit, accel, l2, k_hits, outs,
+                            lanes)
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*[x.data_ptr() if torch.is_tensor(x) else x for x in args],
                  stream)

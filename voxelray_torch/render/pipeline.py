@@ -8,8 +8,9 @@ reference's raygen -> closest hit -> shadow ray -> miss -> post chain):
        tri-grid march when the scene has a triangle accel (the
        tri_march kernel), else the brute trace; voxels with backend
        "octree" (the octree walk) when the scene has an octree, "fast"
-       (the megakernel K2, or the staged walk K3 + K4 with fast_opts
-       {"mega": False}) when it has a brick accel, "dda" (the exhaustive
+       (the megakernel K2, or with fast_opts {"mega": False} the staged
+       walk, one staged_march launch: K3's and K4's walks in one kernel)
+       when it has a brick accel, "dda" (the exhaustive
        DDA) when it has an occupancy grid, and otherwise the brute trace
        over the scene's AABB list (backend "brute")
     -> triangle CH (raytrace.rchit): interpolated normal, texture-
@@ -311,7 +312,7 @@ def render_rays(scene: Scene, origins, dirs, light: Light = Light(),
 
     fast_opts: options of trace_grid_fast for backend "fast" ("mega",
     "k_hits", "two_level"); {"mega": False} selects the staged walk
-    K3 + K4.  shadow_opts: the same for the shadow pass
+    (staged_march).  shadow_opts: the same for the shadow pass
     (any_hit_grid_fast).  Both default to the megakernel when the accel
     carries its superbrick table.
 
