@@ -256,13 +256,24 @@ def log_frames(what, frame_ms, smi):
             f"rays) over {N_FRAMES} orbit cameras [{smi}]")
 
 
+def _kernel(mod):
+    return mod.__name__.rsplit(".", 1)[-1]
+
+
+def launched(mod):
+    """A kernel module's launches since its reset (utils/trace.py)."""
+    from voxelray_torch.utils import trace
+    return trace.counter("launches." + _kernel(mod))
+
+
 def counts_of(*mods):
-    return {m.__name__.rsplit(".", 1)[-1]: m.launches for m in mods}
+    return {_kernel(m): launched(m) for m in mods}
 
 
 def reset(*mods):
+    from voxelray_torch.utils import trace
     for m in mods:
-        m.launches = 0
+        trace.reset_counters("launches." + _kernel(m))
 
 
 def mega_work(o, d, tmn, tmx, accel):
@@ -1085,7 +1096,7 @@ def check_voxelize_sharded(v, f, bb_min, vs, dims, meshes_, k1_ms, smi):
         occ, calls = voxelize_sharded(tri, bb_min, mesh, dims=dims,
                                       voxel_size=vs)
         torch.cuda.synchronize()
-        launches = voxel_accum.launches
+        launches = launched(voxel_accum)
         require(launches == mesh.size, f"voxelize_sharded on {name}: "
                 f"{launches} K1 launches for {mesh.size} shards")
         require(bool(torch.equal(occ, occ_k)) and int(calls) == calls_k,
@@ -1113,7 +1124,7 @@ def check_render_sharded(scene, vi, pi, ref, meshes_, smi):
         torch.cuda.synchronize()
         img = render_sharded(scene, vi, pi, mesh, **kw)
         torch.cuda.synchronize()
-        launches = mega_trace.launches
+        launches = launched(mega_trace)
         require(launches > 0, f"render_sharded on {name}: K2 not launched")
         frames_close(f"render_sharded, {name}, vs render_image", img, ref)
         ms = cuda_ms(lambda: render_sharded(scene, vi, pi, mesh, **kw), 3)
@@ -1387,7 +1398,7 @@ def check_planned(v, f, grid, device, smi):
     reset(voxel_accum)
     occ, calls = voxelize_planned(plan, v_t)
     torch.cuda.synchronize()
-    launches = voxel_accum.launches
+    launches = launched(voxel_accum)
     require(plan.dims == grid.dims and launches == 1, "planned voxelize: "
             f"dims {plan.dims}, {launches} K1 launches")
     require(torch.equal(occ, grid.occupancy())
@@ -1415,9 +1426,9 @@ def check_planned(v, f, grid, device, smi):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     frame_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
-    require(voxel_accum.launches == len(frames),
-            f"deformed frames: {voxel_accum.launches} K1 launches")
-    launches += voxel_accum.launches
+    require(launched(voxel_accum) == len(frames),
+            f"deformed frames: {launched(voxel_accum)} K1 launches")
+    launches += launched(voxel_accum)
     for i, (occ_i, calls_i) in enumerate(outs):
         ref = voxelize_mesh(fv[i], f, vs, bb_min=dmin, bb_max=dmax,
                             device=device)

@@ -49,10 +49,13 @@ def busy_ms(events):
 def profile_frame(render, kmods):
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from voxelray_torch.utils import trace
+    names = [m.__name__.rsplit(".", 1)[-1] for m in kmods]
     render()                                            # warm
     torch.cuda.synchronize()
-    for m in kmods:
-        m.launches = 0
+    for name in names:
+        trace.reset_counters(f"launches.{name}")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -71,8 +74,8 @@ def profile_frame(render, kmods):
     return {"wall_ms": wall, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / wall if wall else None,
             "device_launches": len(kernels),
-            "port_kernel_launches": {m.__name__.rsplit(".", 1)[-1]:
-                                     m.launches for m in kmods},
+            "port_kernel_launches": {n: trace.counter(f"launches.{n}")
+                                     for n in names},
             "top_kernels": [{"name": k[:80], "count": n, "ms": t}
                             for k, (n, t) in top]}
 

@@ -114,8 +114,8 @@ def main():
         cs.reset(mega_trace)
         img = comm.render_sharded(scene, vi, pi, mesh, backend="fast", **kw)
         sync_all()
-        cs.require(mega_trace.launches >= 2 * mesh.size,
-                   f"render_sharded on {name}: {mega_trace.launches} K2 "
+        cs.require(cs.launched(mega_trace) >= 2 * mesh.size,
+                   f"render_sharded on {name}: {cs.launched(mega_trace)} K2 "
                    "launches")
         cs.frames_close(f"render_sharded, {name}, vs render_image", img,
                         ref)

@@ -24,8 +24,6 @@ from voxelray_torch import cli
 from voxelray_torch.utils import logging as vlogging
 from voxelray_torch.utils.config import BASELINE_CONFIGS
 from voxelray_torch.utils.timing import Benchmarker, time_fn
-from voxelray_torch.utils.trace import (FrameStats, annotate, phase,
-                                        profile_trace)
 
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parents[1]
@@ -154,14 +152,6 @@ def test_baseline_configs_equal_jax():
     assert not cfg.with_plane and cfg.render.frames == 8
 
 
-def test_phase_timer_logs(caplog):
-    with caplog.at_level("INFO", logger="voxelray"):
-        with phase("unit-test-phase") as h:
-            h["x"] = torch.ones(8) * 2
-    assert h["seconds"] >= 0
-    assert any("unit-test-phase" in r.getMessage() for r in caplog.records)
-
-
 def test_build_stats_emit_the_reference_fields(caplog):
     with caplog.at_level("INFO", logger="voxelray"):
         rec = vlogging.BuildStats().bbox([0, 0, 0], [1, 2, 3]) \
@@ -169,23 +159,6 @@ def test_build_stats_emit_the_reference_fields(caplog):
             .timing(1.5, 0.5).memory(64).emit()
     assert rec["grid_dims"] == [4, 5, 6] and rec["set_calls"] == 9
     assert rec["event"] == "voxelize" and rec["memory_bytes"] == 64
-
-
-def test_annotate_and_profile_trace(tmp_path):
-    with profile_trace(str(tmp_path)) as prof:
-        with annotate("region"):
-            torch.ones(64).sum()
-    assert (tmp_path / "trace.json").is_file()
-    assert any(e.key == "region" for e in prof.key_averages())
-
-
-def test_frame_stats():
-    fs = FrameStats()
-    fs.tick()
-    fs.tick()
-    fs.tick()
-    assert fs.ms_per_frame >= 0
-    assert "ms/frame" in fs.summary()
 
 
 def test_benchmarker_render_metric():

@@ -25,10 +25,16 @@ from voxelray_torch.ops.traverse_fast import build_accel, trace_grid_fast
 from voxelray_torch.ops.tri_accel import build_tri_accel, trace_triangles_grid
 from voxelray_torch.ops.voxelize import voxelize_plain
 from voxelray_torch.render.camera import Camera
+from voxelray_torch.utils import trace
 
 torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "voxelray_torch"
+
+
+def _launched(kernel):
+    """The kernel module's launches so far (utils/trace.py's counter)."""
+    return trace.counter("launches." + kernel.__name__.rsplit(".", 1)[-1])
 
 
 def _modules():
@@ -64,8 +70,7 @@ def _small_scene():
 
 def test_cpu_tensors_take_the_plain_versions():
     v, f, bb_min, bb_max, vs, dims = _small_scene()
-    voxel_accum.launches = 0
-    mega_trace.launches = 0
+    trace.reset_counters("launches.")
     vt, ft = torch.from_numpy(v), torch.from_numpy(f)
     occ, calls = voxel_accum.voxel_accum(vt, ft, bb_min, vs, dims)
     occ_p, calls_p = voxelize_plain(vt, ft, bb_min, vs, dims)
@@ -81,11 +86,11 @@ def test_cpu_tensors_take_the_plain_versions():
         torch.ones(64 * 32, dtype=torch.bool))
     assert torch.equal(lin.reshape(-1), lin_p) and int(unresolved) == 0
     assert torch.isfinite(t).sum() > 100
-    grid_walk.launches = brick_fine.launches = 0
+    trace.reset_counters("launches.")
     t_s, lin_s = trace_grid_fast(o, d, accel, mega=False)
     assert torch.equal(lin_s, lin) and torch.equal(t_s, t)
-    assert voxel_accum.launches == 0 and mega_trace.launches == 0
-    assert grid_walk.launches == 0 and brick_fine.launches == 0
+    assert _launched(voxel_accum) == 0 and _launched(mega_trace) == 0
+    assert _launched(grid_walk) == 0 and _launched(brick_fine) == 0
 
 
 def test_cuda_entry_points_refuse_cpu_tensors():
@@ -142,7 +147,7 @@ def test_cpu_triangle_trace_takes_the_plain_march():
     cam = Camera(eye=(2.5, 1.5, -2.5), center=(0.0, 0.0, 0.0))
     _, _, vi, pi = cam.matrices(64, 32)
     o, d = make_camera_rays(64, 32, vi, pi)
-    tri_march.launches = grid_walk.launches = brick_fine.launches = 0
+    trace.reset_counters("launches.")
     t, pid, u, v_, unresolved = trace_triangles_grid(o, d, ta,
                                                      return_stats=True)
     n = 64 * 32
@@ -152,8 +157,8 @@ def test_cpu_triangle_trace_takes_the_plain_march():
     for a, b in zip((t, pid, u, v_), want):
         assert torch.equal(a.reshape(-1), b)
     assert unresolved == want[4] == 0 and (pid >= 0).sum() > 100
-    assert tri_march.launches == grid_walk.launches == 0
-    assert brick_fine.launches == 0
+    assert _launched(tri_march) == _launched(grid_walk) == 0
+    assert _launched(brick_fine) == 0
 
 
 def test_nvcc_command_targets_hopper_without_fma_contraction():
@@ -236,9 +241,9 @@ def cuda():
 def test_kernels_match_plain_versions_on_cuda(cuda):
     v, f, bb_min, bb_max, vs, dims = _small_scene()
     vt, ft = torch.from_numpy(v).to(cuda), torch.from_numpy(f).to(cuda)
-    before = voxel_accum.launches
+    before = _launched(voxel_accum)
     occ, calls = voxel_accum.voxel_accum(vt, ft, bb_min, vs, dims)
-    assert voxel_accum.launches == before + 1
+    assert _launched(voxel_accum) == before + 1
     occ_p, calls_p = voxelize_plain(vt, ft, bb_min, vs, dims)
     assert torch.equal(occ, occ_p) and calls == calls_p
     accel = build_accel(occ, bb_min, vs)
@@ -250,10 +255,10 @@ def test_kernels_match_plain_versions_on_cuda(cuda):
             accel, torch.full((n,), 0.001, device=cuda),
             torch.full((n,), 10000.0, device=cuda),
             torch.ones(n, dtype=torch.bool, device=cuda))
-    before = mega_trace.launches
+    before = _launched(mega_trace)
     t, lin, alive = mega_trace.trace_grid_mega_cuda(*args)
     torch.cuda.synchronize()
-    assert mega_trace.launches == before + 1 and int(alive.sum()) == 0
+    assert _launched(mega_trace) == before + 1 and int(alive.sum()) == 0
     t_p, lin_p, _ = mega_trace.trace_grid_mega_plain(*args)
     assert torch.equal(lin, lin_p)
     same = lin >= 0
@@ -299,11 +304,11 @@ def test_staged_kernels_match_plain_versions_on_cuda(cuda):
     kw = dict(bdims=accel.bdims, origin_key=accel.origin_key,
               brick_world=float(accel.voxel_size * 8), k_hits=5)
     for l2 in (None, accel.l2):
-        before = grid_walk.launches
+        before = _launched(grid_walk)
         got = grid_walk.walk_cuda(o, d, tmn, tmx, None, None, accel.coarse,
                                   l2, **kw)
         torch.cuda.synchronize()
-        assert grid_walk.launches == before + 1
+        assert _launched(grid_walk) == before + 1
         want = grid_walk.walk_plain(o, d, tmn, tmx, None, None,
                                     accel.coarse, l2, **kw)
         for a, b in zip(got, want):
@@ -316,10 +321,10 @@ def test_staged_kernels_match_plain_versions_on_cuda(cuda):
             assert torch.equal(a, b)
     fkw = dict(dims=accel.dims, bdims=accel.bdims,
                origin_key=accel.origin_key, voxel_size=accel.voxel_size)
-    before = brick_fine.launches
+    before = _launched(brick_fine)
     t, lin = brick_fine.fine_cuda(o, d, got[0], accel.fine, tmn, tmx, **fkw)
     torch.cuda.synchronize()
-    assert brick_fine.launches == before + 1 and (lin >= 0).sum() > 100
+    assert _launched(brick_fine) == before + 1 and (lin >= 0).sum() > 100
     t_p, lin_p = brick_fine.fine_plain(o, d, got[0], accel.fine, tmn, tmx,
                                        **fkw)
     assert torch.equal(lin, lin_p) and torch.equal(t, t_p)
@@ -350,11 +355,11 @@ def test_tri_march_matches_the_lap_loop_on_cuda(cuda):
                                          two_level=two_level)
         hit = want[1] >= 0
         assert int(hit.sum()) > 500 and want[4] == 0
-        before = tri_march.launches
+        before = _launched(tri_march)
         got = tri_march.tri_march_cuda(o, d, tmn, tmx, ta,
                                        two_level=two_level)
         torch.cuda.synchronize()
-        assert tri_march.launches == before + 1 and int(got[4]) == 0
+        assert _launched(tri_march) == before + 1 and int(got[4]) == 0
         assert torch.equal(got[1], want[1])
         assert torch.equal(got[0], want[0])
         assert torch.equal(got[2][hit], want[2][hit])

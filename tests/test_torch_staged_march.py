@@ -25,8 +25,14 @@ from voxelray_torch.ops.traverse import _per_ray
 from voxelray_torch.ops.traverse_fast import (any_hit_grid_fast, build_accel,
                                               trace_grid_fast)
 from voxelray_torch.ops.tri_accel import build_tri_accel
+from voxelray_torch.utils import trace
 
 torch.set_num_threads(2)
+
+
+def _launched(kernel):
+    """The kernel module's launches so far (utils/trace.py's counter)."""
+    return trace.counter("launches." + kernel.__name__.rsplit(".", 1)[-1])
 
 
 def _bounds(o, kw):
@@ -61,12 +67,12 @@ def test_cpu_tensors_take_the_plain_loop(monkeypatch):
         return plain(*a)
 
     monkeypatch.setattr(staged_march, "staged_march_plain", counted)
-    counts = [m.launches for m in (staged_march, grid_walk, brick_fine)]
+    counts = [_launched(m) for m in (staged_march, grid_walk, brick_fine)]
     t, lin, unresolved = trace_grid_fast(o, d, accel, mega=False,
                                          return_stats=True)
     occl = any_hit_grid_fast(o, d, accel, mega=False)
     assert calls == [5, 4] and unresolved == 0
-    assert [m.launches for m in (staged_march, grid_walk,
+    assert [_launched(m) for m in (staged_march, grid_walk,
                                  brick_fine)] == counts
     assert torch.equal(occl, lin >= 0) and int((lin >= 0).sum()) > 100
     meta = torch.empty((4, 3), device="meta")
@@ -158,7 +164,7 @@ def test_kernel_matches_the_plain_loop_on_cuda(cuda):
     admit = torch.from_numpy(np.random.default_rng(1).random(n) < 0.05) \
         .to(cuda)
     for adm, k in ((None, 5), (admit, 4)):
-        counts = [m.launches for m in (staged_march, grid_walk, brick_fine)]
+        counts = [_launched(m) for m in (staged_march, grid_walk, brick_fine)]
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -167,7 +173,7 @@ def test_kernel_matches_the_plain_loop_on_cuda(cuda):
                 k_hits=k, return_stats=True)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        assert [m.launches for m in (staged_march, grid_walk, brick_fine)] \
+        assert [_launched(m) for m in (staged_march, grid_walk, brick_fine)] \
             == [counts[0] + 1, counts[1], counts[2]]
         assert int(unresolved) == 0
         args = (o, d, accel, tmn, tmx, adm, k, None)

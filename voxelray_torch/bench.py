@@ -51,14 +51,13 @@ from .models.scene import build_scene
 from .ops import aabbs as ops_aabbs
 from .ops.geometry import grid_dims, mesh_bbox
 from .ops.intersect import make_camera_rays
-from .ops.kernels import (brick_fine, grid_walk, mega_trace, staged_march,
-                          tri_march, voxel_accum)
 from .ops.traverse import trace_grid_dda_chunked
 from .ops.traverse_fast import trace_grid_fast
 from .ops.voxelize import plan_voxelize, voxelize_plain, voxelize_planned
 from .oracle import oracle_voxelize
 from .render.camera import Camera, orbit_path
 from .render.pipeline import render_aov, render_image, render_scene
+from .utils import trace
 from .utils.device import resolve_device
 from .utils.parity import adjudicate_hit_diffs
 from .utils.timing import time_fn
@@ -79,8 +78,8 @@ PARITY_W, PARITY_H = 320, 180
 PARITY_EYE = (2.1, 1.4, -2.2)
 KP = 6                  # pipelined voxelize / extract calls per sync
 MAX_DIFF_RAYS = 2048    # more differing rays than this is a bug, not FMA
-KERNELS = (voxel_accum, mega_trace, grid_walk, brick_fine, tri_march,
-           staged_march)
+KERNELS = ("voxel_accum", "mega_trace", "grid_walk", "brick_fine",
+           "tri_march", "staged_march")
 
 
 def log(msg):
@@ -93,7 +92,7 @@ def _sync(device):
 
 
 def _launches():
-    return {m.__name__.rsplit(".", 1)[-1]: m.launches for m in KERNELS}
+    return {name: trace.counter(f"launches.{name}") for name in KERNELS}
 
 
 def _smi(device):

@@ -72,6 +72,9 @@ def build_parser():
     p.add_argument("--device", default=None,
                    help="torch device to run on (default: the CUDA card; "
                         "'cpu' runs the plain PyTorch versions)")
+    p.add_argument("--trace-out", default=None,
+                   help="record the run's spans and counters and write "
+                        "them here as Chrome-trace JSON (Perfetto)")
     return p
 
 
@@ -122,9 +125,12 @@ def main(argv=None):
     from .render.raster import rasterize_scene
     from .utils.device import resolve_device
     from .utils.logging import BuildStats
+    from .utils import trace
     from .utils.timing import Benchmarker
 
     device = resolve_device(args.device)
+    if args.trace_out:
+        trace.enable()
     if args.load_grid:
         # checkpoint/resume: render runs skip re-voxelization entirely
         from .utils.checkpoint import load_grid
@@ -239,6 +245,10 @@ def main(argv=None):
             np.save(args.out, np.stack(frames) if len(frames) > 1
                     else frames[0])
             print(f"Wrote {args.out}")
+    if args.trace_out:
+        trace.disable()
+        trace.dump(args.trace_out)
+        print(f"Wrote {len(trace.records())} spans to {args.trace_out}")
     return 0
 
 

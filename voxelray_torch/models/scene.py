@@ -36,6 +36,7 @@ from ..io.textures import build_mip_chain, load_texture
 from ..ops.aabbs import extract_aabbs
 from ..ops.traverse_fast import build_accel
 from ..ops.tri_accel import build_tri_accel
+from ..utils import trace
 from ..utils.device import resolve_device
 
 __all__ = ["Scene", "Light", "build_scene"]
@@ -227,6 +228,7 @@ def _build_tri_accel(v0, v1, v2, device):
     return ta
 
 
+@trace.spanned("build_scene")
 def build_scene(models=None, grid=None, aabbs=None,
                 voxel_material: Material | None = None, transforms=None,
                 octree=None, tri_accel="auto", device=None) -> Scene:

@@ -26,6 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
+
 __all__ = ["aabbs_from_linear", "aabbs_from_cells", "extract_aabbs_fixed",
            "extract_aabbs_words", "extract_aabbs", "count_occupied",
            "count_nonzero_words", "count_nonzero_bytes",
@@ -210,6 +212,7 @@ def count_nonzero_bytes(occ) -> int:
     return _chunks_nonzero(occ, 8)
 
 
+@trace.spanned("extract_aabbs")
 def extract_aabbs(grid):
     """Exact-size (N, 6) float32 rows, in linear order, from a
     voxelize_mesh result dict or a grid object (occupancy(), dims,

@@ -32,6 +32,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from ...utils import trace
+
 __all__ = ["NVCC_FLAGS", "nvcc_commands", "find_nvcc", "load_library",
            "build_log"]
 
@@ -94,6 +96,7 @@ def build_log() -> str:
 
 
 @functools.cache
+@trace.spanned("load_library")
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; cached per process."""
     out_dir = BUILD_DIR / _key()

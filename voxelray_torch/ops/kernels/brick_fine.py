@@ -18,7 +18,8 @@ there reads as empty.
 
 CUDA tensors launch the kernel; CPU tensors run the plain PyTorch version
 (`fine_plain`), the same float32 expressions vectorized over rays.  Any
-other device raises.  `launches` counts kernel launches only.
+other device raises.  Each launch adds 1 to the counter
+`launches.brick_fine` (utils/trace.py).
 """
 from __future__ import annotations
 
@@ -28,15 +29,13 @@ import numpy as np
 import torch
 
 from ..geometry import div_scalar, floor_cell
+from ...utils import trace
 from ._build import check, load_library
 
-__all__ = ["fine_walk_multi", "fine_walk", "fine_plain", "fine_cuda",
-           "launches"]
+__all__ = ["fine_walk_multi", "fine_walk", "fine_plain", "fine_cuda"]
 
 BRICK = 8
 STEPS = 3 * BRICK + 1
-
-launches = 0
 
 
 def _consts(origin_key, voxel_size, bdims):
@@ -234,7 +233,6 @@ def _lib():
 def fine_cuda(o, d, bricks, fine, t_min, t_max, *, dims, bdims, origin_key,
               voxel_size, fine_off=0):
     """Launch K4; arguments as fine_plain, contiguous on one CUDA device."""
-    global launches
     dev = o.device
     n = o.shape[0]
     k = bricks.shape[0]
@@ -272,7 +270,7 @@ def fine_cuda(o, d, bricks, fine, t_min, t_max, *, dims, bdims, origin_key,
                  float(og[2]), float(vs), float(half), float(bwf),
                  float(scale), t.data_ptr(), lin.data_ptr(), stream)
     check(err, "brick_fine_launch")
-    launches += 1
+    trace.count("launches.brick_fine")
     return t, lin
 
 

@@ -12,8 +12,8 @@ brick sequence is the single-level one's.
 CUDA tensors launch the kernel; CPU tensors run the plain PyTorch version
 (`walk_plain`), which evaluates the kernel's float32 expressions
 vectorized over rays, one step at a time, with the same per-ray step bound
-bx+by+bz+3.  Any other device raises.  `launches` counts kernel launches
-only.
+bx+by+bz+3.  Any other device raises.  Each launch adds 1 to the counter
+`launches.grid_walk` (utils/trace.py).
 """
 from __future__ import annotations
 
@@ -23,12 +23,10 @@ import numpy as np
 import torch
 
 from ..geometry import div_scalar, floor_cell
+from ...utils import trace
 from ._build import check, load_library
 
-__all__ = ["coarse_walk", "coarse_walk_init", "walk_plain", "walk_cuda",
-           "launches"]
-
-launches = 0
+__all__ = ["coarse_walk", "coarse_walk_init", "walk_plain", "walk_cuda"]
 
 _INF = float("inf")
 
@@ -171,7 +169,6 @@ def walk_cuda(o, d, t_min, t_max, cell, active, coarse, l2, *, bdims,
     """Launch K3; arguments as walk_plain, every tensor contiguous on one
     CUDA device (t_min float32 (N,) with cell None; cell int32 (N, 3) and
     active int32 (N,) otherwise)."""
-    global launches
     dev = o.device
     n = o.shape[0]
     f32, i32 = torch.float32, torch.int32
@@ -216,7 +213,7 @@ def walk_cuda(o, d, t_min, t_max, cell, active, coarse, l2, *, bdims,
                  float(og32[2]), float(bw32), k_hits, hits.data_ptr(),
                  cell_out.data_ptr(), cont.data_ptr(), stream)
     check(err, "grid_walk_launch")
-    launches += 1
+    trace.count("launches.grid_walk")
     return hits, cell_out, cont
 
 

@@ -9,8 +9,8 @@ shadow any-hit.
 
 CUDA tensors launch the kernel; CPU tensors run the plain PyTorch
 version, the exhaustive DDA of ops/traverse.py over the occupancy the
-accel's fine words encode.  Any other device raises.  `launches` counts
-kernel launches only.
+accel's fine words encode.  Any other device raises.  Each launch adds
+1 to the counter `launches.mega_trace` (utils/trace.py).
 """
 from __future__ import annotations
 
@@ -21,11 +21,11 @@ import torch
 
 from ...models.grids import pack_words, unpack_words
 from ..traverse import _per_ray, trace_grid_dda
+from ...utils import trace
 from ._build import check, load_library
 
 __all__ = ["build_fine_sb", "trace_grid_mega", "trace_grid_mega_cuda",
-           "trace_grid_mega_plain", "accel_occupancy", "launches",
-           "TILE_ROWS"]
+           "trace_grid_mega_plain", "accel_occupancy", "TILE_ROWS"]
 
 BRICK = 8
 TILE_ROWS = 72  # 64 word rows + occupancy row 64 + 7 alignment spares
@@ -34,9 +34,8 @@ TILE_ROWS = 72  # 64 word rows + occupancy row 64 + 7 alignment spares
 # do not queue on one word (PERF.md)
 STRIPES = 32
 
-launches = 0
 
-
+@trace.spanned("build_fine_sb")
 def build_fine_sb(fine, bdims):
     """(16, NB) packed fine words -> (n_sb, 72, 128) superbrick-major.
 
@@ -103,7 +102,6 @@ def trace_grid_mega_cuda(o, d, accel, t_min, t_max, admit):
     """Launch K2.  o, d: (N, 3) float32; t_min, t_max: (N,) float32;
     admit: (N,) bool; the accel's l2 and fine_sb on the same CUDA device.
     Returns (t (N,) float32, lin (N,) int32, alive (N,) int32)."""
-    global launches
     dev = o.device
     n = o.shape[0]
     for name, x, dtype, shape in (("o", o, torch.float32, (n, 3)),
@@ -154,7 +152,7 @@ def trace_grid_mega_cuda(o, d, accel, t_min, t_max, admit):
                  t.data_ptr(), lin.data_ptr(), alive.data_ptr(),
                  next_ray.data_ptr(), STRIPES, stream)
     check(err, "mega_trace_launch")
-    launches += 1
+    trace.count("launches.mega_trace")
     return t, lin, alive
 
 
@@ -176,12 +174,15 @@ def trace_grid_mega(origins, dirs, accel, t_min, t_max, admit=None,
     tmx = _per_ray(t_max, n, dev).contiguous()
     adm = (torch.ones((n,), dtype=torch.bool, device=dev) if admit is None
            else admit.reshape(-1).to(torch.bool).contiguous())
-    if o.is_cuda:
-        t, lin, alive = trace_grid_mega_cuda(o, d, accel, tmn, tmx, adm)
-    elif dev.type == "cpu":
-        t, lin, alive = trace_grid_mega_plain(o, d, accel, tmn, tmx, adm)
-    else:
-        raise ValueError(f"trace_grid_mega: unsupported device {dev}")
+    trace.count("rays.mega_trace", n)
+    with trace.span("mega_trace"):
+        if o.is_cuda:
+            t, lin, alive = trace_grid_mega_cuda(o, d, accel, tmn, tmx, adm)
+        elif dev.type == "cpu":
+            t, lin, alive = trace_grid_mega_plain(o, d, accel, tmn, tmx,
+                                                  adm)
+        else:
+            raise ValueError(f"trace_grid_mega: unsupported device {dev}")
     t, lin = t.reshape(batch), lin.reshape(batch)
     if return_stats:
         return t, lin, alive.sum()

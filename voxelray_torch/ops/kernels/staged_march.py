@@ -18,7 +18,8 @@ versions on CPU tensors.
 ops/traverse_fast.trace_grid_fast(mega=False) dispatches: CUDA tensors
 launch the kernel (`staged_march_cuda`), CPU tensors run
 `staged_march_plain`, whose (t, lin, unresolved) the kernel gives bit for
-bit; any other device raises.  `launches` counts kernel launches only.
+bit; any other device raises.  Each launch adds 1 to the counter
+`launches.staged_march` (utils/trace.py).
 """
 from __future__ import annotations
 
@@ -28,13 +29,14 @@ import numpy as np
 import torch
 
 from . import brick_fine
+from ...utils import trace
 from ._build import check, load_library
 from .brick_fine import fine_walk_multi
 from .grid_walk import coarse_walk, coarse_walk_init
 from .mega_trace import STRIPES
 
 __all__ = ["staged_march_plain", "staged_march_cuda", "use_two_level",
-           "max_drain_laps", "launch_config", "launches"]
+           "max_drain_laps", "launch_config"]
 
 BRICK = 8
 # occupied bricks per ray that each drain lap of the staged walk finds
@@ -45,8 +47,6 @@ _DRAIN_K = 8
 SMEM_WORDS = 48 * 1024 // 4
 # the deferral's counters: three ints, each on a 128-byte line of its own
 _SCHED_WORDS = 3 * 32
-
-launches = 0
 
 
 def use_two_level(accel, two_level):
@@ -200,7 +200,6 @@ def staged_march_cuda(o, d, accel, tmn, tmx, admit, k_hits, two_level,
     a 0-d int64 tensor on the device (reading it waits for the kernel);
     nothing here waits for the device.  lib: another build of
     csrc/staged_march.cu (default the kernel library)."""
-    global launches
     dev = o.device
     n = o.shape[0]
     f32, i32 = torch.float32, torch.int32
@@ -246,6 +245,6 @@ def staged_march_cuda(o, d, accel, tmn, tmx, admit, k_hits, two_level,
         err = fn(*[x.data_ptr() if torch.is_tensor(x) else x for x in args],
                  stream)
     check(err, "staged_march_launch")
-    launches += 1
+    trace.count("launches.staged_march")
     return outs
 

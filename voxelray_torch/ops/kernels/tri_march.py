@@ -17,7 +17,7 @@ Moller-Trumbore over it.
 
 CUDA tensors launch the kernel (`tri_march_cuda`); CPU tensors run
 `tri_march_plain`, whose (t, id, u, v) the kernel gives bit for bit.
-`launches` counts kernel launches only.
+Each launch adds 1 to the counter `launches.tri_march` (utils/trace.py).
 """
 from __future__ import annotations
 
@@ -29,14 +29,12 @@ import torch
 from ..geometry import div_scalar, floor_cell
 from ..intersect import hit_triangles
 from . import brick_fine
+from ...utils import trace
 from ._build import check, load_library
 from .staged_march import (_DRAIN_K, max_drain_laps, staged_march_plain,
                            use_two_level)
 
-__all__ = ["tri_march_plain", "tri_march_cuda", "launch_config",
-           "launches", "INNER_K"]
-
-launches = 0
+__all__ = ["tri_march_plain", "tri_march_cuda", "launch_config", "INNER_K"]
 
 # ray-triangle pairs per Moller-Trumbore batch of the plain version:
 # bounds the (m, L, 9) gathered rows and their temporaries at full-frame
@@ -283,7 +281,6 @@ def tri_march_cuda(o, d, t_min, t_max, ta, two_level=None, lib=None):
     (1,) int64 tensor on the device (reading it waits for the kernel).
     lib: another build of csrc/tri_march.cu (default the kernel
     library)."""
-    global launches
     dev = o.device
     n = o.shape[0]
     f32, i32 = torch.float32, torch.int32
@@ -332,5 +329,5 @@ def tri_march_cuda(o, d, t_min, t_max, ta, two_level=None, lib=None):
         err = fn(*[x.data_ptr() if torch.is_tensor(x) else x for x in args],
                  stream)
     check(err, "tri_march_launch")
-    launches += 1
+    trace.count("launches.tri_march")
     return outs

@@ -8,9 +8,10 @@ the device (no host plan).
 
 `voxel_accum` launches the kernel for CUDA tensors and runs the plain
 PyTorch version (`voxelize_plain`) for CPU tensors; any other device
-raises.  `launches` counts kernel launches only.  The kernel checks the
-face indices itself; the wrapper reads its hit total and its count of
-out-of-range faces in one sync and raises if that count is not 0.
+raises.  Each launch adds 1 to the counter `launches.voxel_accum`
+(utils/trace.py).  The kernel checks the face indices itself; the
+wrapper reads its hit total and its count of out-of-range faces in one
+sync and raises if that count is not 0.
 `voxelize_planned` (ops/voxelize.py) calls `launch` on faces its plan
 checked once, and reads nothing back.
 """
@@ -22,12 +23,11 @@ import numpy as np
 import torch
 
 from ..voxelize import voxelize_plain
+from ...utils import trace
 from ._build import check, load_library
 
 __all__ = ["voxel_accum", "voxel_accum_cuda", "launch", "check_sizes",
-           "voxelize_plain", "launches"]
-
-launches = 0
+           "voxelize_plain"]
 
 _c_void = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -84,7 +84,6 @@ def launch(v, f, origin, voxel_size, dims, occ, counts):
     """Launch K1 on checked arguments (see voxel_accum_cuda): ORs the
     mesh's occupancy into occ (Z, Y, X) uint8 and adds the hit total and
     the number of out-of-range faces to counts (2,) int64."""
-    global launches
     nx, ny, nz = (int(x) for x in dims)
     org = np.asarray(origin, np.float32)
     fn = _lib()
@@ -96,7 +95,7 @@ def launch(v, f, origin, voxel_size, dims, occ, counts):
                  float(np.float32(voxel_size * 0.5)),
                  nx, ny, nz, occ.data_ptr(), counts.data_ptr(), stream)
     check(err, "voxel_accum_launch")
-    launches += 1
+    trace.count("launches.voxel_accum")
 
 
 def voxel_accum(v, f, origin, voxel_size, dims):

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..models.grids import pack_words
+from ..utils import trace
 from .intersect import TMAX, TMIN
 from .kernels import staged_march
 from .kernels.mega_trace import build_fine_sb, trace_grid_mega
@@ -111,6 +112,7 @@ def _l2(bocc):
     return _bitmask_rows(socc.reshape(-1))
 
 
+@trace.spanned("build_accel")
 def build_accel(occ, origin, voxel_size) -> BrickAccel:
     """occ (Z, Y, X) uint8 tensor -> BrickAccel on occ's device."""
     nz, ny, nx = occ.shape
@@ -213,9 +215,9 @@ def trace_grid_fast(origins, dirs, accel: BrickAccel, t_min=TMIN,
     batch = origins.shape[:-1]
     dev = origins.device
     if dev.type == "cuda":
-        trace = staged_march.staged_march_cuda
+        march = staged_march.staged_march_cuda
     elif dev.type == "cpu":
-        trace = staged_march.staged_march_plain
+        march = staged_march.staged_march_plain
     else:
         raise ValueError(f"trace_grid_fast: unsupported device {dev}")
     o = origins.reshape(-1, 3).to(torch.float32).contiguous()
@@ -225,8 +227,10 @@ def trace_grid_fast(origins, dirs, accel: BrickAccel, t_min=TMIN,
     tmx = _per_ray(t_max, n, dev).contiguous()
     adm = None if admit is None else \
         admit.reshape(-1).to(torch.bool).contiguous()
-    t, lin, unresolved = trace(o, d, accel, tmn, tmx, adm, k_hits,
-                               two_level)
+    trace.count("rays.staged_march", n)
+    with trace.span("staged_march"):
+        t, lin, unresolved = march(o, d, accel, tmn, tmx, adm, k_hits,
+                                   two_level)
     t, lin = t.reshape(batch), lin.reshape(batch)
     if return_stats:
         return t, lin, unresolved

@@ -43,6 +43,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.device import resolve_device
 from .geometry import grid_dims
 from .intersect import TMAX, TMIN
@@ -68,6 +69,7 @@ class TriAccel:
     overflow_cells: int
 
 
+@trace.spanned("build_tri_accel")
 def build_tri_accel(v0, v1, v2, *, res=64, l_width=None, max_l_width=512,
                     device=None) -> TriAccel:
     """Bin triangles (three (F, 3) corner arrays) into a uniform grid whose
@@ -150,7 +152,9 @@ def trace_triangles_grid(origins, dirs, ta: TriAccel, t_min=TMIN,
         march = tri_march_plain
     else:
         raise ValueError(f"trace_triangles_grid: unsupported device {dev}")
-    *out, unresolved = march(o, d, t_min_b, t_max_b, ta)
+    trace.count("rays.tri_march", n)
+    with trace.span("tri_march"):
+        *out, unresolved = march(o, d, t_min_b, t_max_b, ta)
     out = tuple(x.reshape(batch) for x in out)
     if return_stats:
         return out + (int(unresolved),)

@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.device import resolve_device
 from .geometry import div_scalar, grid_dims, mesh_bbox
 from .sat import tri_box_overlap
@@ -189,6 +190,7 @@ def voxelize_hits(vertices, faces, voxel_size, *, bb_min=None, bb_max=None,
     return {**out, "tri": t, "lin": lin, "set_calls": int(lin.shape[0])}
 
 
+@trace.spanned("voxelize_mesh")
 def voxelize_mesh(vertices, faces, voxel_size, *, bb_min=None, bb_max=None,
                   device=None):
     """Host-facing wrapper: mesh in, occupancy + grid metadata out.

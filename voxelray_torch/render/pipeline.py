@@ -45,6 +45,7 @@ from ..ops.tri_accel import any_hit_triangles_grid, trace_triangles_grid
 from . import shading
 from .camera import Camera
 from ..models.scene import Light, Scene
+from ..utils import trace
 
 __all__ = ["render_rays", "render_image", "render_scene", "render_aov",
            "Surface", "surface_terms"]
@@ -172,6 +173,13 @@ def _any_hit(scene: Scene, origins, dirs, t_min, t_max, backend, admit,
         occluded = any_hit_grid_fast(origins, dirs, scene.accel,
                                      t_min=t_min, t_max=t_max, admit=admit,
                                      **opts)
+        if trace.enabled():
+            n = occluded.numel()
+            trace.count("shadow.rays", n)
+            if admit is None:
+                trace.count("shadow.admitted", n)
+            else:
+                trace.count_device("shadow.admitted", admit)
     if route == "brute" and not scene.n_voxels:
         route = None
     if not scene.n_triangles and route in ("fast", None):
@@ -200,6 +208,11 @@ def _any_hit(scene: Scene, origins, dirs, t_min, t_max, backend, admit,
     elif route == "brute":
         hit |= any_hit_aabbs_brute(o, d, scene.voxel_aabbs, t_min=t_min,
                                    t_max=tmx)
+    if trace.enabled():
+        calls = bool(scene.n_triangles) + (route in ("octree", "dda",
+                                                     "brute"))
+        trace.count("shadow.rays", calls * o.shape[0])
+        trace.count("shadow.admitted", calls * o.shape[0])
     if admit is not None:
         occluded.reshape(-1)[sel] |= hit
         return occluded
@@ -327,44 +340,51 @@ def render_rays(scene: Scene, origins, dirs, light: Light = Light(),
     t_max (M,).
     """
     _check_backend(backend)
-    tri = (_trace_triangles(scene, origins, dirs, t_min, t_max)
-           if scene.n_triangles else None)
-    if trace_voxels_fn is not None:
-        t_vox, vox_id = trace_voxels_fn(origins, dirs, t_min, t_max)
-    else:
-        t_vox, vox_id = _trace_voxels(scene, origins, dirs, t_min, t_max,
-                                      backend, fast_opts)
-    s = surface_terms(scene, origins, dirs, t_vox, vox_id, light, tri,
-                      backend)
-    if shadows:
-        if any_hit_fn is None:
-            shadowed = _any_hit(scene, s.world_pos, s.l_vec, TMIN,
-                                s.light_dist, backend, s.hit & s.facing,
-                                fast_opts, shadow_opts)
+    with trace.span("primary"):
+        tri = (_trace_triangles(scene, origins, dirs, t_min, t_max)
+               if scene.n_triangles else None)
+        if trace_voxels_fn is not None:
+            t_vox, vox_id = trace_voxels_fn(origins, dirs, t_min, t_max)
         else:
-            shadowed = torch.zeros_like(s.facing)
-            sel = torch.nonzero((s.hit & s.facing).reshape(-1)).squeeze(1)
-            shadowed.reshape(-1)[sel] = any_hit_fn(
-                s.world_pos.reshape(-1, 3)[sel], s.l_vec.reshape(-1, 3)[sel],
-                TMIN, s.light_dist.reshape(-1)[sel]).reshape(-1)
-        shadowed = torch.where(s.facing, shadowed, torch.ones_like(shadowed))
-    else:
-        # shadows disabled: every facing surface counts as lit
-        shadowed = ~s.facing
+            t_vox, vox_id = _trace_voxels(scene, origins, dirs, t_min,
+                                          t_max, backend, fast_opts)
+    with trace.span("surface"):
+        s = surface_terms(scene, origins, dirs, t_vox, vox_id, light, tri,
+                          backend)
+    with trace.span("shadow"):
+        if shadows:
+            if any_hit_fn is None:
+                shadowed = _any_hit(scene, s.world_pos, s.l_vec, TMIN,
+                                    s.light_dist, backend, s.hit & s.facing,
+                                    fast_opts, shadow_opts)
+            else:
+                shadowed = torch.zeros_like(s.facing)
+                sel = torch.nonzero((s.hit & s.facing).reshape(-1)) \
+                    .squeeze(1)
+                shadowed.reshape(-1)[sel] = any_hit_fn(
+                    s.world_pos.reshape(-1, 3)[sel],
+                    s.l_vec.reshape(-1, 3)[sel], TMIN,
+                    s.light_dist.reshape(-1)[sel]).reshape(-1)
+            shadowed = torch.where(s.facing, shadowed,
+                                   torch.ones_like(shadowed))
+        else:
+            # shadows disabled: every facing surface counts as lit
+            shadowed = ~s.facing
 
-    specular = shading.compute_specular(s.mat, dirs, s.l_vec, s.normal)
-    lit = s.facing & ~shadowed
-    # triangle CH: attenuation 1 unless facing and shadowed -> 0.3;
-    # voxel CH: attenuation 0.3 unless facing and unshadowed -> 1
-    att_tri = torch.where(s.facing & shadowed, 0.3, 1.0)
-    att_vox = torch.where(lit, 1.0, 0.3)
-    attenuation = torch.where(s.vox_hit, att_vox, att_tri)
-    specular = torch.where(lit[..., None], specular,
-                           torch.zeros_like(specular))
-    color = s.intensity[..., None] * attenuation[..., None] \
-        * (s.diffuse + specular)
-    miss = shading.miss_color(clear_color, device=color.device)
-    return torch.where(s.hit[..., None], color, miss)
+    with trace.span("shade"):
+        specular = shading.compute_specular(s.mat, dirs, s.l_vec, s.normal)
+        lit = s.facing & ~shadowed
+        # triangle CH: attenuation 1 unless facing and shadowed -> 0.3;
+        # voxel CH: attenuation 0.3 unless facing and unshadowed -> 1
+        att_tri = torch.where(s.facing & shadowed, 0.3, 1.0)
+        att_vox = torch.where(lit, 1.0, 0.3)
+        attenuation = torch.where(s.vox_hit, att_vox, att_tri)
+        specular = torch.where(lit[..., None], specular,
+                               torch.zeros_like(specular))
+        color = s.intensity[..., None] * attenuation[..., None] \
+            * (s.diffuse + specular)
+        miss = shading.miss_color(clear_color, device=color.device)
+        return torch.where(s.hit[..., None], color, miss)
 
 
 _TILE_H, _TILE_W = 8, 128
@@ -406,15 +426,25 @@ def render_image(scene: Scene, view_inv, proj_inv, *, width, height,
                  backend="dda", shadows=True, fast_opts=None,
                  shadow_opts=None):
     """Framebuffer (H, W, 4) float32 on the scene's device,
-    gamma-corrected.  fast_opts / shadow_opts as in render_rays."""
+    gamma-corrected.  fast_opts / shadow_opts as in render_rays.
+
+    With tracing on (utils/trace.py) the call is one span
+    "render_image" whose children are the frame's stages: "rays",
+    "primary", "surface", "shadow", "shade" and "post"; a trace kernel's
+    call ("mega_trace", "staged_march", "tri_march") is a span under
+    "primary" or "shadow"."""
     _check_backend(backend)
-    origins, dirs, untile = _frame_rays(scene, view_inv, proj_inv, width,
-                                        height, backend)
-    rgb = untile(render_rays(scene, origins, dirs, light, clear_color,
-                             backend=backend, shadows=shadows,
-                             fast_opts=fast_opts, shadow_opts=shadow_opts))
-    rgba = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
-    return shading.gamma_post(rgba)
+    with trace.span("render_image"):
+        with trace.span("rays"):
+            origins, dirs, untile = _frame_rays(scene, view_inv, proj_inv,
+                                                width, height, backend)
+        rgb = render_rays(scene, origins, dirs, light, clear_color,
+                          backend=backend, shadows=shadows,
+                          fast_opts=fast_opts, shadow_opts=shadow_opts)
+        with trace.span("post"):
+            rgb = untile(rgb)
+            rgba = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
+            return shading.gamma_post(rgba)
 
 
 def render_scene(scene: Scene, camera: Camera = Camera(), *, width=1280,
