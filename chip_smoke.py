@@ -44,7 +44,14 @@ Drives the port's paths the way a user calls them, at the bench's size:
     voxelize_planned on the knot bit-equal to phase 1's voxelize_mesh; a
     deforming knot's frames queued through a deform_safe plan with no
     host sync (sync debug mode "error"), each bit-equal to voxelize_mesh
-    and one to voxelize_plain; the host syncs of one voxel frame.
+    and one to voxelize_plain; one voxel frame, which must make no host
+    sync.
+  * the frame glue (phase 12): on the voxel and the triangle frame, the
+    three kernels of csrc/frame_shade.cu (camera_rays, hit_surface,
+    shade_post) each against the plain PyTorch stage it replaced on the
+    same inputs: the rays, the shadow query and the shading record bit
+    for bit, the framebuffer within 2 ulp; each launched once a frame in
+    phases 2 and 7.
 
 Each path runs once with the kernels' launch counters set to 0 just
 before it and read just after (staged_march's row counts the staged
@@ -109,6 +116,11 @@ PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 # ray-triangle pair Moller-Trumbore with its accept tests
 OPS_SAT, OPS_CELL, OPS_BRICK = 350, 52, 17
 OPS_LAP, OPS_TRI = 48, 61
+# phase 12: the frame glue's kernels (csrc/frame_shade.cu); their calls
+# timed queued behind a ~10 ms sleep, longer than the host takes to queue
+# them
+FRAME_KERNELS = ("camera_rays", "hit_surface", "shade_post")
+FRAME_REPS, QUEUE_CYCLES = 20, 20_000_000
 
 
 def log(msg):
@@ -133,6 +145,37 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps):
+    """Mean device ms of fn() over reps calls queued behind a sleeping
+    kernel, so that the host's time a call does not pace them (after one
+    warm-up)."""
+    import torch
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps):
+    """Host us a call of fn() over reps calls (after one warm-up)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    return us
 
 
 def bound(nbytes, ops):
@@ -257,7 +300,9 @@ def log_frames(what, frame_ms, smi):
 
 
 def _kernel(mod):
-    return mod.__name__.rsplit(".", 1)[-1]
+    """A kernel's counter name: its module's last name, or the name given
+    (the frame glue's three kernels share one module)."""
+    return mod if isinstance(mod, str) else mod.__name__.rsplit(".", 1)[-1]
 
 
 def launched(mod):
@@ -1481,8 +1526,166 @@ def run_bench(v, f, grid, scene, vi, pi, kmods, device):
             shadows=shadows), device)
         log(f"host syncs in one {WIDTH}x{HEIGHT} voxel frame (K2), shadows="
             f"{shadows}: {len(sites)} {sites}")
+        require(not sites, "a voxel frame on the card made a host sync")
     log(f"phase 11 (bench, planned voxelize): {time.time() - t0:.1f} s")
     return counts["voxel_accum"] + planned
+
+
+def check_frame_glue(what, scene, vi, pi, device):
+    """Phase 12: the frame glue's kernels on the scene's WIDTHxHEIGHT frame
+    with shadows (fast backend, render_image's light and clear colour),
+    each held against the plain stage it replaced on the same inputs on
+    the card: camera_rays against make_camera_rays + _tile_rays and
+    hit_surface's shadow query and record against surface_terms, bit for
+    bit; shade_post's framebuffer against the plain shade stage, untiling
+    and gamma_post within 2 ulp (pow).  render_image's frame must be
+    shade_post's.  Each kernel is timed alone (queued_ms) beside its plain
+    stage (one call, its syncs included) and its wrapper's host time.
+    Returns {kernel: (ms, plain_ms, nbytes, err, host_us)}, nbytes each
+    ray's inputs and outputs once as the kernel reads and writes them."""
+    import torch
+    from voxelray_torch.models.scene import Light
+    from voxelray_torch.ops.intersect import TMAX, TMIN, make_camera_rays
+    from voxelray_torch.ops.kernels import frame_shade
+    from voxelray_torch.render import pipeline, shading
+    backend, light, clear = "fast", Light(), (1.0, 1.0, 1.0, 1.0)
+    tiled = pipeline._tiles(backend, HEIGHT, WIDTH)
+    n = WIDTH * HEIGHT
+    bits = lambda x: x.contiguous().view(torch.int32)  # noqa: E731
+
+    def rays():
+        return frame_shade.camera_rays_cuda(WIDTH, HEIGHT, vi, pi, tiled,
+                                            device)
+
+    def plain_rays():
+        po, pd = make_camera_rays(WIDTH, HEIGHT, vi, pi, device=device)
+        if tiled:
+            po = pipeline._tile_rays(po, HEIGHT, WIDTH)
+            pd = pipeline._tile_rays(pd, HEIGHT, WIDTH)
+        return po.reshape(-1, 3), pd.reshape(-1, 3)
+
+    o, d = rays()
+    po, pd = plain_rays()
+    require(torch.equal(bits(o), bits(po)) and torch.equal(bits(d), bits(pd)),
+            f"{what}: camera_rays differs from make_camera_rays + tiling")
+    tri = (pipeline._trace_triangles(scene, o, d, TMIN, TMAX)
+           if scene.n_triangles else None)
+    t_vox, vox_id = pipeline._trace_voxels(scene, o, d, TMIN, TMAX, backend)
+    tables = pipeline._surface_tables(scene, backend)
+
+    def surface():
+        return frame_shade.hit_surface_cuda(o, d, t_vox, vox_id, tri, tables,
+                                            light.position, light.intensity,
+                                            light.type)
+
+    def plain_surface():
+        return pipeline.surface_terms(scene, o, d, t_vox, vox_id, light, tri,
+                                      backend)
+
+    q, s = surface(), plain_surface()
+    hit = s.hit
+    flags = q.rec.view(torch.int32)[:, 3]
+    require(all(torch.equal(bits(a), bits(b)) for a, b in (
+        (q.world_pos, s.world_pos), (q.l_vec, s.l_vec),
+        (q.light_dist, s.light_dist))) and torch.equal(q.admit,
+                                                       hit & s.facing),
+        f"{what}: hit_surface's shadow query differs from surface_terms'")
+    require(torch.equal((flags & 1) != 0, hit)
+            and torch.equal((flags & 2) != 0, s.vox_hit)
+            and torch.equal((flags[hit] & 4) != 0, s.facing[hit])
+            and torch.equal(bits(q.rec[hit, 0:3]), bits(s.normal[hit]))
+            and torch.equal(bits(q.rec[hit, 4:7]), bits(s.diffuse[hit]))
+            and torch.equal(bits(q.rec[hit, 7]), bits(s.intensity[hit])),
+            f"{what}: hit_surface's record differs from surface_terms'")
+    occ = pipeline._occlusion(scene, q.world_pos, q.l_vec, q.light_dist,
+                              q.admit, backend, None, None, None)
+    frame = (HEIGHT, WIDTH, tiled)
+
+    def shade():
+        return frame_shade.shade_post_cuda(q, d, occ, scene.materials,
+                                           scene.voxel_material, clear,
+                                           frame)
+
+    def plain_shade():
+        shadowed = torch.where(s.facing, occ, torch.ones_like(occ))
+        rgb = pipeline._shade(s, d, shadowed, clear)
+        rgb = (pipeline._untile_rays(rgb, HEIGHT, WIDTH) if tiled
+               else rgb.reshape(HEIGHT, WIDTH, 3))
+        rgba = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
+        return shading.gamma_post(rgba)
+
+    img, ref = shade(), plain_shade()
+    ulps = int((bits(img).long() - bits(ref).long()).abs().max())
+    err = float((img - ref).abs().max())
+    log(f"{what}: camera rays and the shadow query bit-equal to the plain "
+        f"glue; framebuffer {ulps} ulp apart at most (|err| {err})")
+    require(ulps <= 2, f"{what}: shade_post's frame is {ulps} ulp from the "
+            "plain stage's")
+    full = pipeline.render_image(scene, vi, pi, width=WIDTH, height=HEIGHT,
+                                 backend=backend, shadows=True)
+    require(torch.equal(bits(full), bits(img)),
+            f"{what}: render_image's frame is not the kernels'")
+
+    n_hit = int(hit.sum())
+    # specular reads d and l_vec only where lit by a specular material
+    illum = s.mat[..., 18] >= 2.0
+    spec = int((hit & s.facing & ~occ & illum).sum())
+    tri_bytes = 0
+    if tri is not None:
+        ids = torch.unique(tri[1][hit & ~s.vox_hit]).numel()
+        # t, id, u, v of every ray; each hit triangle's three normals and
+        # its material and texture ids
+        tri_bytes = 16 * n + ids * (36 + 8)
+    nbytes = {
+        # origins and dirs written
+        "camera_rays": 24 * n,
+        # o, d, t_vox in, vox_id of the voxel hits; world_pos, l_vec,
+        # light_dist, admit and the 32-byte record out
+        "hit_surface": 28 * n + 4 * int(s.vox_hit.sum()) + tri_bytes
+        + 61 * n,
+        # the record's first half and the RGBA out for every ray; its
+        # second half and the occlusion byte of a hit
+        "shade_post": 32 * n + 17 * n_hit + 24 * spec,
+    }
+    out = {}
+    for name, fn, plain in (("camera_rays", rays, plain_rays),
+                            ("hit_surface", surface, plain_surface),
+                            ("shade_post", shade, plain_shade)):
+        out[name] = (queued_ms(fn, FRAME_REPS), cuda_ms(plain, 1),
+                     nbytes[name], err if name == "shade_post" else 0.0,
+                     host_us(fn, FRAME_REPS))
+        log(f"{what} {name}: kernel {out[name][0]:.4f} ms, plain stage "
+            f"{out[name][1]:.4f} ms, {nbytes[name] / 1e6:.1f} MB, wrapper "
+            f"{out[name][4]:.1f} us host a call")
+    return out
+
+
+def frame_glue_rows(glue, vox_counts, tri_counts, build_log):
+    """The kernel rows of the frame glue's kernels from phase 12's
+    results: launches of the voxel frame, times on the voxel frame and,
+    beside them, the triangle frame's; their few dozen operations a ray
+    take far less than their bytes, so they are bound by bytes."""
+    replaces = {
+        "camera_rays": "voxelray_tpu/render/pipeline.py:349-353",
+        "hit_surface": "voxelray_tpu/render/pipeline.py:231-279",
+        "shade_post": "voxelray_tpu/render/pipeline.py:301-313,:356-362"}
+    rows = []
+    for name in FRAME_KERNELS:
+        ms, plain_ms, nbytes, err, call_us = glue["voxel"][name]
+        row = kernel_row(name, "frame_shade.cu", replaces[name],
+                         vox_counts[name], err, ms, plain_ms, nbytes, 0)
+        t_ms, t_plain, t_bytes, t_err, t_us = glue["triangle"][name]
+        row.update(
+            host_us=round(call_us, 1),
+            triangle_frame={"launches": tri_counts[name], "max_abs_err":
+                            t_err, "ms": round(t_ms, 4),
+                            "plain_ms": round(t_plain, 4),
+                            "bound_ms": round(bound(t_bytes, 0)[0], 5),
+                            "host_us": round(t_us, 1)},
+            ptxas=ptxas_of(build_log, name + "_kernel"))
+        log(f"{name}: {row}")
+        rows.append(row)
+    return rows
 
 
 def run(device):
@@ -1507,7 +1710,7 @@ def run(device):
 
     sync = torch.cuda.synchronize
     kmods = (voxel_accum, mega_trace, grid_walk, brick_fine, tri_march,
-             staged_march)
+             staged_march, *FRAME_KERNELS)
 
     # ---- 1. device + build ---------------------------------------------
     smi = smi_line()
@@ -1546,6 +1749,8 @@ def run(device):
         f"call): {main_s:.2f} s, launches {vox_counts}")
     require(vox_counts["voxel_accum"] > 0, "K1 was not launched")
     require(vox_counts["mega_trace"] > 0, "K2 was not launched")
+    require(all(vox_counts[k] == 1 for k in FRAME_KERNELS),
+            "the voxel frame did not launch each frame glue kernel once")
     require(tuple(img.shape) == (HEIGHT, WIDTH, 4), f"frame {img.shape}")
     require(bool(torch.isfinite(img).all()), "frame has non-finite pixels")
     occ = grid.occupancy()
@@ -1824,6 +2029,8 @@ def run(device):
     require(tri_counts["grid_walk"] == 0 and tri_counts["brick_fine"] == 0
             and tri_counts["staged_march"] == 0,
             "the triangle march launched K3, K4 or staged_march")
+    require(all(tri_counts[k] == 1 for k in FRAME_KERNELS),
+            "the triangle frame did not launch each frame glue kernel once")
     require(bool(torch.isfinite(timg).all()), "tri frame non-finite")
 
     # K3 and K4 on the march's first lap (the frame's rays, t_min = TMIN)
@@ -1899,6 +2106,13 @@ def run(device):
     rows[0]["launches"] += run_bench(v, f, grid, scene, vi, pi, kmods,
                                      device)
 
+    # ---- 12. the frame glue's kernels against the plain glue -------------
+    t0 = time.time()
+    glue = {"voxel": check_frame_glue("voxel frame", scene, vi, pi, device),
+            "triangle": check_frame_glue("triangle frame", tscene, vi, pi,
+                                         device)}
+    log(f"phase 12 (the frame glue's kernels): {time.time() - t0:.1f} s")
+
     # K3 and K4 launch in the lap loops the one-launch kernels are held
     # to (staged_march_plain, tri_march_plain): their launches are the
     # staged frame's through the lap loop, their times the triangle
@@ -1944,6 +2158,8 @@ def run(device):
     rows[-1].update(tri_march.launch_config(ta),
                     ptxas=ptxas_of(_build.build_log(), "tri_march_kernel"))
     log(f"tri_march launch: {rows[-1]}")
+    rows += frame_glue_rows(glue, vox_counts, tri_counts,
+                            _build.build_log())
     return rows, smi_line()
 
 

@@ -60,7 +60,8 @@ def test_bench_line_has_bench_py_keys_and_passes_its_gates(small):
     assert res["gpu"] is None and res["power_limit"] is None
     assert set(res["launches"]) == {"voxel_accum", "mega_trace",
                                     "grid_walk", "brick_fine", "tri_march",
-                                    "staged_march"}
+                                    "staged_march", "camera_rays",
+                                    "hit_surface", "shade_post"}
     assert not any(res["launches"].values())     # plain versions only
 
 

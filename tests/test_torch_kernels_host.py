@@ -2,7 +2,9 @@
 PyTorch versions.
 
 csrc/voxel_accum.cu, mega_trace.cu, grid_walk.cu, brick_fine.cu,
-staged_march.cu and tri_march.cu are compiled with g++ (launch stubs cut
+staged_march.cu, tri_march.cu and frame_shade.cu (the frame glue: camera
+rays, the closest-hit surface, shade + post; held to render/pipeline.py's
+PyTorch glue) are compiled with g++ (launch stubs cut
 off, SHIM below standing in for the CUDA runtime, csrc/ on the include
 path for the shared brick_walk.cuh) and each kernel runs thread by
 thread on the CPU.  Shared memory is one host array that the host program
@@ -33,10 +35,14 @@ import pytest
 import torch
 
 from voxelray_torch.io import meshes
+from voxelray_torch.io.objload import LoadedModel, Material
+from voxelray_torch.io.textures import write_png
+from voxelray_torch.models.grids import GridBool
+from voxelray_torch.models.scene import Light, build_scene
 from voxelray_torch.ops import geometry
 from voxelray_torch.ops.intersect import TMAX, TMIN, make_camera_rays
-from voxelray_torch.ops.kernels import (brick_fine, mega_trace, staged_march,
-                                        tri_march)
+from voxelray_torch.ops.kernels import (brick_fine, frame_shade, mega_trace,
+                                        staged_march, tri_march)
 from voxelray_torch.ops.kernels.brick_fine import fine_plain
 from voxelray_torch.ops.kernels.grid_walk import walk_plain
 from voxelray_torch.ops.kernels.mega_trace import trace_grid_mega_plain
@@ -45,6 +51,7 @@ from voxelray_torch.ops.traverse import trace_grid_dda
 from voxelray_torch.ops.traverse_fast import build_accel, trace_grid_fast
 from voxelray_torch.ops.tri_accel import build_tri_accel
 from voxelray_torch.ops.voxelize import voxelize_plain
+from voxelray_torch.render import pipeline, shading
 from voxelray_torch.render.camera import Camera
 from voxelray_torch.utils.parity import adjudicate_hit_diffs
 
@@ -197,6 +204,13 @@ struct int4 {
   int x, y, z, w;
 };
 inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
+// frame_shade.cu's per-ray record
+struct float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
 inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
 inline void __trap() { abort(); }
 // the clock advances HOST_CLOCK_STEP cycles a read
@@ -1339,3 +1353,315 @@ def test_host_staged_march_work_count_is_the_kernels(counting_staged, kind,
     assert torch.equal(outs[1], want[1]) and int(outs[2]) == 0
     assert cells > 0 and bricks > 0
     assert (work["brick_steps"], work["cell_steps"]) == (bricks, cells)
+
+
+
+# ---- the frame glue: csrc/frame_shade.cu against render/pipeline.py -----
+
+FRAME_DRIVER = """
+extern "C" void host_sizes(int* out) {
+  out[0] = static_cast<int>(sizeof(RaysArgs));
+  out[1] = static_cast<int>(sizeof(SurfaceArgs));
+  out[2] = static_cast<int>(sizeof(ShadeArgs));
+}
+// every block of one-thread-a-ray kernels, thread after thread
+template <class A, class K>
+static void host_grid(const A* a, K kernel) {
+  blockDim.x = kThreads;
+  gridDim.x = (a->n + kThreads - 1) / kThreads;
+  for (unsigned b = 0; b < gridDim.x; ++b)
+    for (unsigned t = 0; t < blockDim.x; ++t) {
+      blockIdx.x = b;
+      threadIdx.x = t;
+      kernel(*a);
+    }
+}
+extern "C" void host_camera_rays(const RaysArgs* a) {
+  host_grid(a, camera_rays_kernel);
+}
+extern "C" void host_hit_surface(const SurfaceArgs* a) {
+  host_grid(a, hit_surface_kernel);
+}
+extern "C" void host_shade_post(const ShadeArgs* a) {
+  host_grid(a, shade_post_kernel);
+}
+"""
+CLEAR = (0.2, 0.3, 0.5, 1.0)
+POINT = Light()
+DIRECTIONAL = Light(position=(-3.0, 7.0, 2.0), intensity=2.5, type=1)
+# (scene, backend, width, height, light): tiled frames (the fast backend at
+# a multiple of 8x128) and row-major ones, each route's voxel centre rule
+FRAME_CASES = {
+    "vox-fast-tiled": ("vox", "fast", 128, 64, POINT),
+    "vox-brute": ("vox", "brute", 96, 54, DIRECTIONAL),
+    "vox-dda": ("vox", "dda", 96, 54, POINT),
+    "octree": ("octree", "octree", 96, 54, POINT),
+    "tri-tiled": ("tri", "fast", 128, 64, DIRECTIONAL),
+    "textured": ("tex", "dda", 96, 54, POINT),
+    "mixed-tiled": ("mixed", "fast", 128, 64, POINT),
+    "mixed-brute": ("mixed", "brute", 96, 54, DIRECTIONAL),
+}
+
+
+@pytest.fixture(scope="module")
+def frame_host(tmp_path_factory):
+    """csrc/frame_shade.cu built for the host: its three kernels, their
+    argument blocks the wrapper's ctypes structures."""
+    lib = _host_build(tmp_path_factory.mktemp("frame_shade"), "frame_shade",
+                      (CSRC / "frame_shade.cu").read_text(), FRAME_DRIVER,
+                      CSRC)
+    structs = (frame_shade.RaysArgs, frame_shade.SurfaceArgs,
+               frame_shade.ShadeArgs)
+    sizes = (ctypes.c_int * 3)()
+    lib.host_sizes(sizes)
+    assert list(sizes) == [ctypes.sizeof(s) for s in structs]
+    for name, struct in zip(("host_camera_rays", "host_hit_surface",
+                             "host_shade_post"), structs):
+        getattr(lib, name).argtypes = [ctypes.POINTER(struct)]
+        getattr(lib, name).restype = None
+    return lib
+
+
+def _tri_model(v, f, rng, tex=None):
+    """A LoadedModel with vertex normals, UVs past [0, 1] (the texture
+    repeats) and three materials: specular (illum 2), specular with the
+    shininess floor and, when `tex` is a file, textured (illum 3), and
+    diffuse without ambient (illum 0)."""
+    verts = np.zeros((len(v), 11), np.float32)
+    verts[:, 0:3] = v
+    verts[:, 3:6] = v / np.linalg.norm(v, axis=1, keepdims=True)
+    verts[:, 9:11] = rng.uniform(-0.5, 1.5, (len(v), 2))
+    rows = [Material(ambient=(.2, .2, .2), diffuse=(.7, .6, .5),
+                     specular=(1, 1, 1), shininess=32.0, illum=2),
+            Material(ambient=(.1, .1, .1), diffuse=(.9, .9, .9),
+                     specular=(.5, .5, .5), shininess=2.0, illum=3,
+                     texture_id=0 if tex else -1),
+            Material(ambient=(.3, .2, .1), diffuse=(.4, .8, .6), illum=0)]
+    return LoadedModel(vertices=verts, indices=f.reshape(-1).astype(np.uint32),
+                       materials=np.stack([m.as_row() for m in rows]),
+                       mat_index=rng.integers(0, 3, len(f)).astype(np.int32),
+                       textures=[tex] if tex else [])
+
+
+@pytest.fixture(scope="module")
+def frame_scenes(tmp_path_factory):
+    """Small CPU scenes: a voxel grid, the same as an octree, a triangle
+    mesh, a textured one, and a mixed scene.  The meshes take the brute
+    triangle trace (the kernels read the trace's t, id, u, v whichever
+    trace gave them)."""
+    from voxelray_torch.models.octree import Octree
+    rng = np.random.default_rng(5)
+    tmp = tmp_path_factory.mktemp("frame_tex")
+    tex = np.stack(np.meshgrid(np.linspace(0, 1, 12), np.linspace(1, 0, 9)),
+                   -1)
+    write_png(str(tmp / "tex.png"),
+              np.concatenate([tex, tex[..., :1] * tex[..., 1:]], -1))
+    shiny = Material(ambient=(0.1, 0.05, 0.1), diffuse=(0.8, 0.7, 0.2),
+                     specular=(0.6, 0.6, 0.6), shininess=24.0, illum=2)
+    gv, gf = meshes.bunny_like(2)
+    gv = (gv * np.float32(0.5) + np.float32([0.9, -0.3, -0.7])) \
+        .astype(np.float32)
+    grid = GridBool.from_mesh(gv, gf, 0.07, device="cpu")
+    v, f = meshes.icosphere(2)
+    return {
+        "vox": build_scene(grid=grid, voxel_material=shiny, device="cpu"),
+        "octree": build_scene(grid=Octree.from_mesh(gv, gf, 0.07,
+                                                    device="cpu"),
+                              voxel_material=shiny, device="cpu"),
+        "tri": build_scene(models=[_tri_model(v, f, rng)], tri_accel=False,
+                           device="cpu"),
+        "tex": build_scene(models=[_tri_model(v, f, rng,
+                                              str(tmp / "tex.png"))],
+                           tri_accel=False, device="cpu"),
+        "mixed": build_scene(models=[_tri_model(v, f, rng,
+                                                str(tmp / "tex.png"))],
+                             grid=grid, voxel_material=shiny,
+                             tri_accel=False, device="cpu"),
+    }
+
+
+@pytest.fixture
+def ieee_sqrt(monkeypatch):
+    """torch.sqrt rounded as one IEEE float32 square root, as PyTorch's
+    CUDA sqrt and the kernels round it: the CPU's vectorised float32
+    torch.sqrt can be an ulp off (~0.7% of values with PyTorch 2.13 on
+    AVX-512), so the plain glue is held to the kernels with this one."""
+    sqrt = torch.sqrt
+    monkeypatch.setattr(torch, "sqrt",
+                        lambda x: sqrt(x.double()).to(x.dtype))
+
+
+def _frame_camera(width, height):
+    _, _, vi, pi = Camera(eye=(2.4, 1.5, -2.6),
+                          center=(-0.2, 0.0, 0.2)).matrices(width, height)
+    return vi, pi
+
+
+def _ulps(a, b):
+    """Per-element distance in float32 ulps (NaN against NaN is 0)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    both_nan = torch.isnan(a) & torch.isnan(b)
+    return torch.where(both_nan, 0, (ordered(a) - ordered(b)).abs())
+
+
+def _host_rays(lib, width, height, vi, pi, tiled):
+    a, o, d = frame_shade.rays_args(width, height, vi, pi, tiled,
+                                    torch.device("cpu"))
+    o.fill_(7.0)
+    d.fill_(7.0)
+    lib.host_camera_rays(ctypes.byref(a))
+    return o, d
+
+
+def _primary(scene, o, d, backend):
+    tri = (pipeline._trace_triangles(scene, o, d, TMIN, TMAX)
+           if scene.n_triangles else None)
+    t_vox, vox_id = pipeline._trace_voxels(scene, o, d, TMIN, TMAX, backend)
+    return tri, t_vox, vox_id
+
+
+def _host_surface(lib, scene, o, d, primary, light, backend):
+    tri, t_vox, vox_id = primary
+    a, surf = frame_shade.surface_args(
+        o, d, t_vox, vox_id, tri, pipeline._surface_tables(scene, backend),
+        light.position, light.intensity, light.type)
+    for x in surf:
+        x.view(torch.uint8).fill_(0xA5)     # every output must be written
+    lib.host_hit_surface(ctypes.byref(a))
+    return surf
+
+
+@pytest.mark.parametrize("width,height,tiled", [(256, 16, True),
+                                                (128, 8, True),
+                                                (96, 54, False),
+                                                (7, 5, False)])
+def test_host_camera_rays_match_plain(frame_host, ieee_sqrt, width, height,
+                                      tiled):
+    """camera_rays equals make_camera_rays followed by _tile_rays (tiled)
+    or flattened (row-major), bit for bit, and the plain frame rays of
+    render_image's fast and dda backends."""
+    vi, pi = _frame_camera(width, height)
+    o, d = _host_rays(frame_host, width, height, vi, pi, tiled)
+    po, pd = make_camera_rays(width, height, vi, pi)
+    if tiled:
+        po = pipeline._tile_rays(po, height, width)
+        pd = pipeline._tile_rays(pd, height, width)
+    assert torch.equal(o, po.reshape(-1, 3))
+    assert torch.equal(d, pd.reshape(-1, 3))
+    fo, fd, _ = pipeline._frame_rays(build_scene(device="cpu"), vi, pi,
+                                     width, height,
+                                     "fast" if tiled else "dda")
+    assert torch.equal(o, fo.reshape(-1, 3))
+    assert torch.equal(d, fd.reshape(-1, 3))
+
+
+@pytest.mark.parametrize("case", list(FRAME_CASES))
+def test_host_hit_surface_matches_plain(frame_host, frame_scenes, ieee_sqrt,
+                                        case):
+    """hit_surface against surface_terms on the same traces: the shadow
+    query (world_pos, l_vec, light_dist, the admit mask) of every ray bit
+    for bit, and of every hit its flags, shading normal, diffuse term
+    (texture-sampled on a textured triangle), intensity and material
+    row."""
+    name, backend, width, height, light = FRAME_CASES[case]
+    scene = frame_scenes[name]
+    vi, pi = _frame_camera(width, height)
+    o, d, _ = pipeline._frame_rays(scene, vi, pi, width, height, backend)
+    primary = _primary(scene, o, d, backend)
+    surf = _host_surface(frame_host, scene, o, d, primary, light, backend)
+    tri, t_vox, vox_id = primary
+    s = pipeline.surface_terms(scene, o, d, t_vox, vox_id, light, tri,
+                               backend)
+    bits = lambda x: x.contiguous().view(torch.int32)  # noqa: E731
+    for got, want in ((surf.world_pos, s.world_pos), (surf.l_vec, s.l_vec),
+                      (surf.light_dist, s.light_dist)):
+        assert torch.equal(bits(got), bits(want))
+    assert torch.equal(surf.admit, s.hit & s.facing)
+    hit = s.hit.reshape(-1)
+    rec = surf.rec
+    flags = rec.view(torch.int32)[:, 3]
+    assert torch.equal((flags & 1) != 0, hit)
+    assert torch.equal((flags & 2) != 0, s.vox_hit.reshape(-1))
+    assert torch.equal((flags[hit] & 4) != 0, s.facing.reshape(-1)[hit])
+    assert torch.equal(bits(rec[hit, 0:3]), bits(s.normal.reshape(-1, 3)[hit]))
+    assert torch.equal(bits(rec[hit, 4:7]),
+                       bits(s.diffuse.reshape(-1, 3)[hit]))
+    assert torch.equal(bits(rec[hit, 7]), bits(s.intensity.reshape(-1)[hit]))
+    code = (flags[hit] >> 3).long()
+    rows = torch.where((code == 0)[:, None], scene.voxel_material,
+                       scene.materials[torch.clamp(code - 1, min=0)])
+    assert torch.equal(rows, s.mat.reshape(-1, 20)[hit])
+    # the case has what it is there for: misses, hits of each kind
+    assert 0 < int(hit.sum()) < hit.numel()
+    if scene.n_voxels:
+        assert int(s.vox_hit.sum()) > 50
+    if scene.n_triangles:
+        assert int((s.hit & ~s.vox_hit).sum()) > 50
+
+
+def _host_shade(lib, scene, surf, d, occluded, frame=None):
+    a, out = frame_shade.shade_args(surf, d, occluded, scene.materials,
+                                    scene.voxel_material, CLEAR, frame)
+    out.fill_(7.0)
+    lib.host_shade_post(ctypes.byref(a))
+    return out
+
+
+@pytest.mark.parametrize("shadows", [True, False])
+@pytest.mark.parametrize("case", list(FRAME_CASES))
+def test_host_shade_post_matches_plain(frame_host, frame_scenes, ieee_sqrt,
+                                       monkeypatch, case, shadows):
+    """The frame through the kernels (camera_rays, the plain traces,
+    hit_surface, the plain shadow pass, shade_post) against the plain
+    frame.  The specular term, which passes through pow, is within 2 ulp
+    of compute_specular's (shade_post reads it alone off a record with
+    the diffuse term 0 and intensity 1); with the kernel's specular term
+    in its place, render_rays' linear RGB is shade_post's bit for bit, and
+    render_image's framebuffer within 2 ulp (gamma's pow), alpha 1."""
+    name, backend, width, height, light = FRAME_CASES[case]
+    scene = frame_scenes[name]
+    vi, pi = _frame_camera(width, height)
+    tiled = pipeline._tiles(backend, height, width)
+    o, d = _host_rays(frame_host, width, height, vi, pi, tiled)
+    if not tiled:
+        o, d = o.reshape(height, width, 3), d.reshape(height, width, 3)
+    primary = _primary(scene, o, d, backend)
+    surf = _host_surface(frame_host, scene, o, d, primary, light, backend)
+    occluded = (pipeline._occlusion(scene, surf.world_pos, surf.l_vec,
+                                    surf.light_dist, surf.admit, backend,
+                                    None, None, None) if shadows else None)
+    flags = surf.rec.view(torch.int32)[:, 3]
+    unit = surf.rec.clone()
+    unit[:, 4:7], unit[:, 7] = 0.0, 1.0
+    spec = _host_shade(frame_host, scene, surf._replace(rec=unit), d,
+                       occluded)
+    spec = torch.where(((flags & 1) != 0).reshape(spec.shape[:-1] + (1,)),
+                       spec, 0.0)
+    tri, t_vox, vox_id = primary
+    s = pipeline.surface_terms(scene, o, d, t_vox, vox_id, light, tri,
+                               backend)
+    want = shading.compute_specular(s.mat, d, s.l_vec, s.normal)
+    occ = (occluded.reshape(-1) if shadows
+           else torch.zeros(flags.shape, dtype=torch.bool))
+    lit = ((flags & 5) == 5) & ~occ         # hit, facing, not occluded
+    powered = (lit & (s.mat.reshape(-1, 20)[:, 18] >= 2.0)).reshape(
+        spec.shape[:-1])
+    assert int(_ulps(spec[powered], want[powered]).max()) <= 2
+    assert bool((spec[~powered] == 0).all()) and int(powered.sum()) > 20
+    monkeypatch.setattr(pipeline.shading, "compute_specular",
+                        lambda *args: spec)
+    kw = dict(light=light, clear_color=CLEAR, backend=backend,
+              shadows=shadows)
+    rgb = _host_shade(frame_host, scene, surf, d, occluded)
+    want = pipeline.render_rays(scene, o, d, **kw)
+    assert rgb.shape == want.shape and torch.equal(rgb, want)
+    img = _host_shade(frame_host, scene, surf, d, occluded,
+                      (height, width, tiled))
+    want = pipeline.render_image(scene, vi, pi, width=width, height=height,
+                                 **kw)
+    assert int(_ulps(img, want).max()) <= 2
+    assert bool((img[..., 3] == 1.0).all())
+    assert bool(((flags & 1) == 0).any())       # the frame has misses
+    assert bool(((flags & 5) == 5)[occ].all())  # only admitted rays occlude

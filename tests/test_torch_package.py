@@ -19,11 +19,15 @@ import torch
 from voxelray_torch.io import meshes
 from voxelray_torch.ops import geometry
 from voxelray_torch.ops.intersect import make_camera_rays
-from voxelray_torch.ops.kernels import (_build, brick_fine, grid_walk,
-                                        mega_trace, tri_march, voxel_accum)
+from voxelray_torch.io.objload import LoadedModel, Material
+from voxelray_torch.models.scene import Light, build_scene
+from voxelray_torch.ops.kernels import (_build, brick_fine, frame_shade,
+                                        grid_walk, mega_trace, tri_march,
+                                        voxel_accum)
 from voxelray_torch.ops.traverse_fast import build_accel, trace_grid_fast
 from voxelray_torch.ops.tri_accel import build_tri_accel, trace_triangles_grid
 from voxelray_torch.ops.voxelize import voxelize_plain
+from voxelray_torch.render import pipeline, shading
 from voxelray_torch.render.camera import Camera
 from voxelray_torch.utils import trace
 
@@ -161,6 +165,108 @@ def test_cpu_triangle_trace_takes_the_plain_march():
     assert _launched(brick_fine) == 0
 
 
+FRAME_KERNELS = ("camera_rays", "hit_surface", "shade_post")
+
+
+def _frame_scene(device, triangles=False):
+    """The small icosphere as voxels (a shiny material) and, with
+    `triangles`, the same mesh as a triangle model beside them."""
+    v, f, bb_min, bb_max, vs, dims = _small_scene()
+    occ, _ = voxelize_plain(torch.from_numpy(v), torch.from_numpy(f),
+                            bb_min, vs, dims)
+    grid = {"occ": occ.to(device), "dims": dims, "origin": bb_min,
+            "voxel_size": vs}
+    models = None
+    if triangles:
+        verts = np.zeros((len(v), 11), np.float32)
+        verts[:, 0:3] = v * np.float32(0.6) + np.float32([0.9, 0.2, -0.8])
+        verts[:, 3:6] = v / np.linalg.norm(v, axis=1, keepdims=True)
+        verts[:, 9:11] = v[:, :2]
+        models = [LoadedModel(
+            vertices=verts, indices=f.reshape(-1).astype(np.uint32),
+            materials=Material(specular=(.5, .5, .5), shininess=16.0,
+                               illum=2).as_row()[None],
+            textures=[], mat_index=np.zeros(len(f), np.int32))]
+    return build_scene(models=models, grid=grid, device=device,
+                       voxel_material=Material(shininess=8.0, illum=2))
+
+
+def test_cpu_frames_take_the_plain_glue():
+    """render_image and render_rays on CPU tensors run the PyTorch glue:
+    none of the frame glue's kernels is launched, and the frame is the
+    plain stages' (camera rays, traces, surface_terms, the shadow pass,
+    the shade stage, gamma) composed by hand."""
+    scene = _frame_scene("cpu", triangles=True)
+    cam = Camera(eye=(2.5, 1.5, -2.5), center=(0.0, 0.0, 0.0))
+    _, _, vi, pi = cam.matrices(128, 16)
+    trace.reset_counters("launches.")
+    img = pipeline.render_image(scene, vi, pi, width=128, height=16,
+                                backend="fast")
+    want = _plain_frame(scene, vi, pi, 128, 16, "fast", Light())
+    assert torch.equal(img, want)
+    o, d = make_camera_rays(32, 8, vi, pi)
+    rgb = pipeline.render_rays(scene, o, d, backend="dda")
+    assert rgb.shape == (8, 32, 3)
+    assert all(trace.counter("launches." + k) == 0 for k in FRAME_KERNELS)
+
+
+def test_frame_glue_refuses_other_devices():
+    """The kernels' entry points take CUDA tensors only; the pipeline
+    raises on a device that is neither CUDA nor CPU."""
+    scene = _frame_scene("cpu")
+    cam = Camera(eye=(2.5, 1.5, -2.5), center=(0.0, 0.0, 0.0))
+    _, _, vi, pi = cam.matrices(16, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        frame_shade.camera_rays_cuda(16, 8, vi, pi, False, "cpu")
+    o, d = make_camera_rays(16, 8, vi, pi)
+    t = torch.full((8, 16), float("inf"))
+    lin = torch.full((8, 16), -1, dtype=torch.int32)
+    tables = pipeline._surface_tables(scene, "fast")
+    light = Light()
+    with pytest.raises(ValueError, match="CUDA"):
+        frame_shade.hit_surface_cuda(o, d, t, lin, None, tables,
+                                     light.position, light.intensity,
+                                     light.type)
+    a, surf = frame_shade.surface_args(o, d, t, lin, None, tables,
+                                       light.position, light.intensity,
+                                       light.type)
+    with pytest.raises(ValueError, match="CUDA"):
+        frame_shade.shade_post_cuda(surf, d, None, scene.materials,
+                                    scene.voxel_material, (1, 1, 1, 1))
+    meta = torch.empty((4, 3), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        pipeline.render_rays(scene, meta, meta)
+
+
+def _plain_frame(scene, vi, pi, width, height, backend, light,
+                 shadows=True):
+    """render_image's frame from the plain stages, on the scene's
+    device."""
+    o, d = make_camera_rays(width, height, vi, pi, device=scene.device)
+    tiled = pipeline._tiles(backend, height, width)
+    if tiled:
+        o = pipeline._tile_rays(o, height, width)
+        d = pipeline._tile_rays(d, height, width)
+    tri = (pipeline._trace_triangles(scene, o, d, 0.001, 10000.0)
+           if scene.n_triangles else None)
+    t_vox, vox_id = pipeline._trace_voxels(scene, o, d, 0.001, 10000.0,
+                                           backend)
+    s = pipeline.surface_terms(scene, o, d, t_vox, vox_id, light, tri,
+                               backend)
+    if shadows:
+        shadowed = pipeline._occlusion(scene, s.world_pos, s.l_vec,
+                                       s.light_dist, s.hit & s.facing,
+                                       backend, None, None, None)
+        shadowed = torch.where(s.facing, shadowed, torch.ones_like(shadowed))
+    else:
+        shadowed = ~s.facing
+    rgb = pipeline._shade(s, d, shadowed, (1.0, 1.0, 1.0, 1.0))
+    if tiled:
+        rgb = pipeline._untile_rays(rgb, height, width)
+    rgba = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
+    return shading.gamma_post(rgba)
+
+
 def test_nvcc_command_targets_hopper_without_fma_contraction():
     compiles, link = _build.nvcc_commands("nvcc", "/tmp/out.so")
     for cmd in compiles + [link]:
@@ -173,7 +279,8 @@ def test_nvcc_command_targets_hopper_without_fma_contraction():
     assert "-shared" in link
     srcs = {Path(c).name for cmd in compiles for c in cmd if c.endswith(".cu")}
     assert srcs == {"voxel_accum.cu", "mega_trace.cu", "grid_walk.cu",
-                    "brick_fine.cu", "tri_march.cu", "staged_march.cu"}
+                    "brick_fine.cu", "tri_march.cu", "staged_march.cu",
+                    "frame_shade.cu"}
     assert len(compiles) == len(srcs)
     # the shared header brick_walk.cuh is found through -I csrc
     for cmd in compiles:
@@ -408,3 +515,63 @@ def test_encodings_and_octree_walk_on_cuda_match_cpu(cuda):
     assert int(torch.isfinite(want[0]).sum()) > 500
     assert torch.equal(got[1].cpu(), want[1])
     assert torch.equal(got[0].cpu(), want[0])
+
+
+def _ulps(a, b):
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+@pytest.mark.cuda
+def test_frame_glue_matches_the_plain_glue_on_cuda(cuda):
+    """The three frame kernels against the plain PyTorch glue on the same
+    card: camera rays and the shadow query bit for bit, the frame within
+    2 ulp (pow), each kernel launched once a frame, and a voxel frame
+    with no host sync."""
+    cam = Camera(eye=(2.5, 1.5, -2.5), center=(0.2, 0.0, -0.2))
+    for triangles, backend, (w, h), light in (
+            (False, "fast", (256, 64), Light()),
+            (True, "fast", (256, 64), Light(position=(-3.0, 7.0, 2.0),
+                                            intensity=2.5, type=1)),
+            (True, "brute", (96, 54), Light())):
+        scene = _frame_scene(cuda, triangles)
+        _, _, vi, pi = cam.matrices(w, h)
+        tiled = pipeline._tiles(backend, h, w)
+        o, d = frame_shade.camera_rays_cuda(w, h, vi, pi, tiled, cuda)
+        po, pd = make_camera_rays(w, h, vi, pi, device=cuda)
+        if tiled:
+            po = pipeline._tile_rays(po, h, w)
+            pd = pipeline._tile_rays(pd, h, w)
+        assert torch.equal(o, po.reshape(-1, 3))
+        assert torch.equal(d, pd.reshape(-1, 3))
+        tri = (pipeline._trace_triangles(scene, o, d, 0.001, 10000.0)
+               if scene.n_triangles else None)
+        t_vox, vox_id = pipeline._trace_voxels(scene, o, d, 0.001, 10000.0,
+                                               backend)
+        q = frame_shade.hit_surface_cuda(
+            o, d, t_vox, vox_id, tri,
+            pipeline._surface_tables(scene, backend), light.position,
+            light.intensity, light.type)
+        s = pipeline.surface_terms(scene, o, d, t_vox, vox_id, light, tri,
+                                   backend)
+        for got, want in ((q.world_pos, s.world_pos), (q.l_vec, s.l_vec),
+                          (q.light_dist, s.light_dist)):
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert torch.equal(q.admit, s.hit & s.facing)
+        before = {k: trace.counter("launches." + k) for k in FRAME_KERNELS}
+        img = pipeline.render_image(scene, vi, pi, width=w, height=h,
+                                    backend=backend, light=light)
+        torch.cuda.synchronize()
+        assert all(trace.counter("launches." + k) == before[k] + 1
+                   for k in FRAME_KERNELS)
+        want = _plain_frame(scene, vi, pi, w, h, backend, light)
+        assert int(_ulps(img, want).max()) <= 2
+        if not triangles:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                pipeline.render_image(scene, vi, pi, width=w, height=h,
+                                      backend=backend, light=light)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)

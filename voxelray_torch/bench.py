@@ -79,7 +79,8 @@ PARITY_EYE = (2.1, 1.4, -2.2)
 KP = 6                  # pipelined voxelize / extract calls per sync
 MAX_DIFF_RAYS = 2048    # more differing rays than this is a bug, not FMA
 KERNELS = ("voxel_accum", "mega_trace", "grid_walk", "brick_fine",
-           "tri_march", "staged_march")
+           "tri_march", "staged_march", "camera_rays", "hit_surface",
+           "shade_post")
 
 
 def log(msg):

@@ -28,6 +28,14 @@ something facing the light (the admit mask); the others' shadow results
 could not change the image.  Fast-backend rays travel in 8x128 tile
 order when the frame tiles, so a warp of a kernel walks neighbouring
 pixels.
+
+On CUDA tensors the per-pixel glue around the traces is three kernels
+(ops/kernels/frame_shade.py): camera_rays (raygen), hit_surface (the
+closest-hit terms and the shadow query) and shade_post (shading, miss,
+alpha and gamma, written straight into the framebuffer).  Their plain
+version is the PyTorch code of this module (make_camera_rays, _tile_rays,
+surface_terms, the shade stage, gamma_post), which CPU tensors run; any
+other device raises.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.intersect import TMAX, TMIN, make_camera_rays
+from ..ops.kernels import frame_shade
 from ..ops.octree_traverse import any_hit_octree, trace_octree
 from ..ops.traverse import (any_hit_aabbs_brute, any_hit_grid_dda,
                             any_hit_triangles_brute, trace_aabbs_brute,
@@ -56,6 +65,16 @@ _BACKENDS = ("fast", "dda", "brute", "octree")
 def _check_backend(backend):
     if backend not in _BACKENDS:
         raise ValueError(f"unknown backend '{backend}'; one of {_BACKENDS}")
+
+
+def _takes_kernels(dev):
+    """Whether a frame on `dev` runs the frame glue's kernels (CUDA) or the
+    plain PyTorch glue (CPU); other devices raise."""
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"render: unsupported device {dev}")
 
 
 def _sample_texture(textures, tex_meta, layer, uv, lod=None):
@@ -219,21 +238,31 @@ def _any_hit(scene: Scene, origins, dirs, t_min, t_max, backend, admit,
     return occluded | hit.reshape(occluded.shape)
 
 
+def _voxel_centres(scene: Scene, backend):
+    """What a voxel hit's id indexes on the voxel route `backend` takes:
+    (boxes, None) on the brute route, whose ids are boxes of voxel_aabbs,
+    else (None, (origin, dims, voxel_size)) of the grid whose cells they
+    are (the octree's or the scene's)."""
+    route = _voxel_route(scene, backend)
+    if route == "brute":
+        return scene.voxel_aabbs, None
+    if route == "octree":
+        tree = scene.octree
+        return None, (tree.origin, tree.dims, tree.voxel_size)
+    return None, (scene.grid_origin, scene.grid_dims,
+                  scene.grid_voxel_size)
+
+
 def _voxel_center_of_hit(scene: Scene, hit_id, backend):
     """Centre of the hit voxel, the (min+max)/2 the voxel CH computes
     (raytrace2.rchit:57-60): of the cell `hit_id` on the grid routes, of
     the box `hit_id` of voxel_aabbs on the brute route."""
-    route = _voxel_route(scene, backend)
-    if route == "brute":
-        box = scene.voxel_aabbs[torch.clamp(hit_id, min=0).long()]
+    boxes, grid = _voxel_centres(scene, backend)
+    if boxes is not None:
+        box = boxes[torch.clamp(hit_id, min=0).long()]
         return (box[..., 0:3] + box[..., 3:6]) * 0.5
-    if route == "octree":
-        tree = scene.octree
-        org = torch.as_tensor(tree.origin, device=hit_id.device)
-        dims, vs = tree.dims, tree.voxel_size
-    else:
-        org, dims, vs = (scene.grid_origin, scene.grid_dims,
-                         scene.grid_voxel_size)
+    org, dims, vs = grid
+    org = torch.as_tensor(org, device=hit_id.device)
     nx, ny, _ = dims
     lin = torch.clamp(hit_id, min=0).long()
     idx = torch.stack([lin % nx, (lin // nx) % ny, lin // (nx * ny)],
@@ -317,6 +346,38 @@ def surface_terms(scene: Scene, origins, dirs, t_vox, vox_id,
                    intensity, light_dist, facing)
 
 
+def _surface_tables(scene: Scene, backend):
+    """What the hit_surface kernel reads of the scene besides the traces:
+    its material and triangle rows, and the boxes or grid whose centres
+    give a voxel hit its normal (_voxel_centres)."""
+    tri = {}
+    if scene.n_triangles:
+        tri = dict(tri_n=(scene.tri_n0, scene.tri_n1, scene.tri_n2),
+                   tri_uv=(scene.tri_uv0, scene.tri_uv1, scene.tri_uv2),
+                   tri_mat=scene.tri_mat, tri_tex=scene.tri_tex,
+                   textures=scene.textures, tex_meta=scene.tex_meta)
+    boxes = grid = None
+    if scene.n_voxels or scene.occ_flat.shape[0]:
+        boxes, grid = _voxel_centres(scene, backend)
+    return frame_shade.Tables(scene.materials, scene.voxel_material,
+                              boxes=boxes, grid=grid, **tri)
+
+
+def _occlusion(scene: Scene, world_pos, l_vec, light_dist, admit, backend,
+               fast_opts, shadow_opts, any_hit_fn):
+    """The shadow pass: bool occlusion of the admitted shadow rays
+    (world_pos, l_vec, TMIN, light_dist), False for the others."""
+    if any_hit_fn is None:
+        return _any_hit(scene, world_pos, l_vec, TMIN, light_dist, backend,
+                        admit, fast_opts, shadow_opts)
+    shadowed = torch.zeros_like(admit)
+    sel = torch.nonzero(admit.reshape(-1)).squeeze(1)
+    shadowed.reshape(-1)[sel] = any_hit_fn(
+        world_pos.reshape(-1, 3)[sel], l_vec.reshape(-1, 3)[sel], TMIN,
+        light_dist.reshape(-1)[sel]).reshape(-1)
+    return shadowed
+
+
 def render_rays(scene: Scene, origins, dirs, light: Light = Light(),
                 clear_color=(1.0, 1.0, 1.0, 1.0), *, backend="dda",
                 t_min=TMIN, t_max=TMAX, shadows=True, fast_opts=None,
@@ -340,6 +401,22 @@ def render_rays(scene: Scene, origins, dirs, light: Light = Light(),
     t_max (M,).
     """
     _check_backend(backend)
+    return _render(scene, origins, dirs, light, clear_color, None,
+                   backend=backend, t_min=t_min, t_max=t_max,
+                   shadows=shadows, fast_opts=fast_opts,
+                   shadow_opts=shadow_opts, trace_voxels_fn=trace_voxels_fn,
+                   any_hit_fn=any_hit_fn)
+
+
+def _render(scene: Scene, origins, dirs, light, clear_color, frame, *,
+            backend, t_min, t_max, shadows, fast_opts, shadow_opts,
+            trace_voxels_fn, any_hit_fn):
+    """render_rays' stages.  On CUDA tensors the surface and shade stages
+    are the hit_surface and shade_post kernels; with frame (height, width,
+    tiled) shade_post returns render_image's gamma-corrected (H, W, 4)
+    framebuffer, else linear RGB.  CPU tensors run the plain glue and
+    return linear RGB."""
+    kernels = _takes_kernels(origins.device)
     with trace.span("primary"):
         tri = (_trace_triangles(scene, origins, dirs, t_min, t_max)
                if scene.n_triangles else None)
@@ -348,23 +425,28 @@ def render_rays(scene: Scene, origins, dirs, light: Light = Light(),
         else:
             t_vox, vox_id = _trace_voxels(scene, origins, dirs, t_min,
                                           t_max, backend, fast_opts)
+    if kernels:
+        with trace.span("surface"):
+            q = frame_shade.hit_surface_cuda(
+                origins, dirs, t_vox, vox_id, tri,
+                _surface_tables(scene, backend), light.position,
+                light.intensity, light.type)
+        with trace.span("shadow"):
+            occluded = (_occlusion(scene, q.world_pos, q.l_vec, q.light_dist,
+                                   q.admit, backend, fast_opts, shadow_opts,
+                                   any_hit_fn) if shadows else None)
+        with trace.span("shade"):
+            return frame_shade.shade_post_cuda(
+                q, dirs, occluded, scene.materials, scene.voxel_material,
+                clear_color, frame)
     with trace.span("surface"):
         s = surface_terms(scene, origins, dirs, t_vox, vox_id, light, tri,
                           backend)
     with trace.span("shadow"):
         if shadows:
-            if any_hit_fn is None:
-                shadowed = _any_hit(scene, s.world_pos, s.l_vec, TMIN,
-                                    s.light_dist, backend, s.hit & s.facing,
-                                    fast_opts, shadow_opts)
-            else:
-                shadowed = torch.zeros_like(s.facing)
-                sel = torch.nonzero((s.hit & s.facing).reshape(-1)) \
-                    .squeeze(1)
-                shadowed.reshape(-1)[sel] = any_hit_fn(
-                    s.world_pos.reshape(-1, 3)[sel],
-                    s.l_vec.reshape(-1, 3)[sel], TMIN,
-                    s.light_dist.reshape(-1)[sel]).reshape(-1)
+            shadowed = _occlusion(scene, s.world_pos, s.l_vec, s.light_dist,
+                                  s.hit & s.facing, backend, fast_opts,
+                                  shadow_opts, any_hit_fn)
             shadowed = torch.where(s.facing, shadowed,
                                    torch.ones_like(shadowed))
         else:
@@ -372,19 +454,25 @@ def render_rays(scene: Scene, origins, dirs, light: Light = Light(),
             shadowed = ~s.facing
 
     with trace.span("shade"):
-        specular = shading.compute_specular(s.mat, dirs, s.l_vec, s.normal)
-        lit = s.facing & ~shadowed
-        # triangle CH: attenuation 1 unless facing and shadowed -> 0.3;
-        # voxel CH: attenuation 0.3 unless facing and unshadowed -> 1
-        att_tri = torch.where(s.facing & shadowed, 0.3, 1.0)
-        att_vox = torch.where(lit, 1.0, 0.3)
-        attenuation = torch.where(s.vox_hit, att_vox, att_tri)
-        specular = torch.where(lit[..., None], specular,
-                               torch.zeros_like(specular))
-        color = s.intensity[..., None] * attenuation[..., None] \
-            * (s.diffuse + specular)
-        miss = shading.miss_color(clear_color, device=color.device)
-        return torch.where(s.hit[..., None], color, miss)
+        return _shade(s, dirs, shadowed, clear_color)
+
+
+def _shade(s: Surface, dirs, shadowed, clear_color):
+    """The shade stage's plain version: linear RGB of the traced batch
+    from its closest-hit terms and shadowed (True where not lit)."""
+    specular = shading.compute_specular(s.mat, dirs, s.l_vec, s.normal)
+    lit = s.facing & ~shadowed
+    # triangle CH: attenuation 1 unless facing and shadowed -> 0.3;
+    # voxel CH: attenuation 0.3 unless facing and unshadowed -> 1
+    att_tri = torch.where(s.facing & shadowed, 0.3, 1.0)
+    att_vox = torch.where(lit, 1.0, 0.3)
+    attenuation = torch.where(s.vox_hit, att_vox, att_tri)
+    specular = torch.where(lit[..., None], specular,
+                           torch.zeros_like(specular))
+    color = s.intensity[..., None] * attenuation[..., None] \
+        * (s.diffuse + specular)
+    miss = shading.miss_color(clear_color, device=color.device)
+    return torch.where(s.hit[..., None], color, miss)
 
 
 _TILE_H, _TILE_W = 8, 128
@@ -408,17 +496,31 @@ def _untile_rays(x, height, width):
     return t.permute(1, 2, 0, 3, 4).reshape(height, width, c)
 
 
+def _tiles(backend, height, width):
+    """Whether the frame's rays travel in tile order."""
+    return backend == "fast" and _can_tile(height, width)
+
+
 def _frame_rays(scene: Scene, view_inv, proj_inv, width, height, backend):
     """The frame's camera rays on the scene's device, in tile order for
     the fast backend when the frame tiles: (origins, dirs, untile), where
-    untile maps a per-ray (..., C) result back to (H, W, C)."""
-    origins, dirs = make_camera_rays(width, height, view_inv, proj_inv,
-                                     device=scene.device)
-    if backend != "fast" or not _can_tile(height, width):
-        return origins, dirs, lambda x: x
-    return (_tile_rays(origins, height, width),
-            _tile_rays(dirs, height, width),
-            lambda x: _untile_rays(x, height, width))
+    untile maps a per-ray (..., C) result back to (H, W, C).  On the card
+    one camera_rays launch makes them, already tiled."""
+    tiled = _tiles(backend, height, width)
+    if _takes_kernels(scene.device):
+        origins, dirs = frame_shade.camera_rays_cuda(
+            width, height, view_inv, proj_inv, tiled, scene.device)
+        if not tiled:
+            return (origins.reshape(height, width, 3),
+                    dirs.reshape(height, width, 3), lambda x: x)
+    else:
+        origins, dirs = make_camera_rays(width, height, view_inv, proj_inv,
+                                         device=scene.device)
+        if not tiled:
+            return origins, dirs, lambda x: x
+        origins = _tile_rays(origins, height, width)
+        dirs = _tile_rays(dirs, height, width)
+    return origins, dirs, lambda x: _untile_rays(x, height, width)
 
 
 def render_image(scene: Scene, view_inv, proj_inv, *, width, height,
@@ -432,17 +534,26 @@ def render_image(scene: Scene, view_inv, proj_inv, *, width, height,
     "render_image" whose children are the frame's stages: "rays",
     "primary", "surface", "shadow", "shade" and "post"; a trace kernel's
     call ("mega_trace", "staged_march", "tri_march") is a span under
-    "primary" or "shadow"."""
+    "primary" or "shadow".  On the card the frame is the camera_rays,
+    hit_surface and shade_post kernels around the traces, and "post" only
+    returns the framebuffer shade_post wrote."""
     _check_backend(backend)
+    kernels = _takes_kernels(scene.device)
     with trace.span("render_image"):
         with trace.span("rays"):
             origins, dirs, untile = _frame_rays(scene, view_inv, proj_inv,
                                                 width, height, backend)
-        rgb = render_rays(scene, origins, dirs, light, clear_color,
-                          backend=backend, shadows=shadows,
-                          fast_opts=fast_opts, shadow_opts=shadow_opts)
+        out = _render(scene, origins, dirs, light, clear_color,
+                      (height, width, _tiles(backend, height, width))
+                      if kernels else None,
+                      backend=backend, t_min=TMIN, t_max=TMAX,
+                      shadows=shadows, fast_opts=fast_opts,
+                      shadow_opts=shadow_opts, trace_voxels_fn=None,
+                      any_hit_fn=None)
         with trace.span("post"):
-            rgb = untile(rgb)
+            if kernels:
+                return out      # shade_post wrote the framebuffer
+            rgb = untile(out)
             rgba = torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)
             return shading.gamma_post(rgba)
 
