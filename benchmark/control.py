@@ -31,59 +31,95 @@ def seeds(n):
     return [SEED0 + 7919 * k for k in range(n)]
 
 
-def program_readings(spec, seed_list, device, log):
-    """{seed: numbers} of the program's frames, judged as a run's."""
-    import torch
-    from vrbench import check, inputs
-    from vrbench.program import Program, load_kernels
+class Control:
+    """The control in the program's place: the reference itself a precision
+    below the configuration's float32 (bfloat16 voxelize, rays, walks and
+    hit points), with the program's interface (vrbench/program.Program):
+    a static voxel scene's voxelize as set-up's outputs, a changing one's
+    as each step's answers, and the reference's frame of the step."""
+
+    def __init__(self, kind, config, geo, device, changes):
+        """changes: the kind's Program.changes."""
+        import torch
+        from vrbench import check
+        self.refs = check.References(kind, config, geo, device,
+                                     torch.bfloat16, torch.bfloat16)
+        self.changes = changes
+        self.config, self.device = config, device
+        self.setup_s, self.call_s = {}, {}
+        self.outputs, self.answers = {}, {}
+        self.at = 0
+        vox = self.refs(0)[1]
+        if vox and not self.changes:
+            self.outputs = {"occupancy": vox[0], "set_calls": vox[1]}
+
+    def step(self, step):
+        import torch
+        self.at = step
+        vox = self.refs(step)[1]
+        if vox and self.changes:
+            self.answers = {"occupancy": vox[0],
+                            "set_calls": torch.tensor(vox[1])}
+
+    def frame(self, vi, pi, shadows=True):
+        from vrbench import reference
+        c = self.config
+        return reference.render(self.refs(self.at)[0], vi, pi, c["width"],
+                                c["height"], c["shading"],
+                                self.device).float()
+
+    def frame_of(self, flight, i, shadows=True):
+        self.step(flight.step(i))
+        return self.frame(*flight.matrices(i), shadows=shadows)
+
+    def free(self):
+        self.refs = None
+
+
+def _checked(prog, spec, geo, seed_list):
+    """{seed: (flight, kept)}: each seed's checked frames and their
+    answers, as a run keeps them."""
+    from vrbench import inputs
     cfg, tr = spec.config, spec.traffic
-    load_kernels(device)
-    v, f = inputs.mesh_of(cfg)
-    grid = (inputs.grid_of(v, cfg["grid_res"]) if cfg["kind"] == "voxel"
-            else None)
-    prog = Program(cfg, v, f, grid, device)
-    kept = {}
+    out = {}
     for s in seed_list:
-        fl = inputs.Flight(tr, *inputs.bbox(v), cfg["width"], cfg["height"],
-                           s)
-        kept[s] = (fl, {i: prog.frame(*fl.matrices(i),
-                                      shadows=bool(tr["shadows"])).clone()
-                        for i in fl.check})
+        fl = inputs.Flight(tr, *geo.bbox, cfg["width"], cfg["height"], s)
+        kept = {}
+        for i in fl.check:
+            img = prog.frame_of(fl, i, bool(tr["shadows"]))
+            kept[i] = {"image": img.clone(),
+                       **{k: x.clone() for k, x in prog.answers.items()}}
+        out[s] = (fl, kept)
+    return out
+
+
+def readings(spec, seed_list, control_seeds, device, log):
+    """({seed: numbers} of the program's frames, judged as a run's; the
+    same of the control in the program's place)."""
+    import torch
+    from vrbench import check
+    from vrbench.program import kind_of, load_kernels
+    cfg = spec.config
+    kind = kind_of(cfg)
+    load_kernels(device)
+    geo = kind.geometry(cfg)
+    prog = kind.Program(cfg, geo, device)
+    kept = _checked(prog, spec, geo, seed_list)
     outputs = prog.outputs
     prog.free()
     del prog
     gc.collect()
     torch.cuda.empty_cache()
-    scene, vox = check.reference_scene(cfg, v, f, grid, device)
-    out = {}
-    for s in seed_list:
-        fl, frames = kept[s]
-        out[s], _ = check.judge(cfg, spec.cell, scene, vox, fl, frames,
-                                outputs, device, log=log)
-    return out, (v, f, grid, scene, vox)
-
-
-def control_readings(spec, seed_list, made, device, log):
-    """{seed: numbers} of the control in the program's place."""
-    import torch
-    from vrbench import check, inputs, reference
-    cfg, tr = spec.config, spec.traffic
-    v, f, grid, scene, vox = made
-    low, low_vox = check.reference_scene(cfg, v, f, grid, device,
-                                         torch.bfloat16, torch.bfloat16)
-    outputs = ({"occupancy": low_vox[0], "set_calls": low_vox[1]}
-               if low_vox else {})
-    out = {}
-    for s in seed_list:
-        fl = inputs.Flight(tr, *inputs.bbox(v), cfg["width"], cfg["height"],
-                           s)
-        frames = {i: reference.render(low, *fl.matrices(i), cfg["width"],
-                                      cfg["height"], cfg["shading"],
-                                      device).float()
-                  for i in fl.check}
-        out[s], _ = check.judge(cfg, spec.cell, scene, vox, fl, frames,
-                                outputs, device, log=log)
-    return out
+    refs = check.References(kind, cfg, geo, device)
+    progs = {s: check.judge(cfg, spec.cell, refs, fl, k, outputs, device,
+                            log=log)[0] for s, (fl, k) in kept.items()}
+    del kept
+    ctrl = Control(kind, cfg, geo, device, kind.Program.changes)
+    ctrls = {s: check.judge(cfg, spec.cell, refs, fl, k, ctrl.outputs,
+                            device, log=log)[0]
+             for s, (fl, k) in _checked(ctrl, spec, geo,
+                                        control_seeds).items()}
+    return progs, ctrls
 
 
 def main(argv=None):
@@ -103,10 +139,8 @@ def main(argv=None):
     device = torch.device("cuda", 0)
     spec = harness.load_spec(args.workload, BENCH_DIR)
     t0 = time.perf_counter()
-    prog, made = program_readings(spec, seeds(args.seeds), device,
-                                  harness.log)
-    ctrl = control_readings(spec, seeds(args.control_seeds), made, device,
-                            harness.log)
+    prog, ctrl = readings(spec, seeds(args.seeds),
+                          seeds(args.control_seeds), device, harness.log)
     rows = ([{"cell": spec.name, "side": "program", "seed": s, **n}
              for s, n in prog.items()]
             + [{"cell": spec.name, "side": "control", "seed": s, **n}

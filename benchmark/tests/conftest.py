@@ -19,7 +19,7 @@ sys.path.insert(1, str(REPO))
 
 # the cells at a size a test can hold: a knot of 1,024 triangles, a grid of
 # 24 cells, 64 x 32 frames, two cameras a revolution, both checked and
-# traced twice over
+# traced twice over; a deforming knot over four vertex sets
 TINY_MESH = {"segments": 32, "tube_segments": 16}
 TINY = {"width": 64, "height": 32}
 
@@ -39,6 +39,10 @@ def shrink(root):
             c["grid_res"] = 24
         if "reference_grid_res" in c:
             c["reference_grid_res"] = 24
+        if "deform" in c:
+            # four vertex sets a quarter cycle apart: each step's grid
+            # differs from the last at this size
+            c["deform"]["sets"] = 4
         cfg.write_text(json.dumps(c))
     for tr in (root / "benchmark" / "traffic").glob("*.json"):
         t = json.loads(tr.read_text())

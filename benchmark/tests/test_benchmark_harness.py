@@ -12,6 +12,8 @@ import torch
 from conftest import BENCH, REPO
 from vrbench import harness, profile, work
 
+CPU = torch.device("cpu")
+
 
 class _Clock:
     """The harness's clock, advancing one second a reading, so that a
@@ -109,8 +111,8 @@ def test_frame_metrics_take_every_frame(tiny):
 
 
 class _FakeEvent:
-    def __init__(self, name, start, end, cuda):
-        self.name = name
+    def __init__(self, name, start, end, cuda, id=0):
+        self.name, self.id = name, id
         self.device_type = (torch.autograd.DeviceType.CUDA if cuda
                             else torch.autograd.DeviceType.CPU)
         self.time_range = type("R", (), {"start": start, "end": end})()
@@ -235,7 +237,8 @@ def test_work_count():
     assert work.peak("hbm_bytes_per_s") == 3.35e12
 
 
-@pytest.mark.parametrize("cell", ["vox512-flythrough", "tri-flythrough"])
+@pytest.mark.parametrize("cell", ["vox512-flythrough", "tri-flythrough",
+                                  "vox512-deform"])
 def test_sound_run_is_correct(tiny, cell):
     spec = harness.load_spec(cell, tiny)
     run = _run(spec)
@@ -281,7 +284,8 @@ def _altered(monkeypatch):
     monkeypatch.setattr(pipeline, "_trace_triangles", trace_triangles)
 
 
-@pytest.mark.parametrize("cell", ["vox512-flythrough", "tri-flythrough"])
+@pytest.mark.parametrize("cell", ["vox512-flythrough", "tri-flythrough",
+                                  "vox512-deform"])
 @pytest.mark.parametrize("fault", ["state_unchanged", "half_left_out",
                                    "answer_altered"])
 def test_faults_are_not_correct(tiny, monkeypatch, cell, fault):
@@ -302,6 +306,86 @@ def test_faults_are_not_correct(tiny, monkeypatch, cell, fault):
     assert run.failed > 0
 
 
+def _deform_fault(fault):
+    """A step of the deforming scene broken underneath."""
+    from vrbench.kinds import voxel_deform
+    real = voxel_deform.Program.step
+
+    def step(self, step):
+        if fault == "grid_frozen":
+            # every step voxelizes the first vertex set
+            real(self, step - self.key(step))
+        elif fault == "accel_not_rebuilt":
+            # the new voxelize, and the scene of the first step kept
+            scene = self.scene
+            real(self, step)
+            self.scene = scene or self.scene
+        elif fault == "occupancy_of_another_step":
+            before = self.answers.get("occupancy")
+            real(self, step)
+            if before is not None:
+                self.answers["occupancy"] = before
+        else:
+            real(self, step)
+            self.answers["set_calls"] = self.answers["set_calls"] + 1
+    return step
+
+
+@pytest.mark.parametrize("fault", ["grid_frozen", "accel_not_rebuilt",
+                                   "occupancy_of_another_step",
+                                   "set_calls_wrong"])
+def test_deform_faults_are_not_correct(tiny, monkeypatch, fault):
+    """A deforming scene's step broken underneath comes out not correct:
+    the grid frozen at the first vertex set, the scene not rebuilt after
+    the voxelize, a checked frame's occupancy from another step, a wrong
+    set_calls."""
+    from vrbench.kinds import voxel_deform
+    monkeypatch.setattr(voxel_deform.Program, "step", _deform_fault(fault))
+    spec = harness.load_spec("vox512-deform", tiny)
+    run = _run(spec)
+    correct, checks = harness.verdict(run)
+    assert not correct, checks
+    assert run.failed > 0
+    if fault in ("grid_frozen", "occupancy_of_another_step"):
+        assert checks["occupancy_cells_apart"]["value"] > 0
+    elif fault == "set_calls_wrong":
+        assert checks["set_calls_apart"]["value"] == 1
+    else:
+        assert checks["occupancy_cells_apart"]["value"] == 0
+        assert checks["pixels_apart_ppm"]["value"] \
+            > checks["pixels_apart_ppm"]["limit"]
+
+
+def test_deform_steps_take_their_own_geometry(tiny):
+    """Window frame i is step start + i: camera step mod cameras, vertex
+    set step mod sets; the program's voxelize and each checked frame's are
+    judged against the reference of that step's own set."""
+    spec = harness.load_spec("vox512-deform", tiny)
+    run = _run(spec)
+    geo = run.geometry
+    assert len(geo.sets) == 4 and geo.key(5) == 1
+    assert not np.array_equal(geo.sets[0], geo.sets[1])
+    lo, hi = geo.bbox
+    for v in geo.sets:
+        assert (v >= lo).all() and (v <= hi).all()
+    correct, checks = harness.verdict(run)
+    assert correct, checks
+    assert checks["occupancy_cells_apart"]["value"] == 0
+    assert checks["set_calls_apart"]["value"] == 0
+    from vrbench import inputs
+    fl = inputs.Flight(spec.traffic, lo, hi, 64, 32, 7)
+    assert [fl.step(i) for i in range(3)] == [fl.start + i for i in range(3)]
+    assert fl.camera(2) == (fl.start + 2) % fl.n
+
+
+def test_unknown_kind_is_refused():
+    from vrbench.program import kind_of
+    assert kind_of({"kind": "voxel-deform"}).Program.changes
+    assert not kind_of({"kind": "voxel"}).Program.changes
+    with pytest.raises(ValueError):
+        kind_of({"kind": "no-such-kind"})
+
+
 def test_traced_run_checks_too(tiny):
     spec = harness.load_spec("vox512-flythrough", tiny)
     run = _run(spec, trace=True)
@@ -309,6 +393,106 @@ def test_traced_run_checks_too(tiny):
     assert correct, checks
     rounds = spec.traffic["trace_rounds"]
     assert run.traced_frames == 2 * rounds == len(run.admitted)
+
+
+def test_deform_traced_run(tiny):
+    """A traced run of the deforming cell checks its traced frames, counts
+    each traced frame's shadow rays from its own geometry and reads the
+    scene build's host time; on the CPU no device metric reports."""
+    from vrbench import check, reference
+    from vrbench.program import kind_of
+    spec = harness.load_spec("vox512-deform", tiny)
+    run = _run(spec, trace=True)
+    correct, checks = harness.verdict(run)
+    assert correct, checks
+    rounds = spec.traffic["trace_rounds"]
+    assert run.traced_frames == 2 * rounds == len(run.steps)
+    refs = check.References(kind_of(spec.config), spec.config,
+                            run.geometry, CPU)
+    w, h = spec.config["width"], spec.config["height"]
+    from vrbench import inputs
+    fl = inputs.Flight(spec.traffic, *run.geometry.bbox, w, h, 0)
+    want = []
+    for step in run.steps:
+        fl.start = step
+        want.append(reference.admitted(refs(step)[0], *fl.matrices(0), w,
+                                       h, spec.config["shading"], CPU))
+    assert run.admitted == want
+    got = harness.read_metrics(run, spec.per_layer)
+    assert got["scene_build_host_ms"]["value"] > 0
+    for name in ("voxelize_kernel_ms", "voxelize_roofline_pct",
+                 "scene_build_ms", "frame_kernels_ms", "trace_kernel_ms"):
+        assert name not in got
+
+
+def test_voxelize_work_count_reads_no_program(tiny, monkeypatch):
+    """voxelize_roofline_pct counts each traced frame's SAT tests from the
+    benchmark's geometry and reference (the cells of every triangle's
+    clamped window over that frame's vertex set, counted here in numpy),
+    with the program made unimportable."""
+    from vrbench.program import kind_of
+    spec = harness.load_spec("vox512-deform", tiny)
+    geo = kind_of(spec.config).geometry(spec.config)
+    monkeypatch.setitem(sys.modules, "voxelray_torch", None)
+    ev = [_FakeEvent(profile.WINDOW_SPAN, 0, 1000, False),
+          _FakeEvent("voxel_accum_kernel(VoxelArgs)", 100, 150, True),
+          _FakeEvent("voxel_accum_kernel(VoxelArgs)", 300, 330, True)]
+    steps = [1, 2, 5]
+    run = harness.Run(spec=spec, trace=profile.Trace(_FakeProf(ev)),
+                      traced_frames=3, steps=steps, geometry=geo)
+    got = {k: v["value"] for k, v in
+           harness.read_metrics(run, spec.per_layer).items()}
+    assert got["voxelize_kernel_ms"] == pytest.approx(80e-3 / 3)
+    bb_min, _, vs, dims = geo.grid
+    bound = 0.0
+    for step in steps:
+        tri = geo.sets[geo.key(step)][geo.faces]
+        lo = ((tri.min(axis=1) - bb_min) / np.float32(vs)).astype(np.int64)
+        hi = ((tri.max(axis=1) - bb_min) / np.float32(vs)).astype(np.int64)
+        w = np.clip(np.minimum(hi + 2, dims) - np.maximum(lo, 0), 0, None)
+        tests = int(w.prod(axis=1).sum())
+        assert tests > len(geo.faces)
+        nbytes = 12 * len(geo.sets[0]) + 12 * len(geo.faces) \
+            + dims[0] * dims[1] * dims[2]
+        bound += max(nbytes / 3.35e12, tests * 270 / 67e12)
+    assert work.SAT_OPS == 270
+    assert got["voxelize_roofline_pct"] == pytest.approx(
+        100 * bound / 80e-6, rel=1e-9)
+
+
+def test_scene_build_ms_links_launches_by_correlation(tiny):
+    """scene_build_ms: the device operations whose runtime call began
+    inside the benchmark's build_scene span, linked by correlation id,
+    over the host-traced frames; frame_kernels_ms: the frame glue's
+    kernels by name."""
+    spec = harness.load_spec("vox512-deform", tiny)
+    ev = [_FakeEvent(profile.WINDOW_SPAN, 0, 1000, False),
+          _FakeEvent("vrbench.build_scene", 100, 200, False, id=1),
+          _FakeEvent("vrbench.build_scene", 100, 200, True, id=1),
+          _FakeEvent("cudaLaunchKernel", 110, 112, False, id=7),
+          _FakeEvent("cudaMemcpyAsync", 150, 152, False, id=8),
+          _FakeEvent("cudaLaunchKernel", 250, 252, False, id=9),
+          _FakeEvent("void at::native::reduce_kernel<512>()", 300, 320,
+                     True, id=7),
+          _FakeEvent("Memcpy HtoD (Pageable -> Device)", 320, 330, True,
+                     id=8),
+          _FakeEvent("camera_rays_kernel(RaysArgs)", 400, 450, True,
+                     id=9)]
+    tr = profile.Trace(_FakeProf(ev))
+    # the annotation on the device's timeline is no operation
+    assert tr.busy_s == pytest.approx(80e-6)
+    assert tr.launched_in("build_scene") == pytest.approx(30e-6)
+    assert tr.launched_in("voxelize") is None
+    run = harness.Run(spec=spec, trace=tr, host_trace=tr, traced_frames=2)
+    got = {k: v["value"] for k, v in
+           harness.read_metrics(run, spec.per_layer).items()}
+    m = spec.traffic["host_trace_frames"]
+    assert got["scene_build_ms"] == pytest.approx(30e-3 / m)
+    assert got["frame_kernels_ms"] == pytest.approx(50e-3 / 2)
+    run = harness.Run(spec=spec, call_s={"build_scene": 0.006},
+                      traced_frames=3)
+    assert harness.read_metrics(run, spec.per_layer)[
+        "scene_build_host_ms"]["value"] == pytest.approx(2.0)
 
 
 def test_cpu_run_loads_no_jax(tiny):

@@ -140,34 +140,24 @@ def test_admitted_rays_against_a_hand_count():
     assert work.trace_rays(w, h, [got]) == w * h + count
 
 
-@pytest.mark.parametrize("cell", ["vox512-flythrough", "tri-flythrough"])
+@pytest.mark.parametrize("cell", ["vox512-flythrough", "tri-flythrough",
+                                  "vox512-deform"])
 def test_control_in_the_programs_place_is_not_correct(tiny, monkeypatch,
                                                       cell):
     """The control, the reference with its voxelize, rays and walks in
     bfloat16, put in the program's place: a run judges it not correct."""
-    from vrbench import check
+    from control import Control
+    from vrbench.program import kind_of
 
-    class Control:
-        def __init__(self, config, v, f, grid, device):
-            self.scene, vox = check.reference_scene(
-                config, v, f, grid, device, torch.bfloat16, torch.bfloat16)
-            self.outputs = ({"occupancy": vox[0], "set_calls": vox[1]}
-                            if vox else {})
-            self.config, self.device, self.setup_s = config, device, {}
-
-        def frame(self, vi, pi, shadows=True):
-            c = self.config
-            return reference.render(self.scene, vi, pi, c["width"],
-                                    c["height"], c["shading"],
-                                    self.device).float()
-
-        def free(self):
-            pass
-
-    monkeypatch.setattr(harness, "Program", Control)
     spec = harness.load_spec(cell, tiny)
+    kind = kind_of(spec.config)
+    changes = kind.Program.changes
+    monkeypatch.setattr(kind, "Program", lambda config, geo, device:
+                        Control(kind, config, geo, device, changes))
     run = harness.run_cell(spec, 11, 1.0, False, CPU, time.time())
     correct, checks = harness.verdict(run)
     assert not correct, checks
     assert checks["pixels_apart_ppm"]["value"] \
         > checks["pixels_apart_ppm"]["limit"]
+    if cell != "tri-flythrough":
+        assert checks["occupancy_cells_apart"]["value"] > 0

@@ -3,8 +3,10 @@
 The harness is driven by data.  A cell is an entry of BENCHMARK.json's
 `workloads`; the harness finds everything else by name:
 
-  configs    BENCHMARK.json `configs[].file` (the scene: mesh, grid,
-             frame, backend, shading, the kernels of each layer)
+  configs    BENCHMARK.json `configs[].file` (the scene: its kind, mesh,
+             grid, frame, backend, shading, the kernels of each layer);
+             the kind's module kinds/<kind>.py builds the scene for the
+             program and for the reference (program.kind_of)
   traffic    traffic/<traffic>.json (the fly-through: cameras a
              revolution, the orbit, shadows, frames checked and traced)
   cells      cells/<cell>.json (the limits of the comparison)
@@ -14,7 +16,10 @@ The harness is driven by data.  A cell is an entry of BENCHMARK.json's
 A run with trace 0 measures the end-to-end metrics over a window of
 `seconds`; a run with trace 1 profiles `trace_frames` cameras spread over
 the orbit, `trace_rounds` times over, and reports
-the per-layer metrics.  Both check the frames the seed picked.
+the per-layer metrics.  Both check the frames the seed picked.  Window
+frame i is global step start + i (inputs.Flight): each frame first makes
+its step's scene (a kind whose geometry changes voxelizes and builds it
+there), then renders it.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ import numpy as np
 import torch
 
 from . import check, inputs, profile, reference
-from .program import Program, load_kernels
+from .program import kind_of, load_kernels
 
 __all__ = ["Spec", "load_spec", "Run", "run_cell", "read_metrics",
            "BENCH_DIR"]
@@ -86,6 +91,7 @@ class Run:
     """What a run measured; the metric readers read it."""
 
     spec: Spec
+    geometry: object = None         # inputs.Geometry of the scene
     setup_s: float = 0.0
     build_s: float = 0.0
     frame_s: list = field(default_factory=list)
@@ -94,6 +100,8 @@ class Run:
     host_trace: object = None       # ... of a short window, host traced
     traced_frames: int = 0
     plain_s: float = 0.0            # the traced frames' seconds, untraced
+    call_s: dict = field(default_factory=dict)  # ... in Program.call spans
+    steps: list = field(default_factory=list)   # the traced frames' steps
     admitted: list = field(default_factory=list)
     sync_sites: list = field(default_factory=list)
     sync_frames: int = 0
@@ -124,6 +132,13 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _keep(bufs, img, prog):
+    """Copy a checked frame's image and its step's answers."""
+    bufs["image"].copy_(img)
+    for name, x in prog.answers.items():
+        bufs[name].copy_(x)
+
+
 def _window(prog, flight, shadows, seconds, kept, device):
     """Frames back to back, each synced, until `seconds` have passed:
     (each frame's seconds, the window's seconds, the host thread's CPU
@@ -133,9 +148,9 @@ def _window(prog, flight, shadows, seconds, kept, device):
     i = 0
     while True:
         a = time.perf_counter()
-        img = prog.frame(*flight.matrices(i), shadows=shadows)
+        img = prog.frame_of(flight, i, shadows)
         if i in kept:
-            kept[i].copy_(img)
+            _keep(kept[i], img, prog)
         _sync(device)
         b = time.perf_counter()
         cpu.append(time.thread_time())
@@ -161,15 +176,15 @@ def _traced(prog, flight, shadows, warm, frames, kept, device,
     steps = schedule(wait=0, warmup=1, active=1, repeat=1)
     with torch_profile(activities=acts, schedule=steps) as prof:
         for i in warm:
-            prog.frame(*flight.matrices(i), shadows=shadows)
+            prog.frame_of(flight, i, shadows)
             _sync(device)
         prof.step()
         t0 = time.perf_counter()
         with record_function(profile.WINDOW_SPAN):
             for i in frames:
-                img = prog.frame(*flight.matrices(i), shadows=shadows)
+                img = prog.frame_of(flight, i, shadows)
                 if i in kept:
-                    kept[i].copy_(img)
+                    _keep(kept[i], img, prog)
                 _sync(device)
         window = time.perf_counter() - t0
         prof.step()
@@ -180,7 +195,7 @@ def _timed(prog, flight, shadows, frames, device):
     """Seconds that `frames` take back to back, each synced, untraced."""
     t0 = time.perf_counter()
     for i in frames:
-        prog.frame(*flight.matrices(i), shadows=shadows)
+        prog.frame_of(flight, i, shadows)
         _sync(device)
     return time.perf_counter() - t0
 
@@ -189,14 +204,13 @@ def run_cell(spec, seed, seconds, trace, device, t_process):
     """Set up, measure, check.  Returns the Run.  t_process: the host
     clock (time.time()) when the process started."""
     cfg, tr = spec.config, spec.traffic
+    kind = kind_of(cfg)
     run = Run(spec=spec)
     run.build_s = load_kernels(device)
     log(f"kernel library: {run.build_s:.3f} s")
     t0 = time.perf_counter()
-    v, f = inputs.mesh_of(cfg)
+    geo = run.geometry = kind.geometry(cfg)
     log(f"set-up: mesh {time.perf_counter() - t0:.3f} s")
-    grid = (inputs.grid_of(v, cfg["grid_res"]) if cfg["kind"] == "voxel"
-            else None)
     width, height = cfg["width"], cfg["height"]
     # a traced run's cameras are spread evenly over the orbit, so that its
     # per-layer metrics average every view whatever the start camera
@@ -205,27 +219,33 @@ def run_cell(spec, seed, seconds, trace, device, t_process):
     # ... and flown several times over, so that the traced window averages
     # over the host's swings
     traced = spread * int(tr["trace_rounds"])
-    flight = inputs.Flight(tr, *inputs.bbox(v), width, height, seed,
+    flight = inputs.Flight(tr, *geo.bbox, width, height, seed,
                            spread if trace else None)
-    log(f"cell {spec.name}: {len(f)} triangles, grid "
-        f"{grid[3] if grid else None}, "
+    log(f"cell {spec.name}: {len(geo.faces)} triangles, "
+        f"{len(geo.sets)} vertex set(s), grid "
+        f"{geo.grid[3] if geo.grid else None}, "
         f"{width}x{height}, start camera {flight.start}, checked frames "
         f"{flight.check}")
     t0 = time.perf_counter()
-    prog = Program(cfg, v, f, grid, device)
+    prog = kind.Program(cfg, geo, device)
     _sync(device)
     t1 = time.perf_counter()
     shadows = bool(tr["shadows"])
-    # every camera once, so no first-time allocation falls in the window
-    warm = range(flight.n)
-    for cam in warm:
-        prog.frame(*flight.mats[cam], shadows=shadows)
+    # every camera once (steps 0 to n - 1: in a changing scene every
+    # vertex set too, where the sets divide n or number fewer), so no
+    # first-time allocation falls in the window
+    warm = range(-flight.start, flight.n - flight.start)
+    for i in warm:
+        prog.frame_of(flight, i, shadows)
         _sync(device)
     log(f"set-up: the program's scene {t1 - t0:.3f} s "
         f"({', '.join(f'{k} {s:.3f} s' for k, s in prog.setup_s.items())}), "
         f"{len(warm)} warm-up frames {time.perf_counter() - t1:.3f} s")
-    kept = {i: torch.empty((height, width, 4), dtype=torch.float32,
-                           device=device) for i in flight.check}
+    kept = {i: dict(image=torch.empty((height, width, 4),
+                                      dtype=torch.float32, device=device),
+                    **{k: torch.empty_like(x)
+                       for k, x in prog.answers.items()})
+            for i in flight.check}
     _sync(device)
     # set-up's objects out of the collector's way: a collection in the
     # window scans only what the frames make
@@ -238,19 +258,22 @@ def run_cell(spec, seed, seconds, trace, device, t_process):
 
         def frames():
             for i in spread[:k]:
-                prog.frame(*flight.matrices(i + 1), shadows=shadows)
+                prog.frame_of(flight, i + 1, shadows)
 
         if device.type == "cuda":
             run.sync_sites = profile.host_syncs(frames, device)
         run.sync_frames = k
         log(f"host syncs over {k} frames: {len(run.sync_sites)} at "
             f"{sorted(set(run.sync_sites))}")
+        prog.call_s.clear()
         run.plain_s = _timed(prog, flight, shadows, traced, device)
+        run.call_s = dict(prog.call_s)
         # a warm-up frame between each two traced cameras
         half = max(1, flight.n // max(1, 2 * n))
         run.trace = _traced(prog, flight, shadows,
                             [i + half for i in spread], traced, kept, device)
         run.traced_frames = len(traced)
+        run.steps = [flight.step(i) for i in traced]
         run.window_s = run.trace.window_s
         # the idle gaps named by what the host did: a second, short window
         # with the host traced (its own overhead widens the gaps)
@@ -263,7 +286,8 @@ def run_cell(spec, seed, seconds, trace, device, t_process):
             f"{run.plain_s:.6f} s; {m} frames with the host in "
             f"{run.host_trace.window_s:.6f} s, busy "
             f"{run.host_trace.busy_s:.6f} s; the program's own kernels "
-            f"{sorted(set(run.trace.hand_kernels()))}")
+            f"{sorted(set(run.trace.hand_kernels()))}; host seconds in "
+            f"calls {run.call_s}")
     else:
         collections = sum(g["collections"] for g in gc.get_stats())
         run.frame_s, run.window_s, cpu = _window(prog, flight, shadows,
@@ -296,16 +320,15 @@ def run_cell(spec, seed, seconds, trace, device, t_process):
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    scene, vox = check.reference_scene(cfg, v, f, grid, device)
-    log(f"reference scene: {time.perf_counter() - t0:.3f} s")
-    run.numbers, run.failed = check.judge(cfg, spec.cell, scene, vox,
-                                          flight, kept, outputs, device,
-                                          log=log)
+    refs = check.References(kind, cfg, geo, device)
+    run.numbers, run.failed = check.judge(cfg, spec.cell, refs, flight,
+                                          kept, outputs, device, log=log)
     if trace:
-        # the shadow rays of each traced frame: each camera's, every round
-        run.admitted = [reference.admitted(scene, *flight.matrices(i),
-                                           width, height, cfg["shading"],
-                                           device)
+        # the shadow rays of each traced frame, from that frame's own
+        # geometry: each camera's, every round
+        run.admitted = [reference.admitted(refs(flight.step(i))[0],
+                                           *flight.matrices(i), width,
+                                           height, cfg["shading"], device)
                         for i in spread] * int(tr["trace_rounds"])
     log(f"check: {time.perf_counter() - t0:.3f} s")
     return run

@@ -7,6 +7,7 @@ the reference.  Each generator is a copy, so a later change to the
 program cannot move the inputs:
 
   torus_knot    voxelray_torch/io/meshes.py:127-163 (numpy, host)
+  deformed      voxelray_torch/io/meshes.py:167-177 (numpy, host)
   knot_streams  chip_smoke.py:558-574 (knot_model's flat-normal streams)
   look_at, perspective_rh_zo, camera_matrices
                 voxelray_torch/render/camera.py:30-97
@@ -14,16 +15,21 @@ program cannot move the inputs:
                 the bench camera's radius and height
                 (voxelray_torch/bench.py:279-293)
 
-The mesh is a fixed function of the configuration (no seed); the seed
-picks where on the orbit the window starts and which frames are checked.
+The mesh, and a changing scene's vertex sets, are a fixed function of the
+configuration (no seed); the seed picks where on the orbit the window
+starts and which frames are checked.  Window frame i is the global step
+start + i: it looks from camera step % cameras and, in a scene whose
+geometry changes, takes vertex set step % sets.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 
-__all__ = ["torus_knot", "mesh_of", "bbox", "grid_of", "knot_streams",
-           "look_at", "perspective_rh_zo", "camera_matrices", "orbit_eyes",
-           "Flight"]
+__all__ = ["torus_knot", "deformed", "mesh_of", "bbox", "grid_of",
+           "Geometry", "knot_streams", "look_at", "perspective_rh_zo",
+           "camera_matrices", "orbit_eyes", "Flight"]
 
 
 def torus_knot(p=2, q=3, segments=512, tube_segments=256, radius=1.5,
@@ -58,6 +64,18 @@ def torus_knot(p=2, q=3, segments=512, tube_segments=256, radius=1.5,
     return verts, np.concatenate([f1, f2]).astype(np.int32)
 
 
+def deformed(vertices, phase, amplitude=0.15):
+    """The vertices under a time-varying sinusoidal deformation (float32)."""
+    v = np.asarray(vertices, dtype=np.float32)
+    out = v.copy()
+    out[:, 0] += amplitude * np.sin(2.5 * v[:, 1] + phase).astype(np.float32)
+    out[:, 1] += amplitude * np.cos(1.7 * v[:, 2]
+                                    + 0.8 * phase).astype(np.float32)
+    out[:, 2] += amplitude * np.sin(2.1 * v[:, 0]
+                                    - 0.6 * phase).astype(np.float32)
+    return out
+
+
 def mesh_of(config):
     """The configuration's mesh, (vertices, faces)."""
     mesh = config["mesh"]
@@ -81,6 +99,29 @@ def grid_of(v, grid_res):
     ext = (bb_max - bb_min) / np.float32(vs)
     dims = tuple(int(x) for x in np.ceil(ext).astype(np.int64))
     return bb_min, bb_max, vs, dims
+
+
+@dataclass
+class Geometry:
+    """What a configuration's scene is made of, handed unchanged to the
+    program and the reference: the faces, the vertex sets (one for a
+    scene that never changes) and, for a voxel scene, the grid (grid_of's
+    tuple)."""
+
+    faces: np.ndarray
+    sets: list
+    grid: tuple = None
+
+    def key(self, step):
+        """Which vertex set global step `step` takes."""
+        return step % len(self.sets)
+
+    @property
+    def bbox(self):
+        """(min, max) over every vertex of every set."""
+        boxes = [bbox(v) for v in self.sets]
+        return (np.min([b[0] for b in boxes], axis=0),
+                np.max([b[1] for b in boxes], axis=0))
 
 
 def knot_streams(v, f):
@@ -179,9 +220,13 @@ class Flight:
         self.check = sorted(int(i) for i in
                             rng.choice(pool, size=k, replace=False))
 
+    def step(self, i):
+        """The global step of the window's frame i."""
+        return self.start + i
+
     def camera(self, i):
         """Index on the orbit of the window's frame i."""
-        return (self.start + i) % self.n
+        return self.step(i) % self.n
 
     def matrices(self, i):
         return self.mats[self.camera(i)]

@@ -17,6 +17,13 @@ are the glue of the program's tensor ops; every other kernel is the
 program's own, hand-written code.  No list of the program's kernels is
 kept, so a kernel that a later change adds is counted as its own.
 
+A device operation is put down to the call that launched it by the
+profiler's correlation id, which a CUDA runtime call on the host (a
+launch, a copy, a fill) shares with the operation it queued: in a window
+with the host traced, the operations whose runtime call began inside a
+span of the benchmark's own (`vrbench.<name>`, program.Program.call) are
+that call's.
+
 Nothing here imports the program.
 """
 from __future__ import annotations
@@ -32,9 +39,10 @@ __all__ = ["busy_seconds", "is_glue", "Trace", "host_syncs",
            "WINDOW_SPAN"]
 
 WINDOW_SPAN = "vrbench.window"
-# spans that the profiler also shows on the device's timeline, as
+# the benchmark's own spans (the window, Program.call's) and the
+# profiler's steps, which it also shows on the device's timeline, as
 # annotations: no device operation
-ANNOTATIONS = (WINDOW_SPAN, "ProfilerStep#")
+ANNOTATIONS = ("vrbench.", "ProfilerStep#")
 NOT_KERNELS = ("Memcpy", "Memset")
 TORCH_CODE = re.compile(
     r"(?:^|[^\w:])(?:at|at_cuda_detail|c10|cub|thrust)::")
@@ -85,10 +93,9 @@ class Trace:
     def __init__(self, prof, window_s=None):
         events = list(prof.events())
         cuda = torch.autograd.DeviceType.CUDA
-        ops = [(e.name, e.time_range.start, e.time_range.end)
-               for e in events
-               if e.device_type == cuda
+        dev = [e for e in events if e.device_type == cuda
                and not e.name.startswith(ANNOTATIONS)]
+        ops = [(e.name, e.time_range.start, e.time_range.end) for e in dev]
         win = [e for e in events
                if e.name == WINDOW_SPAN and e.device_type != cuda]
         if win:
@@ -99,8 +106,16 @@ class Trace:
         else:
             raise RuntimeError("the traced window has no span and no "
                                "length")
-        self.device_ops = [o for o in ops
-                           if o[2] > self.lo and o[1] < self.hi]
+        inside = [o[2] > self.lo and o[1] < self.hi for o in ops]
+        self.device_ops = [o for o, k in zip(ops, inside) if k]
+        # correlation ids of the device operations, and the host's CUDA
+        # runtime calls and own spans, for launched_in
+        self._op_ids = [e.id for e, k in zip(dev, inside) if k]
+        host_ev = [e for e in events if e.device_type != cuda]
+        self._runtime = [(e.time_range.start, e.id) for e in host_ev
+                         if e.name.startswith("cuda")]
+        self._spans = [(e.name, e.time_range.start, e.time_range.end)
+                       for e in host_ev if e.name.startswith("vrbench.")]
         host = sorted((e.time_range.start, e.time_range.end, e.name)
                       for e in events if e.device_type != cuda
                       and e.name.startswith(HOST_OPS))
@@ -135,6 +150,26 @@ class Trace:
         `names`."""
         return sum(e - s for n, s, e in self.kernels()
                    if any(x in n for x in names)) / 1e6
+
+    def launched_in(self, name):
+        """Summed device seconds of the operations (kernels, copies and
+        fills) whose CUDA runtime call began inside a host span
+        `vrbench.<name>`; None where the window holds no such span or no
+        operation linked to one."""
+        spans = sorted((s, e) for n, s, e in self._spans
+                       if n == f"vrbench.{name}")
+        if not spans:
+            return None
+        starts = [s for s, _ in spans]
+        ids = set()
+        for t, cid in self._runtime:
+            k = bisect.bisect_right(starts, t) - 1
+            if k >= 0 and t <= spans[k][1]:
+                ids.add(cid)
+        total = sum(e - s for (_, s, e), cid in zip(self.device_ops,
+                                                     self._op_ids)
+                    if cid in ids)
+        return total / 1e6 if total > 0 else None
 
     def top_ops(self, k=10):
         """[(name, seconds)] of the device operations that took most time,

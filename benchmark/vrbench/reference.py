@@ -42,7 +42,8 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["T_MIN", "T_MAX", "voxelize", "camera_rays", "VoxelScene",
+__all__ = ["T_MIN", "T_MAX", "voxelize", "sat_tests", "camera_rays",
+           "VoxelScene",
            "TriangleScene", "render", "admitted", "SAT_EPS"]
 
 T_MIN, T_MAX = 0.001, 10000.0
@@ -89,6 +90,32 @@ def _sat(c, h, v0, v1, v2):
     return ~sep
 
 
+def _windows(v, f, origin, voxel_size, dims, device, dtype):
+    """(triangles (F, 3, 3), origin, voxel size, each triangle's window
+    start (F, 3) and extent (F, 3)) in `dtype`: the window [trunc((min -
+    origin) / vs), trunc((max - origin) / vs) + 2) clamped to the grid
+    (VoxelBuilder.hpp:175-184)."""
+    tri = torch.as_tensor(np.asarray(v, np.float32)[np.asarray(f)],
+                          device=device).to(dtype)
+    org = torch.as_tensor(np.asarray(origin, np.float32),
+                          device=device).to(dtype)
+    vs = torch.tensor(float(np.float32(voxel_size)), dtype=dtype,
+                      device=device)
+    hi = torch.tensor(dims, dtype=torch.int64, device=device)
+    tmin = torch.minimum(tri[:, 0], torch.minimum(tri[:, 1], tri[:, 2]))
+    tmax = torch.maximum(tri[:, 0], torch.maximum(tri[:, 1], tri[:, 2]))
+    start = torch.clamp(((tmin - org) / vs).to(torch.int64), min=0)
+    end = torch.minimum(hi, ((tmax - org) / vs).to(torch.int64) + 2)
+    return tri, org, vs, start, torch.clamp(end - start, min=0)
+
+
+def sat_tests(v, f, origin, voxel_size, dims, device):
+    """The SAT tests that voxelize makes: the cells of every triangle's
+    clamped window, summed (float32, as the configuration states)."""
+    w = _windows(v, f, origin, voxel_size, dims, device, torch.float32)[4]
+    return int((w[:, 0] * w[:, 1] * w[:, 2]).sum())
+
+
 def voxelize(v, f, origin, voxel_size, dims, device, dtype=torch.float32):
     """The reference app's serial voxelizer: (occ (Z, Y, X) bool, set_calls).
 
@@ -99,20 +126,10 @@ def voxelize(v, f, origin, voxel_size, dims, device, dtype=torch.float32):
     """
     nx, ny, nz = dims
     occ = torch.zeros(nz * ny * nx, dtype=torch.bool, device=device)
-    tri = torch.as_tensor(np.asarray(v, np.float32)[np.asarray(f)],
-                          device=device).to(dtype)
-    org = torch.as_tensor(np.asarray(origin, np.float32),
-                          device=device).to(dtype)
-    vs = torch.tensor(float(np.float32(voxel_size)), dtype=dtype,
-                      device=device)
+    tri, org, vs, start, w = _windows(v, f, origin, voxel_size, dims,
+                                      device, dtype)
     h = torch.tensor(float(np.float32(voxel_size * 0.5)), dtype=dtype,
                      device=device)
-    hi = torch.tensor(dims, dtype=torch.int64, device=device)
-    tmin = torch.minimum(tri[:, 0], torch.minimum(tri[:, 1], tri[:, 2]))
-    tmax = torch.maximum(tri[:, 0], torch.maximum(tri[:, 1], tri[:, 2]))
-    start = torch.clamp(((tmin - org) / vs).to(torch.int64), min=0)
-    end = torch.minimum(hi, ((tmax - org) / vs).to(torch.int64) + 2)
-    w = torch.clamp(end - start, min=0)
     cap = w[:, 0] * w[:, 1] * w[:, 2]
     calls = 0
     cum = torch.cumsum(cap, 0).cpu().numpy()

@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from . import inputs, profile
-from .program import Program, load_kernels
+from .program import kind_of, load_kernels
 
 __all__ = ["FRAME", "STAGES", "OUTSIDE", "KERNELS", "MARK", "Spans",
            "recorder", "spans_window", "of", "host_self_ns",
@@ -275,7 +275,7 @@ def _sync(device):
 def _fly(prog, flight, shadows, frames, device):
     t0 = time.perf_counter()
     for i in frames:
-        prog.frame(*flight.matrices(i), shadows=shadows)
+        prog.frame_of(flight, i, shadows)
         _sync(device)
     return time.perf_counter() - t0
 
@@ -326,7 +326,7 @@ def spans_window(prog, flight, shadows, frames, device, warm=None,
             torch.cuda._sleep(MARK_CYCLES)
             out.marks.append(rec.clock_ns())
             if i is not None:
-                prog.frame(*flight.matrices(i), shadows=shadows)
+                prog.frame_of(flight, i, shadows)
             _sync(device)
         rec.disable()
         prof.step()
@@ -385,17 +385,16 @@ def _measure(spec, rec):
               else torch.device("cpu"))
     t0 = time.perf_counter()
     load_kernels(device)
-    v, f = inputs.mesh_of(cfg)
-    grid = (inputs.grid_of(v, cfg["grid_res"]) if cfg["kind"] == "voxel"
-            else None)
+    kind = kind_of(cfg)
+    geo = kind.geometry(cfg)
     n = int(tr["trace_frames"])
     spread = [i * max(1, int(tr["cameras"]) // n) for i in range(n)]
-    flight = inputs.Flight(tr, *inputs.bbox(v), cfg["width"], cfg["height"],
+    flight = inputs.Flight(tr, *geo.bbox, cfg["width"], cfg["height"],
                            0, spread)
     flight.start = 0
     rec.clear()
     rec.enable()
-    prog = Program(cfg, v, f, grid, device)
+    prog = kind.Program(cfg, geo, device)
     _sync(device)
     rec.disable()
     for r in rec.records():
@@ -406,7 +405,7 @@ def _measure(spec, rec):
     shadows = bool(tr["shadows"])
     half = max(1, flight.n // max(1, 2 * n))
     for i in spread + [i + half for i in spread]:
-        prog.frame(*flight.matrices(i), shadows=shadows)
+        prog.frame_of(flight, i, shadows)
     _sync(device)
     rounds = int(tr["trace_rounds"])
     s = spans_window(prog, flight, shadows, spread * rounds, device,
