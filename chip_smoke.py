@@ -52,6 +52,13 @@ Drives the port's paths the way a user calls them, at the bench's size:
     same inputs: the rays, the shadow query and the shading record bit
     for bit, the framebuffer within 2 ulp; each launched once a frame in
     phases 2 and 7.
+  * the planned triangle build (phase 13): the knot under 4 deformed
+    vertex sets, one plan_tri_accel over their union box (the tri-deform
+    cell's 256-cell grid); on each set build_tri_accel_planned through the
+    tri_bin kernels against the plain path (tri_cell_pairs on the card),
+    table for table, bit for bit; the two passes against their plain
+    versions (the counts, the serial pair stream); the rebuild's host
+    syncs; kernel ms (CUDA events) beside the bound.
 
 Each path runs once with the kernels' launch counters set to 0 just
 before it and read just after (staged_march's row counts the staged
@@ -108,14 +115,21 @@ BUNNY_DDA_VS = 2.8 / 128
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, fp32 FLOP/s
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 # fp32 operations per step, counted from the kernels' expressions:
-# K1 one SAT test of a (triangle, cell) slot (13 axes) plus its cell
-# centre; K2 and K4 one cell's slab test plus the DDA step; K3 (and K2
-# between bricks) one brick's crossing times, their minimum and the step;
-# tri_march per lap K3's fused init (bbox clip and entry brick) and the
-# advance, per tested row the cell's span (a slab test), per
-# ray-triangle pair Moller-Trumbore with its accept tests
-OPS_SAT, OPS_CELL, OPS_BRICK = 350, 52, 17
+# K1 and tri_bin one SAT test of a (triangle, cell) slot (13 axes) plus
+# its cell centre (csrc/sat.cuh; counted term by term as
+# benchmark/vrbench/work.py's SAT_OPS); K2 and K4 one cell's slab test
+# plus the DDA step; K3 (and K2 between bricks) one brick's crossing
+# times, their minimum and the step; tri_march per lap K3's fused init
+# (bbox clip and entry brick) and the advance, per tested row the cell's
+# span (a slab test), per ray-triangle pair Moller-Trumbore with its
+# accept tests
+OPS_SAT, OPS_CELL, OPS_BRICK = 270, 52, 17
 OPS_LAP, OPS_TRI = 48, 61
+# phase 13: the planned triangle build over TRI_SETS vertex sets spread
+# over the deforming cell's cycle (amplitude 0.15), its tri grid's cells
+# on the longest axis
+TRI_SETS, TRI_AMPLITUDE, TRI_RES = 4, 0.15, 256
+TRI_BIN = ("tri_bin_count", "tri_bin_emit")
 # phase 12: the frame glue's kernels (csrc/frame_shade.cu); their calls
 # timed queued behind a ~10 ms sleep, longer than the host takes to queue
 # them
@@ -1402,7 +1416,7 @@ def host_syncs(fn, device):
 
     def sites():
         return [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in rec
-                if "synchroniz" in str(w.message)]
+                if "called a synchronizing" in str(w.message)]
 
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as rec:
@@ -1658,6 +1672,128 @@ def check_frame_glue(what, scene, vi, pi, device):
             f"{out[name][1]:.4f} ms, {nbytes[name] / 1e6:.1f} MB, wrapper "
             f"{out[name][4]:.1f} us host a call")
     return out
+
+
+def run_tri_deform(device):
+    """Phase 13 (module docstring): returns tri_bin's kernel row."""
+    import numpy as np
+    import torch
+
+    from voxelray_torch.io import meshes
+    from voxelray_torch.ops import tri_accel
+    from voxelray_torch.ops.kernels import _build, tri_bin
+    from voxelray_torch.ops.tri_accel import (build_tri_accel_planned,
+                                              plan_tri_accel)
+    from voxelray_torch.ops.voxelize import window_bounds
+
+    t0 = time.time()
+    v, f = meshes.torus_knot(**MESH)
+    # sets 0, 8, 16 and 24 of the cell's 32-set cycle
+    sets = [meshes.deformed(v, 2.0 * np.pi * k / TRI_SETS, TRI_AMPLITUDE)
+            for k in range(TRI_SETS)]
+    lo = np.min([x.min(axis=0) for x in sets], axis=0)
+    hi = np.max([x.max(axis=0) for x in sets], axis=0)
+    plan = plan_tri_accel(f, len(v), bb_min=lo, bb_max=hi, res=TRI_RES,
+                          device=device)
+    on_card = [torch.as_tensor(x, device=device) for x in sets]
+    nx, ny, nz = plan.dims
+    log(f"tri-deform: {len(f)} triangles, {TRI_SETS} sets, tri grid "
+        f"{plan.dims}, cell {plan.voxel_size}")
+
+    @contextlib.contextmanager
+    def plain_binning():
+        saved = tri_accel._use_kernel
+        tri_accel._use_kernel = lambda dev: False
+        try:
+            yield
+        finally:
+            tri_accel._use_kernel = saved
+
+    def apart(a, b, what):
+        """The largest |a - b| of two integer tables, required to be 0."""
+        d = None
+        if a.shape == b.shape:
+            d = int((a.long() - b.long()).abs().max()) if a.numel() else 0
+        require(d == 0, f"{what} differs (largest difference {d})")
+        return d
+
+    err = 0
+    for k, x in enumerate(on_card):
+        reset(*TRI_BIN)
+        got = build_tri_accel_planned(plan, x)
+        launches = counts_of(*TRI_BIN)
+        require(launches == dict.fromkeys(TRI_BIN, 1),
+                f"tri-deform set {k}: tri_bin launches {launches}")
+        with plain_binning():
+            want = build_tri_accel_planned(plan, x)
+        require(got is not None and want is not None,
+                f"tri-deform set {k}: a cell outgrew the rows")
+        require(got.l_width == want.l_width and got.dims == want.dims,
+                f"tri-deform set {k}: l_width {got.l_width} / "
+                f"{want.l_width}")
+        for name in ("cell_slot", "cell_tris"):
+            err = max(err, apart(getattr(got, name), getattr(want, name),
+                                 f"tri-deform set {k}: {name}"))
+        require(torch.equal(got.tri9, want.tri9),
+                f"tri-deform set {k}: tri9 differs from the plain path's")
+        for name in ("coarse", "fine", "l2", "origin"):
+            require(torch.equal(getattr(got.brick, name),
+                                getattr(want.brick, name)),
+                    f"tri-deform set {k}: brick {name} differs")
+        n_ne = int((got.cell_slot >= 0).sum())
+        log(f"tri-deform set {k}: tables bit-equal to the plain path's "
+            f"(l_width {got.l_width}, {n_ne} nonempty cells, "
+            f"{int((got.cell_tris >= 0).sum())} pairs)")
+
+    # the two passes against their plain versions, on set 1
+    tri9 = plan.tri9(on_card[1])
+    n = plan.n_triangles
+    args = (tri9, n, plan.origin, plan.voxel_size, plan.dims)
+    counts = tri_bin.count(*args, *plan.box)
+    plain = tri_bin.count_plain(*args, *plan.box)
+    for name, a, b in zip(("tri_count", "cell_count", "outside"), counts,
+                          plain):
+        err = max(err, apart(a, b, f"tri_bin count pass: {name}"))
+    cum = torch.cumsum(counts[0], 0)
+    pairs = int(cum[-1])
+    stream = tri_bin.emit(*args, cum, pairs)
+    for name, a, b in zip(("pair_tri", "pair_lin"), stream,
+                          tri_bin.emit_plain(*args)):
+        err = max(err, apart(a, b, f"tri_bin emit pass: {name} (against "
+                                   "the serial hit stream)"))
+    log(f"tri_bin: both passes bit-equal to the plain versions ({pairs} "
+        f"pairs, outside {int(counts[2])})")
+    sites = host_syncs(lambda: build_tri_accel_planned(plan, on_card[2]),
+                       device)
+    log(f"tri-deform rebuild: {len(sites)} host sync(s) at {sites}")
+    require(len(sites) <= 2, "the planned rebuild syncs more than twice")
+
+    # times: the passes, the rebuild, the plain binning
+    count_ms = cuda_ms(lambda: tri_bin.count(*args, *plan.box), 20)
+    emit_ms = cuda_ms(lambda: tri_bin.emit(*args, cum, pairs), 20)
+    build_ms = wall_mean_ms(lambda: build_tri_accel_planned(
+        plan, on_card[3]), 10)
+    with plain_binning():
+        plain_ms = wall_mean_ms(lambda: build_tri_accel_planned(
+            plan, on_card[3]), 2)
+    start, end = window_bounds(tri9[:n].reshape(n, 3, 3).amin(dim=1),
+                               tri9[:n].reshape(n, 3, 3).amax(dim=1),
+                               plan.origin, plan.voxel_size, plan.dims)
+    tests = int((end - start).clamp(min=0).long().prod(dim=1).sum())
+    nbytes = 12 * len(v) + 12 * n + 8 * pairs + 4 * nx * ny * nz
+    log(f"tri_bin: count pass {count_ms:.4f} ms, emit pass {emit_ms:.4f} "
+        f"ms; the planned rebuild {build_ms:.4f} ms a set (synced), with "
+        f"the plain binning {plain_ms:.4f} ms; {tests} window cells, "
+        f"{pairs} pairs")
+    row = kernel_row("tri_bin", "tri_bin.cu", "none (the triangle accel's "
+                     "binning, voxelray_tpu/ops/tri_accel.py:95-121)",
+                     sum(launches.values()), err, count_ms + emit_ms,
+                     plain_ms, nbytes, tests * OPS_SAT)
+    row["ptxas"] = (ptxas_of(_build.build_log(), "tri_bin_count_kernel")
+                    + ptxas_of(_build.build_log(), "tri_bin_emit_kernel"))
+    log(f"tri_bin: {row}")
+    log(f"phase 13 (the planned triangle build): {time.time() - t0:.1f} s")
+    return row
 
 
 def frame_glue_rows(glue, vox_counts, tri_counts, build_log):
@@ -2160,6 +2296,9 @@ def run(device):
     log(f"tri_march launch: {rows[-1]}")
     rows += frame_glue_rows(glue, vox_counts, tri_counts,
                             _build.build_log())
+
+    # ---- 13. the planned triangle build --------------------------------
+    rows.append(run_tri_deform(device))
     return rows, smi_line()
 
 

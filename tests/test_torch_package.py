@@ -280,7 +280,7 @@ def test_nvcc_command_targets_hopper_without_fma_contraction():
     srcs = {Path(c).name for cmd in compiles for c in cmd if c.endswith(".cu")}
     assert srcs == {"voxel_accum.cu", "mega_trace.cu", "grid_walk.cu",
                     "brick_fine.cu", "tri_march.cu", "staged_march.cu",
-                    "frame_shade.cu"}
+                    "frame_shade.cu", "tri_bin.cu"}
     assert len(compiles) == len(srcs)
     # the shared header brick_walk.cuh is found through -I csrc
     for cmd in compiles:

@@ -297,7 +297,9 @@ def test_brute_trace_matches_jax(ref, name):
 
 def test_build_tri_accel_matches_jax(ref, sphere_accel):
     """The tables are JAX's: cell_slot, cell_tris (rows ascending),
-    l_width, overflow_cells, tri9 and the brick accel's tables."""
+    l_width, overflow_cells, tri9 and the brick accel's tables tri_march
+    reads; the port leaves out K2's fine_sb, which tri_march never
+    reads."""
     _, out, _ = ref
     ta = sphere_accel
     nx, ny, nz, l_width, overflow = out["ta_meta"]
@@ -307,9 +309,10 @@ def test_build_tri_accel_matches_jax(ref, sphere_accel):
     assert np.array_equal(ta.origin.numpy(), out["ta_origin"])
     for k in ("cell_slot", "cell_tris", "tri9"):
         assert np.array_equal(getattr(ta, k).numpy(), out["ta_" + k]), k
-    for k in ("coarse", "fine", "l2", "fine_sb"):
+    for k in ("coarse", "fine", "l2"):
         assert np.array_equal(getattr(ta.brick, k).numpy().view(np.uint32),
                               out["tab_" + k]), k
+    assert ta.brick.fine_sb is None
 
 
 @pytest.mark.parametrize("name", RAYS)

@@ -24,6 +24,7 @@ gives the JAX package's values).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any
 
@@ -39,13 +40,20 @@ __all__ = ["GridBool", "GridAabbStruct", "GridVec", "pack_bits",
            "unpack_bits", "pack_words", "unpack_words", "build_grid"]
 
 
+@functools.lru_cache(maxsize=8)
+def _bit_weights(device):
+    """Bit j's int32 value, 2**j (bit 31 the sign, -2**31), on `device`,
+    made once for each device."""
+    return torch.tensor([1 << j for j in range(31)] + [-(1 << 31)],
+                        dtype=torch.int32, device=device)
+
+
 def pack_words(bits):
     """(..., 32) {0,1} tensor -> (...) int32 words, bit j of the word =
-    bits[..., j] (the uint32 pattern, stored as int32)."""
-    acc = torch.zeros(bits.shape[:-1], dtype=torch.int64, device=bits.device)
-    for j in range(32):
-        acc |= bits[..., j].to(torch.int64) << j
-    return torch.where(acc >= 2**31, acc - 2**32, acc).to(torch.int32)
+    bits[..., j] (the uint32 pattern, stored as int32).  Two operations
+    whatever the size: distinct bits never carry, so the int32 sum of
+    their values is their or."""
+    return (bits * _bit_weights(bits.device)).sum(-1, dtype=torch.int32)
 
 
 def unpack_words(words):

@@ -17,6 +17,12 @@ tensors:
   * light defaults matching the app's startup values (lightPosition
     (10,55,8), intensity 1000, point light, hello_vulkan.h:84-91).
 
+`plan_scene` / `build_scene_planned` are the triangle scene of meshes whose
+topology stays fixed and whose vertices move every step (an animated,
+skinned or simulated mesh): what does not depend on the positions goes to
+the device once, and each step makes the corners, the flat normals,
+tri_lod and the triangle accel from the step's vertices on the device.
+
 Mesh materials are converted sRGB -> linear on load (pow 2.2,
 hello_vulkan.cpp:204-208); the voxel default material is uploaded raw.
 Every array is built with the JAX package's numpy expressions, so the
@@ -24,7 +30,6 @@ tensors are bit-equal to its Scene's.
 """
 from __future__ import annotations
 
-import logging
 from dataclasses import dataclass
 from typing import Any
 
@@ -35,11 +40,12 @@ from ..io.objload import Material
 from ..io.textures import build_mip_chain, load_texture
 from ..ops.aabbs import extract_aabbs
 from ..ops.traverse_fast import build_accel
-from ..ops.tri_accel import build_tri_accel
+from ..ops.tri_accel import build_tri_accel_planned, plan_tri_accel
 from ..utils import trace
 from ..utils.device import resolve_device
 
-__all__ = ["Scene", "Light", "build_scene"]
+__all__ = ["Scene", "Light", "build_scene", "ScenePlan", "plan_scene",
+           "build_scene_planned"]
 
 
 @dataclass(frozen=True)
@@ -209,23 +215,27 @@ def _tri_lod(streams, tex_meta, n_layers):
                     0.0).astype(np.float32)
 
 
+def _tri_res(n_tri):
+    """The tri grid's cells on its longest axis: scaled with the triangle
+    count (~4 tris per nonempty cell on surface meshes), 16 to 256."""
+    return int(np.clip(round(float(n_tri) ** (1 / 2.2)), 16, 256))
+
+
+def _wants_accel(n_tri, tri_accel):
+    return bool(n_tri) and (tri_accel is True
+                            or (tri_accel == "auto" and n_tri >= 256))
+
+
 def _build_tri_accel(v0, v1, v2, device):
-    """The triangle BLAS with build_scene's sizing and overflow rule."""
-    # resolution scales with triangle count (~4 tris per nonempty cell
-    # on surface meshes), 16 to 256 cells on the longest axis
-    res = int(np.clip(round(float(len(v0)) ** (1 / 2.2)), 16, 256))
-    ta = build_tri_accel(v0, v1, v2, res=res, device=device)
-    if ta.overflow_cells:
-        # a truncated row would skip triangles: retry with the true
-        # widest cell, else fall back to the exact brute trace
-        ta = build_tri_accel(v0, v1, v2, res=res, max_l_width=4096,
-                             device=device)
-        if ta.overflow_cells:
-            logging.getLogger(__name__).warning(
-                "tri accel: %d cells overflow even at l_width 4096; using "
-                "exact brute triangle traversal", ta.overflow_cells)
-            return None
-    return ta
+    """The triangle BLAS of three (F, 3) corner streams: the planned build
+    over the triangles' own box (rows never cut; None, the brute trace,
+    where a cell outgrows the widest row)."""
+    corners = np.stack([v0, v1, v2], axis=1).reshape(-1, 3)
+    plan = plan_tri_accel(np.arange(len(corners)).reshape(-1, 3),
+                          len(corners), bb_min=corners.min(axis=0),
+                          bb_max=corners.max(axis=0), res=_tri_res(len(v0)),
+                          device=device)
+    return build_tri_accel_planned(plan, corners)
 
 
 @trace.spanned("build_scene")
@@ -277,8 +287,7 @@ def build_scene(models=None, grid=None, aabbs=None,
 
     n_tri = len(streams["tri_v0"])
     ta = None
-    if n_tri and (tri_accel is True
-                  or (tri_accel == "auto" and n_tri >= 256)):
+    if _wants_accel(n_tri, tri_accel):
         ta = _build_tri_accel(streams["tri_v0"], streams["tri_v1"],
                               streams["tri_v2"], dev)
 
@@ -295,3 +304,146 @@ def build_scene(models=None, grid=None, aabbs=None,
         accel=accel, octree=octree, tri_accel=ta,
         grid_dims=tuple(int(x) for x in g_dims),
         grid_voxel_size=float(g_vs))
+
+
+def _face_terms(v0, v1, v2):
+    """(flat face normals (F, 3), world areas (F,)) of the corners, float32
+    tensors, in the numpy expressions of the loader's flat normals
+    (io/objload.py: cross, norm, guarded divide) and of _tri_lod; the
+    norm's square root is taken in float64, which rounds to the IEEE
+    float32 root on every device."""
+    e1, e2 = v1 - v0, v2 - v0
+    n = torch.stack([e1[:, 1] * e2[:, 2] - e1[:, 2] * e2[:, 1],
+                     e1[:, 2] * e2[:, 0] - e1[:, 0] * e2[:, 2],
+                     e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]], dim=1)
+    sq = n[:, 0] * n[:, 0] + n[:, 1] * n[:, 1] + n[:, 2] * n[:, 2]
+    norm = torch.sqrt(sq.double()).float()[:, None]
+    flat = torch.where(norm > 0, n / torch.clamp(norm, min=1e-30), n)
+    return flat, 0.5 * norm[:, 0]
+
+
+class ScenePlan:
+    """The triangle scene of `models` whose topology stays fixed, set up
+    once for a scene a step (build_scene_planned).
+
+    A step's vertices are the models' vertices concatenated in order, (V,
+    3) world-space positions; each model's indices pick its corners from
+    its own rows.  Set up once, on `device` (default: the CUDA card): the
+    faces over those V rows, the UVs, material and texture ids, the
+    materials, textures and mip atlas (build_scene's), the voxel side
+    empty, and the triangle accel's plan (build_scene's "auto" tri_accel
+    rule and its res) over bb_min..bb_max, the caller's promise of a box
+    that holds every step's vertices (default: the models' own bounding
+    box); tri_lod too where no triangle is textured.  The models'
+    positions and normals are read only for that default box.
+    """
+
+    def __init__(self, models, *, bb_min=None, bb_max=None,
+                 voxel_material: Material | None = None, device=None):
+        dev = self.device = resolve_device(device)
+        streams, materials, textures = _triangle_streams(
+            models, [None] * len(models))
+        tex_stack, tex_meta, n_layers = _texture_atlas(textures)
+        faces, base = [], 0
+        for model in models:
+            faces.append(np.asarray(model.indices, np.int64).reshape(-1, 3)
+                         + base)
+            base += len(model.vertices)
+        faces = (np.concatenate(faces) if faces
+                 else np.zeros((0, 3), np.int64))
+        self.n_vertices, self.n_triangles = base, len(faces)
+
+        def as_t(x):
+            return torch.as_tensor(np.ascontiguousarray(x), device=dev)
+
+        self.faces = as_t(faces)
+        self.corners = self.faces.reshape(-1)
+        self.pad = torch.zeros((1, 9), device=dev)
+        occ = torch.zeros((0, 0, 0), dtype=torch.uint8, device=dev)
+        g_org = np.zeros(3, np.float32)
+        aabbs = extract_aabbs({"occ": occ, "dims": (0, 0, 0),
+                               "origin": g_org, "voxel_size": 1.0})
+        self.fixed = dict(
+            **{k: as_t(streams[k]) for k in ("tri_uv0", "tri_uv1",
+                                             "tri_uv2", "tri_mat",
+                                             "tri_tex")},
+            materials=as_t(materials), textures=as_t(tex_stack),
+            tex_meta=as_t(tex_meta),
+            voxel_aabbs=torch.as_tensor(aabbs).to(
+                device=dev, dtype=torch.float32).reshape(-1, 6),
+            voxel_material=as_t((voxel_material or Material()).as_row()),
+            occ_flat=occ.reshape(-1), grid_origin=as_t(g_org), accel=None,
+            octree=None, grid_dims=(0, 0, 0), grid_voxel_size=1.0)
+        # tri_lod: fixed where nothing is textured, else its position-free
+        # factor, uv area x texels (float64, as _tri_lod)
+        tri_tex = streams["tri_tex"]
+        self.tri_lod = self.lod_factor = None
+        if (tri_tex >= 0).any():
+            uv_e1 = streams["tri_uv1"] - streams["tri_uv0"]
+            uv_e2 = streams["tri_uv2"] - streams["tri_uv0"]
+            uv_area = 0.5 * np.abs(uv_e1[:, 0] * uv_e2[:, 1]
+                                   - uv_e1[:, 1] * uv_e2[:, 0])
+            layer = np.clip(tri_tex, 0, n_layers - 1)
+            texels = (tex_meta[layer, 0, 2].astype(np.float64)
+                      * tex_meta[layer, 0, 3])
+            self.lod_factor = as_t(uv_area * texels)
+            self.textured = as_t(tri_tex >= 0)
+        else:
+            self.tri_lod = as_t(_tri_lod(streams, tex_meta, n_layers))
+        self.tri = None
+        if _wants_accel(self.n_triangles, "auto"):
+            if bb_min is None or bb_max is None:
+                corners = np.concatenate([streams["tri_v0"],
+                                          streams["tri_v1"],
+                                          streams["tri_v2"]])
+                bb_min, bb_max = corners.min(axis=0), corners.max(axis=0)
+            self.tri = plan_tri_accel(faces, self.n_vertices, bb_min=bb_min,
+                                      bb_max=bb_max,
+                                      res=_tri_res(self.n_triangles),
+                                      device=dev)
+
+
+def plan_scene(models, **kw) -> ScenePlan:
+    return ScenePlan(models, **kw)
+
+
+@trace.spanned("build_scene_planned")
+def build_scene_planned(plan: ScenePlan, vertices, normals=None) -> Scene:
+    """The plan's scene over one step's vertices, (V, 3) float32 (numpy is
+    copied to the plan's device first).
+
+    normals: (V, 3) vertex normals, each corner taking its vertex's; by
+    default each triangle's flat face normal, as the loader gives a mesh
+    without normals.  The corners, the normals, tri_lod and the triangle
+    accel (build_tri_accel_planned: None, the brute trace, where a cell
+    outgrows the widest row) are made on the device; on CPU tensors the
+    Scene equals build_scene(models=...) of the same positions, array for
+    array and table for table.
+    """
+    dev = plan.device
+    v = torch.as_tensor(vertices, dtype=torch.float32,
+                        device=dev).reshape(-1, 3)
+    if v.shape[0] != plan.n_vertices:
+        raise ValueError(f"{v.shape[0]} vertices; the plan has "
+                         f"{plan.n_vertices}")
+    tri9 = torch.cat([v[plan.corners].reshape(-1, 9), plan.pad])
+    tri = tri9[:-1].reshape(-1, 3, 3)
+    v0, v1, v2 = (tri[:, k].contiguous() for k in range(3))
+    flat, area = _face_terms(v0, v1, v2)
+    if normals is None:
+        n0 = n1 = n2 = flat
+    else:
+        nrm = torch.as_tensor(normals, dtype=torch.float32,
+                              device=dev).reshape(-1, 3)
+        n0, n1, n2 = (nrm[plan.faces[:, k]] for k in range(3))
+    tri_lod = plan.tri_lod
+    if tri_lod is None:
+        dens = plan.lod_factor / torch.clamp(area, min=1e-20).double()
+        tri_lod = torch.where(
+            plan.textured, 0.5 * torch.log2(torch.clamp(dens, min=1e-20)),
+            0.0).float()
+    ta = None
+    if plan.tri is not None:
+        ta = build_tri_accel_planned(plan.tri, v, tri9=tri9)
+    return Scene(tri_v0=v0, tri_v1=v1, tri_v2=v2, tri_n0=n0, tri_n1=n1,
+                 tri_n2=n2, tri_lod=tri_lod, tri_accel=ta, **plan.fixed)

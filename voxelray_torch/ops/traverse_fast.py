@@ -32,6 +32,7 @@ its brick walk, and no ray is dropped.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any
 
@@ -112,21 +113,33 @@ def _l2(bocc):
     return _bitmask_rows(socc.reshape(-1))
 
 
+@functools.lru_cache(maxsize=16)
+def _origin_on(key, device):
+    """The origin `key` (three floats) as a float32 (3,) tensor on `device`,
+    made once for each origin and device: a host-to-device copy syncs, and
+    a changing scene keeps its grid's origin from step to step.  Shared,
+    read-only, by the accels built over that origin."""
+    return torch.tensor(key, dtype=torch.float32, device=device)
+
+
 @trace.spanned("build_accel")
-def build_accel(occ, origin, voxel_size) -> BrickAccel:
-    """occ (Z, Y, X) uint8 tensor -> BrickAccel on occ's device."""
+def build_accel(occ, origin, voxel_size, *, fine_sb=True) -> BrickAccel:
+    """occ (Z, Y, X) uint8 tensor -> BrickAccel on occ's device.
+
+    fine_sb=False leaves out K2's superbrick tiles (an accel only the
+    staged walk or tri_march reads)."""
     nz, ny, nx = occ.shape
     bdims = (-(-nx // BRICK), -(-ny // BRICK), -(-nz // BRICK))
     blocks = _bricks(occ, bdims)
     bocc = (blocks != 0).any(dim=-1)                    # (bz, by, bx)
     fine = _fine_words(blocks)
     org = np.asarray(origin, np.float32)
+    key = (float(org[0]), float(org[1]), float(org[2]))
     return BrickAccel(
         coarse=_bitmask_rows(bocc.reshape(-1)), fine=fine, l2=_l2(bocc),
-        origin=torch.as_tensor(org.copy(), device=occ.device),
-        dims=(nx, ny, nz), bdims=bdims, voxel_size=float(voxel_size),
-        origin_key=(float(org[0]), float(org[1]), float(org[2])),
-        fine_sb=build_fine_sb(fine, bdims))
+        origin=_origin_on(key, occ.device), dims=(nx, ny, nz), bdims=bdims,
+        voxel_size=float(voxel_size), origin_key=key,
+        fine_sb=build_fine_sb(fine, bdims) if fine_sb else None)
 
 
 def build_accel_slab(occ_slab, z0, full_nz, origin, voxel_size, *,

@@ -31,12 +31,19 @@ ray to a nonempty cell strictly farther along it, so the laps are bounded
 by the grid's step bound; `unresolved` counts rays left at that bound
 and is 0 by construction.
 
-Cells with more triangles than the row width are truncated and counted
-in `overflow_cells` (build_scene retries wider, then falls back to the
-brute trace).
+`plan_tri_accel` / `build_tri_accel_planned` build the accel from a
+vertex array: the faces and the grid are set once, and each build bins
+through the tri_bin kernels (ops/kernels/tri_bin.py) on the card with one
+host sync.  Rows are never cut there: a cell wider than the widest row
+(L_WIDTHS) gives no accel, and the scene takes the brute trace.  Both
+triangle scenes build this way: build_scene once over its triangles' own
+box, build_scene_planned each step of a deforming mesh.
+`build_tri_accel`, the JAX package's build (its rows cut at l_width, the
+cut cells counted in `overflow_cells`), bins the same way.
 """
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from typing import Any
 
@@ -47,13 +54,19 @@ from ..utils import trace
 from ..utils.device import resolve_device
 from .geometry import grid_dims
 from .intersect import TMAX, TMIN
+from .kernels import tri_bin
 from .kernels.tri_march import tri_march_cuda, tri_march_plain
 from .traverse import _per_ray
 from .traverse_fast import BrickAccel, build_accel
 from .voxelize import tri_cell_pairs
 
-__all__ = ["TriAccel", "build_tri_accel", "trace_triangles_grid",
-           "any_hit_triangles_grid"]
+__all__ = ["TriAccel", "build_tri_accel", "TriAccelPlan", "plan_tri_accel",
+           "build_tri_accel_planned", "trace_triangles_grid",
+           "any_hit_triangles_grid", "L_WIDTHS"]
+
+# the row width's caps: the widest cell up to the first, else (a retry) up
+# to the second; a cell wider still takes the brute trace
+L_WIDTHS = (512, 4096)
 
 
 @dataclass(frozen=True)
@@ -69,65 +82,228 @@ class TriAccel:
     overflow_cells: int
 
 
+def _tri_grid(bb_min, bb_max, res):
+    """The tri grid over a box: ~`res` cells on its longest axis and the
+    box padded half a cell on every side, so that max-boundary triangles
+    stay inside windows.  Returns (origin float32 (3,), cell size, dims)."""
+    bb_min = np.asarray(bb_min, np.float32)
+    bb_max = np.asarray(bb_max, np.float32)
+    extent = float(max(bb_max - bb_min))
+    vs = max(extent, 1e-6) / float(res)
+    lo = bb_min - 0.5 * vs
+    return lo, vs, grid_dims(lo, bb_max + 0.5 * vs, vs)
+
+
+def _use_kernel(device):
+    """Whether the pairs come from the tri_bin kernels (CUDA tensors) or
+    from the plain hit stream, ops/voxelize.tri_cell_pairs (any other
+    device, and the kernels' reference on the card)."""
+    return device.type == "cuda"
+
+
+def _bin(tri9, n_tri, origin, vs, dims, box):
+    """Bin the triangles (the first n_tri rows of tri9) into the grid:
+    (cell_count (X*Y*Z,) int32, outside (1,) int64, and a function
+    returning the pairs, (tri_id, lin) int32 sorted by (lin, tri_id)),
+    with no host sync on the card."""
+    if _use_kernel(tri9.device):
+        with trace.span("tri_bin"):
+            tri_count, cell_count, outside = tri_bin.count(
+                tri9, n_tri, origin, vs, dims, *box)
+        cum = torch.cumsum(tri_count, 0)
+
+        def pairs(n_pairs):
+            with trace.span("tri_bin"):
+                p_tri, p_lin = tri_bin.emit(tri9, n_tri, origin, vs, dims,
+                                            cum, n_pairs)
+            # the stream is in triangle order, so a stable sort by cell
+            # leaves each cell's triangles ascending
+            p_lin, order = torch.sort(p_lin, stable=True)
+            return p_tri[order], p_lin
+        return cell_count, outside, pairs
+    p_tri, p_lin = tri_cell_pairs(tri9[:n_tri].reshape(n_tri, 3, 3), origin,
+                                  vs, dims)
+    n_cells = dims[0] * dims[1] * dims[2]
+    cell_count = torch.bincount(p_lin, minlength=n_cells).to(torch.int32)
+    outside = tri_bin.outside_plain(tri9, n_tri, *box)
+    return cell_count, outside, lambda n_pairs: (p_tri.to(torch.int32),
+                                                 p_lin.to(torch.int32))
+
+
+def _sizes(cell_count, outside, widths=()):
+    """The one device-to-host copy that sizes the rows: [pairs, nonempty
+    cells, widest cell, the cells wider than each of `widths`, the
+    triangles outside the box]."""
+    c = cell_count.long()
+    return torch.stack([c.sum(), (c > 0).sum(), c.max()]
+                       + [(c > w).sum() for w in widths]
+                       + [outside[0]]).tolist()
+
+
+def _assemble(tri9, origin, vs, dims, cell_count, pair_tri, pair_lin, n_ne,
+              l_width, overflow, truncate):
+    """The TriAccel from the pairs sorted by (lin, tri_id): rows in
+    ascending cell order, each cell's triangles ascending, cut at l_width
+    where `truncate` (otherwise l_width holds every row); the brick accel
+    of the nonempty cells (no fine_sb: tri_march walks the staged
+    walk's tables)."""
+    dev = cell_count.device
+    nx, ny, nz = dims
+    nonempty = cell_count > 0
+    cell_slot = torch.full((nx * ny * nz + 1,), -1, dtype=torch.int32,
+                           device=dev)
+    cell_slot[:-1] = torch.where(
+        nonempty, torch.cumsum(nonempty, 0, dtype=torch.int32) - 1, -1)
+    off = torch.cumsum(cell_count, 0) - cell_count          # int64
+    lin = pair_lin.long()
+    within = torch.arange(lin.numel(), device=dev) - off[lin]
+    rows = cell_slot[lin].long()
+    cell_tris = torch.full((max(1, n_ne), l_width), -1, dtype=torch.int32,
+                           device=dev)
+    if truncate:
+        keep = within < l_width
+        cell_tris[rows[keep], within[keep]] = pair_tri[keep]
+    else:
+        cell_tris[rows, within] = pair_tri
+    brick = build_accel(nonempty.to(torch.uint8).reshape(nz, ny, nx),
+                        origin, vs, fine_sb=False)
+    return TriAccel(brick=brick, cell_slot=cell_slot, cell_tris=cell_tris,
+                    tri9=tri9, origin=brick.origin, dims=dims,
+                    voxel_size=float(vs), l_width=l_width,
+                    overflow_cells=overflow)
+
+
+def _record(pairs, n_ne, l_width, overflow, outside):
+    trace.count("tri_accel.pairs", pairs)
+    trace.count("tri_accel.row_slots", max(1, n_ne) * l_width)
+    trace.count("tri_accel.nonempty_cells", n_ne)
+    trace.count("tri_accel.overflow_cells", overflow)
+    trace.count("tri_accel.outside", outside)
+
+
 @trace.spanned("build_tri_accel")
 def build_tri_accel(v0, v1, v2, *, res=64, l_width=None, max_l_width=512,
                     device=None) -> TriAccel:
-    """Bin triangles (three (F, 3) corner arrays) into a uniform grid whose
-    longest axis has ~`res` cells, on `device` (default: the CUDA card).
+    """Bin triangles (three (F, 3) corner arrays) into a uniform grid over
+    their bounding box whose longest axis has ~`res` cells, on `device`
+    (default: the CUDA card).
 
-    The grid, the padding and the row layout are the JAX package's:
-    rows list a cell's triangles in ascending id (the brute trace's
-    lowest-index tie rule), l_width defaults to the widest cell capped
-    at max_l_width.
+    The JAX package's build: its grid, padding and row layout, rows
+    listing a cell's triangles in ascending id (the brute trace's
+    lowest-index tie rule), l_width defaulting to the widest cell capped
+    at max_l_width; cells wider than l_width are cut and counted in
+    `overflow_cells`.  The scenes build through build_tri_accel_planned,
+    which never cuts a row.
     """
     dev = resolve_device(device)
-    v0 = np.asarray(v0, np.float32)
-    v1 = np.asarray(v1, np.float32)
-    v2 = np.asarray(v2, np.float32)
-    f_total = len(v0)
-    tri_all = np.stack([v0, v1, v2], axis=1)          # (F, 3, 3)
-    bb_min = tri_all.reshape(-1, 3).min(axis=0)
-    bb_max = tri_all.reshape(-1, 3).max(axis=0)
-    extent = float(max(bb_max - bb_min))
-    vs = max(extent, 1e-6) / float(res)
-    # pad the box a hair so max-boundary triangles stay inside windows
-    bb_min = bb_min - 0.5 * vs
-    bb_max = bb_max + 0.5 * vs
-    dims = grid_dims(bb_min, bb_max, vs)
-    nx, ny, nz = dims
-    n_cells = nx * ny * nz
-
-    tri_t = torch.as_tensor(tri_all, device=dev)
-    pair_tri, pair_lin = tri_cell_pairs(tri_t, bb_min, vs, dims)
-    counts = torch.bincount(pair_lin, minlength=n_cells)
-    nonempty = torch.nonzero(counts).squeeze(1)
-    n_ne = int(nonempty.numel())
-    true_max = int(counts.max()) if n_ne else 1
+    tri_all = np.stack([np.asarray(v0, np.float32),
+                        np.asarray(v1, np.float32),
+                        np.asarray(v2, np.float32)], axis=1)   # (F, 3, 3)
+    f_total = len(tri_all)
+    box = (tri_all.reshape(-1, 3).min(axis=0),
+           tri_all.reshape(-1, 3).max(axis=0))
+    origin, vs, dims = _tri_grid(*box, res)
+    tri9 = torch.cat([torch.as_tensor(tri_all.reshape(f_total, 9),
+                                      device=dev),
+                      torch.zeros((1, 9), device=dev)])    # degenerate pad
+    cell_count, outside, pairs = _bin(tri9, f_total, origin, vs, dims, box)
+    n_pairs, n_ne, widest, n_out = _sizes(cell_count, outside)
     if l_width is None:
-        l_width = min(true_max, max_l_width)
+        l_width = min(widest if n_ne else 1, max_l_width)
     l_width = max(1, int(l_width))
-    overflow = int((counts > l_width).sum())
+    overflow = int((cell_count > l_width).sum())
+    pair_tri, pair_lin = pairs(n_pairs)
+    _record(n_pairs, n_ne, l_width, overflow, n_out)
+    return _assemble(tri9, origin, vs, dims, cell_count, pair_tri, pair_lin,
+                     n_ne, l_width, overflow, truncate=True)
 
-    cell_slot = torch.full((n_cells + 1,), -1, dtype=torch.int32, device=dev)
-    cell_slot[nonempty] = torch.arange(n_ne, dtype=torch.int32, device=dev)
-    cell_tris = torch.full((max(1, n_ne), l_width), -1, dtype=torch.int32,
-                           device=dev)
-    off = torch.zeros((n_cells + 1,), dtype=torch.int64, device=dev)
-    off[1:] = torch.cumsum(counts, 0)
-    within = torch.arange(pair_lin.numel(), device=dev) - off[pair_lin]
-    keep = within < l_width
-    cell_tris[cell_slot[pair_lin[keep]].long(), within[keep]] = \
-        pair_tri[keep].to(torch.int32)
 
-    occ = (counts > 0).to(torch.uint8).reshape(nz, ny, nx)
-    brick = build_accel(occ, bb_min, vs)
-    tri9 = torch.cat([tri_t.reshape(f_total, 9),
-                      torch.zeros((1, 9), device=dev)])   # degenerate pad
-    return TriAccel(
-        brick=brick, cell_slot=cell_slot, cell_tris=cell_tris, tri9=tri9,
-        origin=torch.as_tensor(bb_min.astype(np.float32), device=dev),
-        dims=dims, voxel_size=float(vs), l_width=l_width,
-        overflow_cells=overflow)
+class TriAccelPlan:
+    """The triangle accel of a mesh whose topology stays fixed, set up once
+    for a build a step (the pattern of ops/voxelize.VoxelizePlan): a
+    deforming mesh, or a static one built once over its own box.
+
+    faces: (F, 3) indices into a vertex array of n_vertices rows, checked
+    once on the host and kept on `device` (default: the CUDA card).  The
+    tri grid is build_tri_accel's rule over the box bb_min..bb_max with
+    `res` cells on its longest axis, fixed for every step: the box is the
+    caller's promise that every step's vertices lie in it (the union box
+    of an animation).  A triangle that leaves it is binned into the
+    cells of its window clamped to the grid, so the accel may miss its
+    hits; each step counts such triangles (`tri_accel.outside`).  Rows
+    are never cut: l_width is the widest cell up to L_WIDTHS[0], else up
+    to L_WIDTHS[1], and where a cell is wider still the step returns None
+    (the brute trace), its overflow counted.
+    """
+
+    def __init__(self, faces, n_vertices, *, bb_min, bb_max, res,
+                 device=None):
+        f = np.asarray(faces).reshape(-1, 3)
+        if len(f) and (f.min() < 0 or f.max() >= n_vertices):
+            raise ValueError("faces index a vertex out of range")
+        self.device = resolve_device(device)
+        self.box = (np.asarray(bb_min, np.float32),
+                    np.asarray(bb_max, np.float32))
+        self.res = int(res)
+        self.origin, self.voxel_size, self.dims = _tri_grid(*self.box,
+                                                            self.res)
+        self.n_triangles, self.n_vertices = len(f), int(n_vertices)
+        if self.device.type == "cuda":
+            tri_bin.check_sizes(self.dims, self.n_triangles)
+        self.corners = torch.as_tensor(f.reshape(-1).astype(np.int64),
+                                       device=self.device)
+        self.pad = torch.zeros((1, 9), device=self.device)
+
+    def tri9(self, vertices):
+        """The (F + 1, 9) triangle table of (V, 3) float32 vertices on the
+        plan's device: each face's corners, then the zero pad row."""
+        return torch.cat([vertices[self.corners].reshape(-1, 9), self.pad])
+
+
+def plan_tri_accel(faces, n_vertices, **kw) -> TriAccelPlan:
+    return TriAccelPlan(faces, n_vertices, **kw)
+
+
+@trace.spanned("build_tri_accel_planned")
+def build_tri_accel_planned(plan: TriAccelPlan, vertices, tri9=None):
+    """The plan's accel over (possibly deformed) vertices, or None (with a
+    warning) where a cell is wider than L_WIDTHS[1].  Over the vertices'
+    own box it equals build_tri_accel at the same res, table for table
+    (at max_l_width L_WIDTHS[1] where a cell is wider than L_WIDTHS[0]).
+
+    vertices: (V, 3) float32, numpy or a tensor (numpy is copied to the
+    device first); tri9: the plan's triangle table of these vertices
+    (TriAccelPlan.tri9) where the caller has it.  On the card the pairs
+    come from the tri_bin kernels, and the step syncs once: one copy of
+    the sizes (pairs, nonempty cells, widest cell, overflows, triangles
+    outside the box), which also feed the counters tri_accel.pairs,
+    row_slots (rows x l_width), nonempty_cells, overflow_cells and
+    outside.
+    """
+    if tri9 is None:
+        v = torch.as_tensor(vertices, dtype=torch.float32,
+                            device=plan.device).reshape(-1, 3)
+        if v.shape[0] != plan.n_vertices:
+            raise ValueError(f"{v.shape[0]} vertices; the plan has "
+                             f"{plan.n_vertices}")
+        tri9 = plan.tri9(v)
+    n_tri = plan.n_triangles
+    cell_count, outside, pairs = _bin(tri9, n_tri, plan.origin,
+                                      plan.voxel_size, plan.dims, plan.box)
+    n_pairs, n_ne, widest, over, over_retry, n_out = _sizes(
+        cell_count, outside, L_WIDTHS)
+    l_width = max(1, min(widest, L_WIDTHS[1] if over else L_WIDTHS[0]))
+    overflow = over_retry if over else 0
+    _record(n_pairs, n_ne, l_width, overflow, n_out)
+    if overflow:
+        logging.getLogger(__name__).warning(
+            "tri accel: %d cells outgrow l_width %d; using exact brute "
+            "triangle traversal", overflow, L_WIDTHS[1])
+        return None
+    pair_tri, pair_lin = pairs(n_pairs)
+    return _assemble(tri9, plan.origin, plan.voxel_size, plan.dims,
+                     cell_count, pair_tri, pair_lin, n_ne, l_width, 0,
+                     truncate=False)
 
 
 def trace_triangles_grid(origins, dirs, ta: TriAccel, t_min=TMIN,
