@@ -59,6 +59,12 @@ Drives the port's paths the way a user calls them, at the bench's size:
     table for table, bit for bit; the two passes against their plain
     versions (the counts, the serial pair stream); the rebuild's host
     syncs; kernel ms (CUDA events) beside the bound.
+  * the voxel scene's rebuild (phase 14): the deforming cell's grid
+    (491x245x512 over the union box of its 32 vertex sets, set 1
+    voxelized by K1) and phase 13's tri grid: accel_build's tables (with
+    and without the superbrick tiles) and aabb_boxes' boxes against their
+    plain versions on the card, bit for bit; a step's build_scene, its
+    launches, its one host sync, its time; kernel ms beside the bound.
 
 Each path runs once with the kernels' launch counters set to 0 just
 before it and read just after (staged_march's row counts the staged
@@ -130,6 +136,9 @@ OPS_LAP, OPS_TRI = 48, 61
 # on the longest axis
 TRI_SETS, TRI_AMPLITUDE, TRI_RES = 4, 0.15, 256
 TRI_BIN = ("tri_bin_count", "tri_bin_emit")
+# phase 14: the voxel scene's rebuild over the deforming cell's grid, GRID_RES
+# cells on the longest axis of the union box of its DEFORM_SETS vertex sets
+DEFORM_SETS = 32
 # phase 12: the frame glue's kernels (csrc/frame_shade.cu); their calls
 # timed queued behind a ~10 ms sleep, longer than the host takes to queue
 # them
@@ -1796,6 +1805,142 @@ def run_tri_deform(device):
     return row
 
 
+def run_scene_build(device):
+    """Phase 14 (module docstring): returns the kernel rows of accel_build
+    and aabb_boxes."""
+    import numpy as np
+    import torch
+
+    from voxelray_torch.io import meshes
+    from voxelray_torch.models.scene import build_scene
+    from voxelray_torch.ops import aabbs, traverse_fast
+    from voxelray_torch.ops.kernels import _build, accel_build, tri_bin
+    from voxelray_torch.ops.tri_accel import plan_tri_accel
+    from voxelray_torch.ops.voxelize import plan_voxelize, voxelize_planned
+
+    t0 = time.time()
+    smi = smi_line()
+    v, f = meshes.torus_knot(**MESH)
+    sets = [meshes.deformed(v, 2.0 * np.pi * k / DEFORM_SETS,
+                            TRI_AMPLITUDE) for k in range(DEFORM_SETS)]
+    lo = np.min([x.min(axis=0) for x in sets], axis=0)
+    hi = np.max([x.max(axis=0) for x in sets], axis=0)
+    vs = float(max(hi - lo)) / GRID_RES
+    plan = plan_voxelize(sets[0], f, vs, bb_min=lo, bb_max=hi,
+                         deform_safe=True, device=device)
+    occ, _ = voxelize_planned(plan, torch.as_tensor(sets[1], device=device))
+    tplan = plan_tri_accel(f, len(v), bb_min=lo, bb_max=hi, res=TRI_RES,
+                           device=device)
+    tri9 = tplan.tri9(torch.as_tensor(sets[1], device=device))
+    nx, ny, nz = tplan.dims
+    cells = tri_bin.count(tri9, tplan.n_triangles, tplan.origin,
+                          tplan.voxel_size, tplan.dims, *tplan.box)[1]
+    tocc = (cells > 0).view(torch.uint8).reshape(nz, ny, nx)
+    torch.cuda.synchronize()
+
+    def tables(what, grid, fine_sb):
+        """The tables of both paths on the card, bit-equal; (kernel ms,
+        plain ms, bytes)."""
+        gz, gy, gx = grid.shape
+        bdims = (-(-gx // 8), -(-gy // 8), -(-gz // 8))
+        reset(accel_build)
+        got = accel_build.accel_tables(grid, bdims, fine_sb)
+        torch.cuda.synchronize()
+        require(launched(accel_build) == 1, f"{what}: accel_build calls "
+                f"{launched(accel_build)}")
+        want = traverse_fast.accel_tables_plain(grid, bdims, fine_sb)
+        for name, a, b in zip(("fine", "coarse", "l2", "fine_sb"), got,
+                              want):
+            require((a is None) == (b is None)
+                    and (a is None or torch.equal(a, b)),
+                    f"{what}: {name} differs from the plain build's")
+        ms = queued_ms(lambda: accel_build.accel_tables(grid, bdims,
+                                                        fine_sb), 20)
+        plain_ms = wall_mean_ms(lambda: traverse_fast.accel_tables_plain(
+            grid, bdims, fine_sb), 5)
+        nbytes = grid.numel() + 4 * sum(x.numel() for x in got
+                                        if x is not None)
+        log(f"accel_build, {what} {tuple(grid.shape[::-1])} (fine_sb "
+            f"{fine_sb}, {int((got[0] != 0).sum())} nonzero words): "
+            f"tables bit-equal to the plain build's; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound "
+            f"{bound(nbytes, 0)[0]:.5f} ms ({nbytes / 1e6:.1f} MB) [{smi}]")
+        return ms, plain_ms, nbytes
+
+    acc_ms, acc_plain, acc_bytes = tables("the deforming grid", occ, True)
+    tri_ms, tri_plain, tri_bytes = tables("the tri grid", tocc, False)
+
+    # the boxes of the deforming grid's cells, against the plain version
+    lin = torch.nonzero(occ.reshape(-1)).reshape(-1)
+    n = lin.numel()
+    reset("aabb_boxes")
+    box = accel_build.aabb_boxes(lin, plan.dims, plan.origin, vs)
+    torch.cuda.synchronize()
+    require(launched("aabb_boxes") == 1, "aabb_boxes: "
+            f"{launched('aabb_boxes')} launches")
+    require(torch.equal(box, aabbs.aabbs_from_linear_plain(
+        lin, plan.dims, plan.origin, vs)), "aabb_boxes differs from the "
+        "plain boxes")
+    box_ms = queued_ms(lambda: accel_build.aabb_boxes(
+        lin, plan.dims, plan.origin, vs), 20)
+    box_plain = wall_mean_ms(lambda: aabbs.aabbs_from_linear_plain(
+        lin, plan.dims, plan.origin, vs), 5)
+    nonzero_ms = wall_mean_ms(lambda: torch.nonzero(occ.reshape(-1)), 10)
+    box_bytes = 32 * n
+    log(f"aabb_boxes, {n} cells: bit-equal to the plain boxes; kernel "
+        f"{box_ms:.4f} ms, plain {box_plain:.4f} ms, bound "
+        f"{bound(box_bytes, 0)[0]:.5f} ms; the nonzero that sizes them "
+        f"{nonzero_ms:.4f} ms (synced) [{smi}]")
+
+    # the step's build_scene: its launches, syncs and time
+    grid = {"occ": occ, "dims": plan.dims, "origin": plan.origin,
+            "voxel_size": vs}
+    build_scene(grid=grid, device=device)
+    reset(accel_build, "aabb_boxes")
+    scene = build_scene(grid=grid, device=device)
+    torch.cuda.synchronize()
+    launches = counts_of(accel_build, "aabb_boxes")
+    require(launches == {"accel_build": 1, "aabb_boxes": 1},
+            f"build_scene: launches {launches}")
+    require(scene.n_voxels == n and torch.equal(scene.voxel_aabbs, box),
+            "build_scene: the boxes differ from aabb_boxes'")
+    sites = host_syncs(lambda: build_scene(grid=grid, device=device),
+                       device)
+    log(f"build_scene of the deforming grid: {len(sites)} host sync(s) at "
+        f"{sites}")
+    require(len(sites) == 1, "the voxel scene's rebuild syncs more than "
+            "once")
+    step_ms = wall_mean_ms(lambda: build_scene(grid=grid, device=device),
+                           20)
+    step_us = host_us(lambda: build_scene(grid=grid, device=device), 20)
+    log(f"build_scene of the deforming grid: {step_ms:.4f} ms synced, "
+        f"{step_us:.1f} us of host time a call [{smi}]")
+
+    log_ = _build.build_log()
+    rows = [kernel_row(
+        "accel_build", "accel_build.cu", "none (the brick accel's tables: "
+        "voxelray_tpu/ops/traverse_fast.py:95 build_accel, "
+        "voxelray_tpu/ops/pallas/mega_trace.py:70 build_fine_sb, XLA ops)",
+        1, 0, acc_ms, acc_plain, acc_bytes, 0)]
+    rows[0].update(tri_grid={"ms": round(tri_ms, 4),
+                             "plain_ms": round(tri_plain, 4),
+                             "bound_ms": round(bound(tri_bytes, 0)[0], 5)},
+                   ptxas=(ptxas_of(log_, "accel_words_kernel")
+                          + ptxas_of(log_, "accel_tiles_kernel")))
+    rows.append(kernel_row(
+        "aabb_boxes", "accel_build.cu", "none (voxelray_tpu/ops/aabbs.py "
+        "aabbs_from_linear, XLA ops)", 1, 0.0, box_ms, box_plain, box_bytes,
+        0))
+    rows[1].update(nonzero_ms=round(nonzero_ms, 4),
+                   build_scene_ms=round(step_ms, 4),
+                   build_scene_host_us=round(step_us, 1),
+                   ptxas=ptxas_of(log_, "aabb_boxes_kernel"))
+    for row in rows:
+        log(f"{row['name']}: {row}")
+    log(f"phase 14 (the voxel scene's rebuild): {time.time() - t0:.1f} s")
+    return rows
+
+
 def frame_glue_rows(glue, vox_counts, tri_counts, build_log):
     """The kernel rows of the frame glue's kernels from phase 12's
     results: launches of the voxel frame, times on the voxel frame and,
@@ -2299,6 +2444,9 @@ def run(device):
 
     # ---- 13. the planned triangle build --------------------------------
     rows.append(run_tri_deform(device))
+
+    # ---- 14. the voxel scene's rebuild ---------------------------------
+    rows += run_scene_build(device)
     return rows, smi_line()
 
 

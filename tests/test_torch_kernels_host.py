@@ -2,9 +2,11 @@
 PyTorch versions.
 
 csrc/voxel_accum.cu, mega_trace.cu, grid_walk.cu, brick_fine.cu,
-staged_march.cu, tri_march.cu and frame_shade.cu (the frame glue: camera
+staged_march.cu, tri_march.cu, frame_shade.cu (the frame glue: camera
 rays, the closest-hit surface, shade + post; held to render/pipeline.py's
-PyTorch glue) are compiled with g++ (launch stubs cut
+PyTorch glue) and accel_build.cu (a voxel scene's brick accel tables and
+its boxes; held to build_accel's PyTorch build and aabbs_from_linear) are
+compiled with g++ (launch stubs cut
 off, SHIM below standing in for the CUDA runtime, csrc/ on the include
 path for the shared brick_walk.cuh) and each kernel runs thread by
 thread on the CPU.  Shared memory is one host array that the host program
@@ -41,8 +43,9 @@ from voxelray_torch.models.grids import GridBool
 from voxelray_torch.models.scene import Light, build_scene
 from voxelray_torch.ops import geometry
 from voxelray_torch.ops.intersect import TMAX, TMIN, make_camera_rays
-from voxelray_torch.ops.kernels import (brick_fine, frame_shade, mega_trace,
-                                        staged_march, tri_march)
+from voxelray_torch.ops.aabbs import aabbs_from_linear
+from voxelray_torch.ops.kernels import (accel_build, brick_fine, frame_shade,
+                                        mega_trace, staged_march, tri_march)
 from voxelray_torch.ops.kernels.brick_fine import fine_plain
 from voxelray_torch.ops.kernels.grid_walk import walk_plain
 from voxelray_torch.ops.kernels.mega_trace import trace_grid_mega_plain
@@ -229,6 +232,10 @@ inline T atomicSub(T* p, T v) {
 template <class T>
 inline T atomicAdd(T* p, T v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+template <class T>
+inline T atomicOr(T* p, T v) {
+  return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
 }
 template <class T>
 inline T __shfl_sync(unsigned, T v, int) { return v; }
@@ -1665,3 +1672,117 @@ def test_host_shade_post_matches_plain(frame_host, frame_scenes, ieee_sqrt,
     assert bool((img[..., 3] == 1.0).all())
     assert bool(((flags & 1) == 0).any())       # the frame has misses
     assert bool(((flags & 5) == 5)[occ].all())  # only admitted rays occlude
+
+
+# ---- a voxel scene's rebuild: csrc/accel_build.cu against the PyTorch build
+
+ACCEL_DRIVER = """
+extern "C" void host_sizes(int* out) {
+  out[0] = static_cast<int>(sizeof(AccelArgs));
+  out[1] = static_cast<int>(sizeof(BoxArgs));
+}
+// every block of a launch of `threads` threads, thread after thread
+template <class A, class K>
+static void host_threads(const A* a, long long threads, K kernel) {
+  blockDim.x = kThreads;
+  gridDim.x = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+  for (unsigned b = 0; b < gridDim.x; ++b)
+    for (unsigned t = 0; t < blockDim.x; ++t) {
+      blockIdx.x = b;
+      threadIdx.x = t;
+      kernel(*a);
+    }
+}
+// the two passes as accel_build_launch queues them
+extern "C" void host_accel_build(const AccelArgs* a) {
+  host_threads(a, static_cast<long long>(a->coarse_words) * kWarp,
+               accel_words_kernel);
+  const long long n_sb = static_cast<long long>(a->sbx) * a->sby * a->sbz;
+  host_threads(a, n_sb * (a->tiles ? kTileJobs : 16), accel_tiles_kernel);
+}
+extern "C" void host_aabb_boxes(const BoxArgs* a) {
+  host_threads(a, a->n, aabb_boxes_kernel);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def accel_host(tmp_path_factory):
+    """csrc/accel_build.cu built for the host: both passes of the accel
+    build and the boxes, their argument blocks the wrapper's ctypes
+    structures."""
+    lib = _host_build(tmp_path_factory.mktemp("accel_build"), "accel_build",
+                      (CSRC / "accel_build.cu").read_text(), ACCEL_DRIVER,
+                      CSRC)
+    structs = (accel_build.AccelArgs, accel_build.BoxArgs)
+    sizes = (ctypes.c_int * 2)()
+    lib.host_sizes(sizes)
+    assert list(sizes) == [ctypes.sizeof(s) for s in structs]
+    for name, struct in zip(("host_accel_build", "host_aabb_boxes"),
+                            structs):
+        getattr(lib, name).argtypes = [ctypes.POINTER(struct)]
+        getattr(lib, name).restype = None
+    return lib
+
+
+def _occupancy(kind):
+    """(Z, Y, X) uint8 grids: dims that are not multiples of 8 or 64 (one
+    a 491-cell x-row, as the deforming cell's), superbricks cut by the
+    grid's edge, more than 32 superbricks and more than one row of coarse
+    words, empty and full grids, one cell; cells hold 1, 2, 128 or 255."""
+    seed, dims, density = {"odd": (1, (13, 21, 37), 0.3),
+                           "rows491": (2, (9, 5, 491), 0.2),
+                           "edges": (3, (70, 9, 66), 0.05),
+                           "many": (4, (330, 70, 130), 0.002),
+                           "empty": (5, (17, 16, 24), 0.0),
+                           "full": (6, (24, 16, 65), 1.0),
+                           "one": (7, (1, 1, 1), 1.0)}[kind]
+    rng = np.random.default_rng(seed)
+    cells = rng.random(dims) < density
+    values = rng.choice(np.uint8([1, 2, 128, 255]), dims)
+    return torch.from_numpy(np.where(cells, values, 0).astype(np.uint8))
+
+
+@pytest.mark.parametrize("fine_sb", [True, False])
+@pytest.mark.parametrize("kind", ["odd", "rows491", "edges", "many", "empty",
+                                  "full", "one"])
+def test_host_accel_tables_match_plain(accel_host, kind, fine_sb):
+    """Both passes over the occupancy write every table the PyTorch build
+    (build_accel on CPU tensors) makes, bit for bit: fine, coarse, l2 and,
+    with fine_sb, the superbrick tiles; every word is written (the tables
+    start as garbage)."""
+    occ = _occupancy(kind)
+    want = build_accel(occ, np.zeros(3, np.float32), 0.1, fine_sb=fine_sb)
+    a, tables = accel_build.accel_args(occ, want.bdims, fine_sb)
+    for x in tables:
+        if x is not None:
+            x.view(torch.uint8).fill_(0xA5)
+    accel_host.host_accel_build(ctypes.byref(a))
+    fine, coarse, l2, tiles = tables
+    assert torch.equal(fine, want.fine)
+    assert torch.equal(coarse, want.coarse)
+    assert torch.equal(l2, want.l2)
+    assert (tiles is None) == (want.fine_sb is None)
+    if fine_sb:
+        assert torch.equal(tiles, want.fine_sb)
+    occupied = int((occ != 0).sum())
+    assert (int((fine != 0).sum()) > 0) == (occupied > 0)
+
+
+@pytest.mark.parametrize("dims,origin,vs", [
+    ((491, 245, 512), (-2.1484375, -1.0712, -2.2), 4.3 / 512),
+    ((37, 21, 13), (0.7, -1.3, 2.1), 0.07),
+    ((1, 1, 1), (0.0, 0.0, 0.0), 1.0)])
+def test_host_aabb_boxes_match_plain(accel_host, dims, origin, vs):
+    """The boxes of linear cell indices (the first and last cell among
+    them) bit-equal to aabbs_from_linear on CPU tensors; every row
+    written."""
+    rng = np.random.default_rng(11)
+    n_cells = dims[0] * dims[1] * dims[2]
+    lin = torch.from_numpy(np.concatenate([
+        [0, n_cells - 1], rng.integers(0, n_cells, 5000)]).astype(np.int64))
+    a, boxes = accel_build.box_args(lin, dims, origin, vs)
+    boxes.fill_(7.0)
+    accel_host.host_aabb_boxes(ctypes.byref(a))
+    want = aabbs_from_linear(lin, dims, np.float32(origin), vs)
+    assert boxes.shape == want.shape and torch.equal(boxes, want)

@@ -21,9 +21,9 @@ from voxelray_torch.ops import geometry
 from voxelray_torch.ops.intersect import make_camera_rays
 from voxelray_torch.io.objload import LoadedModel, Material
 from voxelray_torch.models.scene import Light, build_scene
-from voxelray_torch.ops.kernels import (_build, brick_fine, frame_shade,
-                                        grid_walk, mega_trace, tri_march,
-                                        voxel_accum)
+from voxelray_torch.ops.kernels import (_build, accel_build, brick_fine,
+                                        frame_shade, grid_walk, mega_trace,
+                                        tri_march, voxel_accum)
 from voxelray_torch.ops.traverse_fast import build_accel, trace_grid_fast
 from voxelray_torch.ops.tri_accel import build_tri_accel, trace_triangles_grid
 from voxelray_torch.ops.voxelize import voxelize_plain
@@ -267,6 +267,38 @@ def _plain_frame(scene, vi, pi, width, height, backend, light,
     return shading.gamma_post(rgba)
 
 
+def _rebuild_grid(device):
+    """A voxel grid as a deforming step hands it to build_scene: the
+    icosphere voxelized to dims that are not multiples of 8, its cells
+    holding 1, 2 or 255."""
+    v, f, bb_min, _, vs, dims = _small_scene()
+    occ, _ = voxelize_plain(torch.from_numpy(v), torch.from_numpy(f),
+                            bb_min, vs, dims)
+    values = np.random.default_rng(3).choice(np.uint8([1, 2, 255]),
+                                             tuple(occ.shape))
+    occ = occ * torch.from_numpy(values)
+    return {"occ": occ.to(device), "dims": dims, "origin": bb_min,
+            "voxel_size": vs}
+
+
+def test_cpu_scene_rebuild_takes_the_plain_build():
+    """build_scene(grid=...) on CPU tensors builds the accel and the boxes
+    with PyTorch ops (neither kernel is launched), and the kernels' entry
+    points refuse CPU tensors."""
+    grid = _rebuild_grid("cpu")
+    trace.reset_counters("launches.")
+    scene = build_scene(grid=grid, device="cpu")
+    assert trace.counter("launches.accel_build") == 0
+    assert trace.counter("launches.aabb_boxes") == 0
+    assert scene.n_voxels == int((grid["occ"] != 0).sum()) > 100
+    assert scene.accel.fine_sb is not None
+    with pytest.raises(ValueError, match="CUDA"):
+        accel_build.accel_tables(grid["occ"], scene.accel.bdims, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        accel_build.aabb_boxes(torch.zeros(3, dtype=torch.int64),
+                               scene.grid_dims, grid["origin"], 0.1)
+
+
 def test_nvcc_command_targets_hopper_without_fma_contraction():
     compiles, link = _build.nvcc_commands("nvcc", "/tmp/out.so")
     for cmd in compiles + [link]:
@@ -280,7 +312,7 @@ def test_nvcc_command_targets_hopper_without_fma_contraction():
     srcs = {Path(c).name for cmd in compiles for c in cmd if c.endswith(".cu")}
     assert srcs == {"voxel_accum.cu", "mega_trace.cu", "grid_walk.cu",
                     "brick_fine.cu", "tri_march.cu", "staged_march.cu",
-                    "frame_shade.cu", "tri_bin.cu"}
+                    "frame_shade.cu", "tri_bin.cu", "accel_build.cu"}
     assert len(compiles) == len(srcs)
     # the shared header brick_walk.cuh is found through -I csrc
     for cmd in compiles:
@@ -575,3 +607,56 @@ def test_frame_glue_matches_the_plain_glue_on_cuda(cuda):
                                       backend=backend, light=light)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.cuda
+def test_scene_rebuild_on_cuda_matches_cpu(cuda):
+    """build_scene(grid=...) on the card: one accel_build call and one
+    aabb_boxes launch, and every BrickAccel table, every box and every
+    other field bit-equal to the CPU build; the accel without fine_sb
+    (the triangle accel's) too."""
+    grid = _rebuild_grid("cpu")
+    want = build_scene(grid=grid, device="cpu")
+    before = (_launched(accel_build), trace.counter("launches.aabb_boxes"))
+    got = build_scene(grid=_rebuild_grid(cuda), device=cuda)
+    torch.cuda.synchronize()
+    assert _launched(accel_build) == before[0] + 1
+    assert trace.counter("launches.aabb_boxes") == before[1] + 1
+    for name in ("fine", "coarse", "l2", "fine_sb", "origin"):
+        assert torch.equal(getattr(got.accel, name).cpu(),
+                           getattr(want.accel, name)), name
+    assert got.accel.bdims == want.accel.bdims
+    for name in ("voxel_aabbs", "occ_flat", "materials", "textures",
+                 "tex_meta", "voxel_material", "grid_origin", "tri_v0",
+                 "tri_lod"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.is_cuda and torch.equal(a.cpu(), b), name
+    occ = _rebuild_grid(cuda)["occ"]
+    a = build_accel(occ, np.float32([0.3, -0.2, 0.1]), 0.05, fine_sb=False)
+    b = build_accel(occ.cpu(), np.float32([0.3, -0.2, 0.1]), 0.05,
+                    fine_sb=False)
+    assert a.fine_sb is None
+    for name in ("fine", "coarse", "l2"):
+        assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), name
+
+
+@pytest.mark.cuda
+def test_scene_rebuild_on_cuda_syncs_once(cuda):
+    """A step's build_scene of a voxel grid, after the first (which makes
+    the scene's fixed tensors on the card), syncs the host once: the
+    nonzero that sizes the AABB list."""
+    import warnings
+    grid = _rebuild_grid(cuda)
+    build_scene(grid=grid, device=cuda)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            scene = build_scene(grid=grid, device=cuda)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [f"{w.filename}:{w.lineno}" for w in rec
+             if "called a synchronizing" in str(w.message)]
+    assert len(syncs) == 1, syncs
+    assert scene.n_voxels == int((grid["occ"] != 0).sum())

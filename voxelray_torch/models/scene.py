@@ -30,6 +30,7 @@ tensors are bit-equal to its Scene's.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any
 
@@ -238,6 +239,44 @@ def _build_tri_accel(v0, v1, v2, device):
     return build_tri_accel_planned(plan, corners)
 
 
+def _triangle_side(streams, materials, textures, device):
+    """A scene's triangle fields on `device`: the streams, tri_lod, the
+    materials, the texture atlas and tex_meta."""
+    tex_stack, tex_meta, n_layers = _texture_atlas(textures)
+
+    def as_t(x):
+        return torch.as_tensor(np.ascontiguousarray(x), device=device)
+
+    return dict(**{k: as_t(v) for k, v in streams.items()},
+                tri_lod=as_t(_tri_lod(streams, tex_meta, n_layers)),
+                materials=as_t(materials), textures=as_t(tex_stack),
+                tex_meta=as_t(tex_meta))
+
+
+@functools.lru_cache(maxsize=8)
+def _no_models_on(device):
+    """The triangle fields of a scene without models on `device` (empty
+    streams, the default material row, the 1x1 dummy atlas), made once for
+    each device: a host-to-device copy syncs, and a voxel scene rebuilt
+    every step would copy them anew.  Shared, read-only, by the scenes
+    built there."""
+    return _triangle_side(*_triangle_streams([], []), device)
+
+
+@functools.lru_cache(maxsize=32)
+def _small_on(data, dtype, shape, device):
+    return torch.as_tensor(np.frombuffer(data, dtype).reshape(shape).copy(),
+                           device=device)
+
+
+def _const_on(x, device):
+    """The small host array x (the voxel material row, the grid origin) as
+    a tensor on `device`, made once for each value and device, as
+    _no_models_on's fields are; shared, read-only."""
+    x = np.ascontiguousarray(x)
+    return _small_on(x.tobytes(), x.dtype.str, x.shape, device)
+
+
 @trace.spanned("build_scene")
 def build_scene(models=None, grid=None, aabbs=None,
                 voxel_material: Material | None = None, transforms=None,
@@ -263,10 +302,12 @@ def build_scene(models=None, grid=None, aabbs=None,
         octree = grid
     dev = resolve_device(device)
     models = models or []
-    transforms = transforms or [None] * len(models)
-    streams, materials, textures = _triangle_streams(models, transforms)
-    tex_stack, tex_meta, n_layers = _texture_atlas(textures)
-    tri_lod = _tri_lod(streams, tex_meta, n_layers)
+    if models:
+        transforms = transforms or [None] * len(models)
+        streams, materials, textures = _triangle_streams(models, transforms)
+        tri = _triangle_side(streams, materials, textures, dev)
+    else:
+        tri = _no_models_on(dev)
 
     if grid is None:
         occ = torch.zeros((0, 0, 0), dtype=torch.uint8, device=dev)
@@ -280,27 +321,23 @@ def build_scene(models=None, grid=None, aabbs=None,
     occ = torch.as_tensor(occ).to(device=dev, dtype=torch.uint8)
     g_org = np.asarray(g_org, np.float32)
     accel = build_accel(occ, g_org, float(g_vs)) if occ.numel() else None
+    vmat = _const_on((voxel_material or Material()).as_row(), dev)
+    origin = _const_on(g_org, dev)
     if aabbs is None:
+        # on the card the nonzero in here is the build's one host sync,
+        # made once the accel's kernels are queued: the card works while
+        # the host waits
         aabbs = extract_aabbs({"occ": occ, "dims": g_dims, "origin": g_org,
                                "voxel_size": g_vs})
     aabbs = torch.as_tensor(aabbs).to(device=dev, dtype=torch.float32)
 
-    n_tri = len(streams["tri_v0"])
     ta = None
-    if _wants_accel(n_tri, tri_accel):
+    if models and _wants_accel(len(streams["tri_v0"]), tri_accel):
         ta = _build_tri_accel(streams["tri_v0"], streams["tri_v1"],
                               streams["tri_v2"], dev)
-
-    def as_t(x):
-        return torch.as_tensor(np.ascontiguousarray(x), device=dev)
-
     return Scene(
-        **{k: as_t(v) for k, v in streams.items()},
-        tri_lod=as_t(tri_lod), materials=as_t(materials),
-        textures=as_t(tex_stack), tex_meta=as_t(tex_meta),
-        voxel_aabbs=aabbs.reshape(-1, 6),
-        voxel_material=as_t((voxel_material or Material()).as_row()),
-        occ_flat=occ.reshape(-1), grid_origin=as_t(g_org),
+        **tri, voxel_aabbs=aabbs.reshape(-1, 6), voxel_material=vmat,
+        occ_flat=occ.reshape(-1), grid_origin=origin,
         accel=accel, octree=octree, tri_accel=ta,
         grid_dims=tuple(int(x) for x in g_dims),
         grid_voxel_size=float(g_vs))

@@ -27,10 +27,11 @@ import numpy as np
 import torch
 
 from ..utils import trace
+from .kernels import accel_build
 
-__all__ = ["aabbs_from_linear", "aabbs_from_cells", "extract_aabbs_fixed",
-           "extract_aabbs_words", "extract_aabbs", "count_occupied",
-           "count_nonzero_words", "count_nonzero_bytes",
+__all__ = ["aabbs_from_linear", "aabbs_from_linear_plain", "aabbs_from_cells",
+           "extract_aabbs_fixed", "extract_aabbs_words", "extract_aabbs",
+           "count_occupied", "count_nonzero_words", "count_nonzero_bytes",
            "count_nonzero_groups"]
 
 _GROUP = 8          # words per group of the group bound
@@ -61,7 +62,17 @@ def aabbs_from_cells(x, y, z, origin, voxel_size):
 
 
 def aabbs_from_linear(lin, dims, origin, voxel_size):
-    """Linear cell indices -> (N, 6) float32 AABBs (aabbs_from_cells)."""
+    """Linear cell indices -> (N, 6) float32 AABBs: on CUDA tensors one
+    aabb_boxes launch (ops/kernels/accel_build.py), elsewhere
+    aabbs_from_linear_plain, its bit-for-bit reference."""
+    if lin.is_cuda:
+        return accel_build.aabb_boxes(lin, dims, origin, voxel_size)
+    return aabbs_from_linear_plain(lin, dims, origin, voxel_size)
+
+
+def aabbs_from_linear_plain(lin, dims, origin, voxel_size):
+    """aabbs_from_cells of linear cell indices, in PyTorch ops on lin's
+    device."""
     nx, ny, _ = dims
     lin = lin.to(torch.int64)
     return aabbs_from_cells(lin % nx, (lin // nx) % ny, lin // (nx * ny),
@@ -216,7 +227,9 @@ def count_nonzero_bytes(occ) -> int:
 def extract_aabbs(grid):
     """Exact-size (N, 6) float32 rows, in linear order, from a
     voxelize_mesh result dict or a grid object (occupancy(), dims,
-    origin, voxel_size), on the occupancy's device."""
+    origin, voxel_size), on the occupancy's device.  On the card the
+    `nonzero` that sizes the rows is the one host sync; the rows are one
+    aabb_boxes launch."""
     if isinstance(grid, dict):
         occ, dims = grid["occ"], grid["dims"]
         origin, vs = grid["origin"], grid["voxel_size"]

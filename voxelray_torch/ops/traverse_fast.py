@@ -42,12 +42,12 @@ import torch
 from ..models.grids import pack_words
 from ..utils import trace
 from .intersect import TMAX, TMIN
-from .kernels import staged_march
+from .kernels import accel_build, staged_march
 from .kernels.mega_trace import build_fine_sb, trace_grid_mega
 from .traverse import _per_ray
 
 __all__ = ["BrickAccel", "build_accel", "build_accel_slab",
-           "trace_grid_fast", "any_hit_grid_fast"]
+           "accel_tables_plain", "trace_grid_fast", "any_hit_grid_fast"]
 
 BRICK = 8
 LANES = 128
@@ -95,9 +95,10 @@ def _bricks(occ, bdims):
 
 def _fine_words(blocks):
     """(L, by, bx, 512) cells -> (16, L*by*bx) words, word-major: per
-    brick, 512 cell bits packed x-fastest into 16 words."""
+    brick, 512 cell bits (a cell any nonzero value) packed x-fastest into
+    16 words."""
     n = blocks.shape[0] * blocks.shape[1] * blocks.shape[2]
-    return pack_words(blocks.reshape(n, 16, 32)).t().contiguous()
+    return pack_words((blocks != 0).reshape(n, 16, 32)).t().contiguous()
 
 
 def _l2(bocc):
@@ -113,6 +114,16 @@ def _l2(bocc):
     return _bitmask_rows(socc.reshape(-1))
 
 
+def accel_tables_plain(occ, bdims, fine_sb=True):
+    """(fine, coarse, l2, fine_sb or None): the BrickAccel tables of occ
+    (Z, Y, X), bdims its brick dims, in PyTorch ops on occ's device."""
+    blocks = _bricks(occ, bdims)
+    bocc = (blocks != 0).any(dim=-1)                    # (bz, by, bx)
+    fine = _fine_words(blocks)
+    return (fine, _bitmask_rows(bocc.reshape(-1)), _l2(bocc),
+            build_fine_sb(fine, bdims) if fine_sb else None)
+
+
 @functools.lru_cache(maxsize=16)
 def _origin_on(key, device):
     """The origin `key` (three floats) as a float32 (3,) tensor on `device`,
@@ -126,20 +137,20 @@ def _origin_on(key, device):
 def build_accel(occ, origin, voxel_size, *, fine_sb=True) -> BrickAccel:
     """occ (Z, Y, X) uint8 tensor -> BrickAccel on occ's device.
 
-    fine_sb=False leaves out K2's superbrick tiles (an accel only the
-    staged walk or tri_march reads)."""
+    On CUDA tensors the tables come from one accel_build call (two
+    kernels, no host sync); on CPU tensors from accel_tables_plain, the
+    kernels' bit-for-bit reference.  fine_sb=False leaves out K2's
+    superbrick tiles (an accel only the staged walk or tri_march reads)."""
     nz, ny, nx = occ.shape
     bdims = (-(-nx // BRICK), -(-ny // BRICK), -(-nz // BRICK))
-    blocks = _bricks(occ, bdims)
-    bocc = (blocks != 0).any(dim=-1)                    # (bz, by, bx)
-    fine = _fine_words(blocks)
+    build = accel_build.accel_tables if occ.is_cuda else accel_tables_plain
+    fine, coarse, l2, tiles = build(occ, bdims, fine_sb)
     org = np.asarray(origin, np.float32)
     key = (float(org[0]), float(org[1]), float(org[2]))
     return BrickAccel(
-        coarse=_bitmask_rows(bocc.reshape(-1)), fine=fine, l2=_l2(bocc),
-        origin=_origin_on(key, occ.device), dims=(nx, ny, nz), bdims=bdims,
-        voxel_size=float(voxel_size), origin_key=key,
-        fine_sb=build_fine_sb(fine, bdims) if fine_sb else None)
+        coarse=coarse, fine=fine, l2=l2, origin=_origin_on(key, occ.device),
+        dims=(nx, ny, nz), bdims=bdims, voxel_size=float(voxel_size),
+        origin_key=key, fine_sb=tiles)
 
 
 def build_accel_slab(occ_slab, z0, full_nz, origin, voxel_size, *,

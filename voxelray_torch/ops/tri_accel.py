@@ -165,7 +165,7 @@ def _assemble(tri9, origin, vs, dims, cell_count, pair_tri, pair_lin, n_ne,
         cell_tris[rows[keep], within[keep]] = pair_tri[keep]
     else:
         cell_tris[rows, within] = pair_tri
-    brick = build_accel(nonempty.to(torch.uint8).reshape(nz, ny, nx),
+    brick = build_accel(nonempty.view(torch.uint8).reshape(nz, ny, nx),
                         origin, vs, fine_sb=False)
     return TriAccel(brick=brick, cell_slot=cell_slot, cell_tris=cell_tris,
                     tri9=tri9, origin=brick.origin, dims=dims,
