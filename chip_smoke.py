@@ -2055,11 +2055,11 @@ def run(device):
     k1_ms = cuda_ms(lambda: voxel_accum.voxel_accum_cuda(
         v_t, f_t, bb_min, vs, grid.dims), 5)
     # the kernel alone: no zeroed volume, no sync for its counts
-    nx, ny, nz = grid.dims
-    k1_occ = torch.zeros((nz, ny, nx), dtype=torch.uint8, device=device)
-    k1_counts = torch.zeros((2,), dtype=torch.int64, device=device)
-    k1_kernel_ms = cuda_ms(lambda: voxel_accum.launch(
-        v_t, f_t, bb_min, vs, grid.dims, k1_occ, k1_counts), 5)
+    # (k1_out, the volume and counts the block points at, is held)
+    k1_block, k1_out = voxel_accum.accum_args(v_t, f_t, bb_min, vs,
+                                              grid.dims)
+    k1_kernel_ms = cuda_ms(lambda: _build.launch(
+        "voxel_accum", k1_block, v_t.device), 5)
     log(f"K1 voxelize ms: wrapper (zeroed volume, kernel, one sync) "
         f"{k1_ms:.4f}, kernel alone {k1_kernel_ms:.4f}")
     k1_plain_ms = cuda_ms(lambda: voxelize_plain(

@@ -179,6 +179,10 @@ def k1_kernel_alone(voxel_accum, v, f, origin, vs, dims):
     """A call of the tree's K1 launch alone: no zeroed volume, no sync."""
     import numpy as np
     import torch
+    if hasattr(voxel_accum, "accum_args"):
+        from voxelray_torch.ops.kernels import _build
+        a, outs = voxel_accum.accum_args(v, f, origin, vs, dims)
+        return lambda: (_build.launch("voxel_accum", a, v.device), outs)
     nx, ny, nz = dims
     occ = torch.zeros((nz, ny, nx), dtype=torch.uint8, device=v.device)
     counts = torch.zeros((2,), dtype=torch.int64, device=v.device)
@@ -356,10 +360,16 @@ def child_prep_staged(path):
     n = o.shape[0]
     tmn = torch.full((n,), float(TMIN), device=dev)
     tmx = torch.full((n,), float(TMAX), device=dev)
+    from voxelray_torch.ops.kernels import _build
     (lib, _), = build_libs(REPO, [["-DSTAGED_MARCH_CLOCKS"]], "staged_march")
-    rows, _ = rows_of(lib, lambda o_, d_, tmn_, tmx_: (
-        staged_march.staged_march_cuda(o_, d_, accel, tmn_, tmx_, None, 5,
-                                       None, lib=lib)), (o, d, tmn, tmx))
+    lanes = staged_march.launch_config(accel, lib=lib)["lanes"]
+
+    def run(o_, d_, tmn_, tmx_):
+        a, outs = staged_march.staged_args(o_, d_, accel, tmn_, tmx_, None, 5,
+                                           None, lanes)
+        _build.launch("staged_march", a, o_.device, lib)
+        return outs
+    rows, _ = rows_of(lib, run, (o, d, tmn, tmx))
     groups = rows[:, len(PARTS)]
     top = torch.sort(torch.argsort(groups, descending=True)[:TOP_STAGED])
     torch.save(top.values.cpu(), path)

@@ -165,9 +165,14 @@ def main():
     accels = {"Z-slab 1": slab}
 
     def kernel(lib=None, acc=accel):
+        """The trace of `lib`, a build of staged_march.cu alone (None: the
+        package's), the wrapper's argument block through its binder."""
         def run(o_, d_, tmn_, tmx_, admit, k):
-            return staged_march.staged_march_cuda(o_, d_, acc, tmn_, tmx_,
-                                                  admit, k, None, lib=lib)
+            lanes = staged_march.launch_config(acc, lib=lib)["lanes"]
+            a, outs = staged_march.staged_args(o_, d_, acc, tmn_, tmx_,
+                                               admit, k, None, lanes)
+            _build.launch("staged_march", a, o_.device, lib)
+            return outs
         return run
 
     def same(got, want):
@@ -257,7 +262,8 @@ def main():
     for label, (lib, log) in libs.items():
         builds[label] = {"ptxas": ptxas(log, "staged_march_kernel")}
         if hasattr(lib, "staged_march_config"):
-            builds[label]["config"] = staged_march.launch_config(accel, lib)
+            builds[label]["config"] = staged_march.launch_config(accel,
+                                                                 lib=lib)
     emit({"builds": builds})
     if args.out:
         out = Path(args.out).resolve()

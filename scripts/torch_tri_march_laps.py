@@ -116,15 +116,27 @@ def config(lib, ta):
     from voxelray_torch.ops.kernels import tri_march
     if not hasattr(lib, "tri_march_config"):
         return None
-    return tri_march.launch_config(ta, lib)
+    if not hasattr(tri_march, "march_args"):      # a tree from before it
+        return tri_march.launch_config(ta, lib)
+    return tri_march.launch_config(ta, lib=lib)
 
 
 def launcher(lib, ta):
     """A function (o, d, t_min, t_max) -> tri_march's outputs that
-    launches the kernel of `lib`, a build of tri_march.cu alone."""
-    from voxelray_torch.ops.kernels import tri_march
-    return lambda o, d, tmn, tmx: tri_march.tri_march_cuda(o, d, tmn, tmx,
-                                                           ta, lib=lib)
+    launches the kernel of `lib`, a build of tri_march.cu alone: the
+    wrapper's argument block through the package's binder (a tree from
+    before the argument blocks: its wrapper's `lib`)."""
+    from voxelray_torch.ops.kernels import _build, tri_march
+    if not hasattr(tri_march, "march_args"):
+        return lambda o, d, tmn, tmx: tri_march.tri_march_cuda(
+            o, d, tmn, tmx, ta, lib=lib)
+    lanes = tri_march.launch_config(ta, lib=lib)["lanes"]
+
+    def run(o, d, tmn, tmx):
+        a, outs = tri_march.march_args(o, d, tmn, tmx, ta, None, lanes)
+        _build.launch("tri_march", a, o.device, lib)
+        return outs
+    return run
 
 
 def same(got, want):
@@ -200,7 +212,7 @@ def idle_waits(lib, sets, smi):
     for name, accel, rays in sets:
         want = tri_march.tri_march_plain(*rays, accel)
         fn(out)
-        got = tri_march.tri_march_cuda(*rays, accel, lib=lib)
+        got = launcher(lib, accel)(*rays)
         torch.cuda.synchronize()
         if fn(out) != 0:
             raise RuntimeError("tri_march_idle_clocks failed")

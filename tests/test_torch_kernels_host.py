@@ -4,14 +4,19 @@ PyTorch versions.
 csrc/voxel_accum.cu, mega_trace.cu, grid_walk.cu, brick_fine.cu,
 staged_march.cu, tri_march.cu, frame_shade.cu (the frame glue: camera
 rays, the closest-hit surface, shade + post; held to render/pipeline.py's
-PyTorch glue) and accel_build.cu (a voxel scene's brick accel tables and
-its boxes; held to build_accel's PyTorch build and aabbs_from_linear) are
-compiled with g++ (launch stubs cut
-off, SHIM below standing in for the CUDA runtime, csrc/ on the include
-path for the shared brick_walk.cuh) and each kernel runs thread by
-thread on the CPU.  Shared memory is one host array that the host program
-fills before the threads run, so running them one at a time never reads
-a word before it is written.  Every warp is one lane wide (the kernels
+PyTorch glue), accel_build.cu (a voxel scene's brick accel tables and
+its boxes; held to build_accel's PyTorch build and aabbs_from_linear) and
+tri_bin.cu are compiled with g++ (SHIM below standing in for the CUDA
+runtime, each launch `kernel<<<...>>>(...)` running the kernel's blocks
+and threads on the host, csrc/ on the include path for the shared
+brick_walk.cuh), and each kernel runs thread by thread on the CPU.  The
+tests call each source's own C entry point, int <kernel>_launch(const
+<X>Args*, void*), with the argument block its wrapper builds
+(ops/kernels/*.py), bound by the wrapper's _build.entry, which checks the
+block's size against the build's `<file>_sizes`.  Shared memory is one
+host array that the host launcher of a kernel whose threads fill it
+(DRIVERS) fills before the threads run, so running them one at a time
+never reads a word before it is written.  Every warp is one lane wide (the kernels
 take their warp width from VOXELRAY_WARP, which SHIM sets to 1), so
 warp-wide steps (K1's window scan and hit reduction, K2's, staged_march's
 and tri_march's ray fetch, tri_march's shared row test) are exact and
@@ -44,8 +49,10 @@ from voxelray_torch.models.scene import Light, build_scene
 from voxelray_torch.ops import geometry
 from voxelray_torch.ops.intersect import TMAX, TMIN, make_camera_rays
 from voxelray_torch.ops.aabbs import aabbs_from_linear
-from voxelray_torch.ops.kernels import (accel_build, brick_fine, frame_shade,
-                                        mega_trace, staged_march, tri_march)
+from voxelray_torch.ops.kernels import (_build, accel_build, brick_fine,
+                                        frame_shade, grid_walk, mega_trace,
+                                        staged_march, tri_bin, tri_march,
+                                        voxel_accum)
 from voxelray_torch.ops.kernels.brick_fine import fine_plain
 from voxelray_torch.ops.kernels.grid_walk import walk_plain
 from voxelray_torch.ops.kernels.mega_trace import trace_grid_mega_plain
@@ -61,7 +68,6 @@ from voxelray_torch.utils.parity import adjudicate_hit_diffs
 torch.set_num_threads(2)
 HERE = Path(__file__).resolve().parent
 CSRC = HERE.parent / "voxelray_torch" / "csrc"
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # tri_march's row chunk: the triangles a lane loads together from its row
 ROW_CHUNK = int(re.search(r"constexpr int kRowChunk = (\d+);",
                           (CSRC / "tri_march.cu").read_text()).group(1))
@@ -88,7 +94,10 @@ HELD_PASSES = 4
 # to completion one after another, as a warp of one lane: K1 and K2 see
 # a warp width of 1 (lane 0), and so do staged_march and tri_march.
 # Shuffles return the lane's own value, ballots its own bit.  A held run
-# (host_set_held, host_run) runs threads 1 and 0 at once instead.
+# (host_set_held, host_run) runs threads 1 and 0 at once instead.  The
+# card is one multiprocessor that holds one block, so a launcher that
+# sizes its grid by occupancy launches one block; host_set_blocks(b > 0)
+# runs b blocks in the place of every launch's grid.
 SHIM = '''
 #include <math.h>
 #include <sched.h>
@@ -254,181 +263,98 @@ inline int __ffs(unsigned x) { return __builtin_ffs(x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-'''
-
-DRIVERS = {
-    "voxel_accum": ('''
-extern "C" void host_launch(const float* v, const int* f, int n_tri,
-                            int n_vert, float ogx, float ogy, float ogz,
-                            float vs, float half, int nx, int ny, int nz,
-                            uint8_t* occ, unsigned long long* counts) {
-  // one-lane warps, one round (one triangle) each
-  blockDim.x = kThreads;
-  gridDim.x = (n_tri + kThreads - 1) / kThreads;
-  for (unsigned b = 0; b < gridDim.x; ++b)
-    for (unsigned t = 0; t < blockDim.x; ++t) {
-      blockIdx.x = b;
-      threadIdx.x = t;
-      voxel_accum_kernel(v, f, n_tri, n_vert, ogx, ogy, ogz, vs, half, nx,
-                         ny, nz, occ, counts);
-    }
+enum { cudaSuccess = 0, cudaDevAttrMultiProcessorCount,
+       cudaFuncAttributeMaxDynamicSharedMemorySize };
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline const char* cudaGetErrorString(cudaError_t) { return "host build"; }
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
 }
-''', [P, P, I, I] + [F] * 5 + [I] * 3 + [P, P]),
-    "mega_trace": ('''
-extern "C" void host_launch(
-    const void* o, const void* d, const void* t_min, const void* t_max,
-    const void* admit, const void* l2, const void* fine_sb, int n, int nx,
-    int ny, int nz, int bx, int by, int bz, float ogx, float ogy, float ogz,
-    float vs, float half, float bw, void* t_out, void* lin_out,
-    void* alive_out, void* next_ray, int stripes) {
-  const TraceArgs a = trace_args(o, d, t_min, t_max, admit, l2, fine_sb, n,
-                                 nx, ny, nz, bx, by, bz, ogx, ogy, ogz, vs,
-                                 half, bw, t_out, lin_out, alive_out,
-                                 next_ray, stripes);
-  // one block of one-lane warps: the first thread takes every ray from
-  // the counters, stripe after stripe, brick step by brick step; the
-  // others find them exhausted
-  blockDim.x = kThreads;
-  gridDim.x = 1;
-  blockIdx.x = 0;
-  for (unsigned t = 0; t < blockDim.x; ++t) {
-    threadIdx.x = t;
-    mega_trace_kernel(a);
+inline cudaError_t cudaDeviceGetAttribute(int* value, int, int) {
+  *value = 1;
+  return cudaSuccess;
+}
+template <class K>
+inline cudaError_t cudaFuncSetAttribute(K, int, int) { return cudaSuccess; }
+template <class K>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* blocks, K, int, size_t) {
+  *blocks = 1;
+  return cudaSuccess;
+}
+static long long host_blocks = 0;
+extern "C" void host_set_blocks(int blocks) { host_blocks = blocks; }
+// kernel<<<grid, block, smem, stream>>>(args...), as _host_build rewrites
+// it: every block of the grid, each one's threads through host_run
+template <class K, class... A>
+inline void host_grid(K kernel, long long grid, long long block, size_t,
+                      cudaStream_t, A... args) {
+  gridDim.x = static_cast<unsigned>(host_blocks > 0 ? host_blocks : grid);
+  blockDim.x = static_cast<unsigned>(block);
+  for (unsigned b = 0; b < gridDim.x; ++b) {
+    blockIdx.x = b;
+    host_run(blockDim.x, [&] { kernel(args...); });
   }
 }
-''', [P] * 7 + [I] * 7 + [F] * 6 + [P] * 4 + [I]),
-    "grid_walk": ('''
-extern "C" void host_launch(const float* o, const float* d,
-                            const float* t_min, const float* t_max,
-                            const int* cell_in, const int* active_in,
-                            const uint32_t* coarse, const uint32_t* l2,
-                            int l2_words, int n, int bx, int by, int bz,
-                            float ogx, float ogy, float ogz, float bw,
-                            int k_hits, int* hits_out, int* cell_out,
-                            int* cont_out) {
-  WalkGrid g;
-  g.bx = bx; g.by = by; g.bz = bz;
-  g.sbx = (bx + 7) / 8;
-  g.sby = (by + 7) / 8;
-  g.ogx = ogx; g.ogy = ogy; g.ogz = ogz; g.bw = bw;
-  if (l2 != nullptr) memcpy(host_shared, l2, sizeof(uint32_t) * l2_words);
-  blockDim.x = 128;
-  gridDim.x = (n + 127) / 128;
-  for (unsigned b = 0; b < gridDim.x; ++b)
-    for (unsigned t = 0; t < blockDim.x; ++t) {
-      blockIdx.x = b;
-      threadIdx.x = t;
-      grid_walk_kernel(o, d, t_min, t_max, cell_in, active_in, coarse, l2,
-                       l2_words, n, g, k_hits, hits_out, cell_out, cont_out);
-    }
+'''
+
+# Host launchers of the kernels whose threads fill shared memory before
+# they read it (grid_walk's l2, the marches' tables): the host build fills
+# it first, then calls the source's own launcher.  A march's held run
+# stops a thread at its first read of the fine table.
+DRIVERS = {"grid_walk": """
+extern "C" int host_launch(const GridWalkArgs* a, void* stream) {
+  if (a->l2) memcpy(host_shared, a->l2, sizeof(uint32_t) * a->l2_words);
+  return grid_walk_launch(a, stream);
 }
-''', [P] * 8 + [I] * 5 + [F] * 4 + [I] + [P] * 3),
-    "brick_fine": ('''
-extern "C" void host_launch(const float* o, const float* d,
-                            const int* bricks, int k_slots,
-                            const uint32_t* fine, int nb, int fine_off,
-                            const float* t_min, const float* t_max, int n,
-                            int nx, int ny, int bx, int by, int bz,
-                            float ogx, float ogy, float ogz, float vs,
-                            float half, float bwf, float scale, float* t_out,
-                            int* lin_out) {
-  FineGrid g;
-  g.nx = nx; g.ny = ny; g.bx = bx; g.by = by; g.bz = bz; g.nb = nb;
-  g.off = fine_off;
-  g.ogx = ogx; g.ogy = ogy; g.ogz = ogz;
-  g.vs = vs; g.half = half; g.bwf = bwf; g.scale = scale;
-  blockDim.x = 128;
-  gridDim.x = (n + 127) / 128;
-  for (unsigned b = 0; b < gridDim.x; ++b)
-    for (unsigned t = 0; t < blockDim.x; ++t) {
-      blockIdx.x = b;
-      threadIdx.x = t;
-      brick_fine_kernel(o, d, bricks, k_slots, fine, t_min, t_max, n, g,
-                        t_out, lin_out);
-    }
-}
-''', [P, P, P, I, P, I, I, P, P] + [I] * 6 + [F] * 7 + [P] * 2),
-    "staged_march": ('''
-extern "C" void host_launch(
-    const void* o, const void* d, const void* t_min, const void* t_max,
-    const void* admit, const void* coarse, int coarse_words, const void* l2,
-    int l2_words, const void* fine, int nb, int fine_off, int n, int nx,
-    int ny, int bx, int by, int bz, float ogx, float ogy, float ogz,
-    float vs, float half, float bwf, float scale, int k_first, int k_drain,
-    int max_groups, int smem_words, void* t_out, void* lin_out,
-    void* unresolved, void* next_ray, int stripes, void* sched,
-    void* deferred, void* deferred_group) {
-  const StagedArgs a = staged_args(
-      o, d, t_min, t_max, admit, coarse, coarse_words, l2, l2_words, fine, nb,
-      fine_off, n, nx, ny, bx, by, bz, ogx, ogy, ogz, vs, half, bwf, scale,
-      k_first, k_drain, max_groups, smem_words, t_out, lin_out, unresolved,
-      next_ray, stripes, sched, deferred, deferred_group);
+"""}
+for _name, _block, _pack in (
+        ("staged_march", "StagedMarchArgs", "staged_args"),
+        ("tri_march", "TriMarchArgs", "march_args")):
+    DRIVERS[_name] = f"""
+extern "C" int host_launch(const {_block}* b, void* stream) {{
+  const auto a = {_pack}(*b);
   if (a.l2_words) memcpy(host_shared, a.l2, sizeof(uint32_t) * a.l2_words);
   if (a.coarse_smem)
     memcpy(host_shared + a.l2_words, a.coarse,
            sizeof(uint32_t) * a.coarse_words);
-  host_fine_lo = fine;
-  host_fine_hi = static_cast<const uint32_t*>(fine) + 16 * nb;
-  // one block of one-lane warps: the first thread takes every chunk from
-  // the stripe counters, group by group, the others find them exhausted
-  blockDim.x = kThreads;
-  gridDim.x = 1;
-  blockIdx.x = 0;
-  host_run(kThreads, [&] { staged_march_kernel(a); });
-}
-''', [P] * 6 + [I, P, I, P] + [I] * 8 + [F] * 7 + [I] * 4 + [P] * 4 + [I]
-        + [P] * 3),
-    "tri_march": ('''
-extern "C" void host_launch(
-    const void* o, const void* d, const void* t_min, const void* t_max,
-    const void* coarse, int coarse_words, const void* l2, int l2_words,
-    const void* fine, int nb, const void* cell_slot, const void* cell_tris,
-    const void* tri9, const void* tri_origin, int n, int nx, int ny, int nz,
-    int bx, int by, int bz, float ogx, float ogy, float ogz, float vs,
-    float half, float bwf, float scale, float tri_vs, float tri_half,
-    int l_width, int k_first, int k_drain, int max_groups, int max_laps,
-    int smem_words, void* t_out, void* id_out, void* u_out, void* v_out,
-    void* unresolved, void* sched, void* deferred) {
-  const MarchArgs a = march_args(
-      o, d, t_min, t_max, coarse, coarse_words, l2, l2_words, fine, nb,
-      cell_slot, cell_tris, tri9, tri_origin, n, nx, ny, nz, bx, by, bz, ogx,
-      ogy, ogz, vs, half, bwf, scale, tri_vs, tri_half, l_width, k_first,
-      k_drain, max_groups, max_laps, smem_words, t_out, id_out, u_out, v_out,
-      unresolved, sched, deferred);
-  if (a.l2_words) memcpy(host_shared, a.l2, sizeof(uint32_t) * a.l2_words);
-  if (a.coarse_smem)
-    memcpy(host_shared + a.l2_words, a.coarse,
-           sizeof(uint32_t) * a.coarse_words);
-  host_fine_lo = fine;
-  host_fine_hi = static_cast<const uint32_t*>(fine) + 16 * nb;
-  // one block of one-lane warps: the first thread takes every ray from
-  // the counter, lap by lap, the others find it exhausted
-  blockDim.x = kThreads;
-  gridDim.x = 1;
-  blockIdx.x = 0;
-  host_run(kThreads, [&] { tri_march_kernel(a); });
-}
-''', [P] * 5 + [I, P, I, P, I] + [P] * 4 + [I] * 7 + [F] * 9 + [I] * 6
-        + [P] * 7),
-}
+  host_fine_lo = a.fine;
+  host_fine_hi = a.fine + 16 * a.fg.nb;
+  return {_name}_launch(b, stream);
+}}
+"""
+# every source, by the name of its file, each with its ctypes blocks
+SOURCES = {"voxel_accum": [voxel_accum.VoxelAccumArgs],
+           "mega_trace": [mega_trace.MegaTraceArgs],
+           "grid_walk": [grid_walk.GridWalkArgs],
+           "brick_fine": [brick_fine.BrickFineArgs],
+           "staged_march": [staged_march.StagedMarchArgs],
+           "tri_march": [tri_march.TriMarchArgs],
+           "tri_bin": [tri_bin.TriBinArgs],
+           "frame_shade": [frame_shade.RaysArgs, frame_shade.SurfaceArgs,
+                           frame_shade.ShadeArgs],
+           "accel_build": [accel_build.AccelArgs, accel_build.BoxArgs]}
 
 
 def _host_build(out, name, src, driver, include, defines=()):
-    """g++ build of kernel source `src` (launch stub cut off) with the
-    host driver appended, headers from `include`, macros `defines` (-D
-    flags): the loaded library."""
+    """g++ build of kernel source `src` (each launch a host_grid call)
+    with the host driver appended, headers from `include`, macros
+    `defines` (-D flags): the loaded library."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernels for the host")
+    out.mkdir(exist_ok=True)
     (out / "cuda_host_shim.h").write_text(SHIM)
-    body = src[:src.index("}  // namespace")]
-    body = body.replace("#include <cuda_runtime.h>",
-                        '#include "cuda_host_shim.h"')
+    body = src.replace("#include <cuda_runtime.h>",
+                       '#include "cuda_host_shim.h"')
     body = body.replace("#include <cuda_pipeline.h>\n", "")
     body = re.sub(r"extern __shared__ uint32_t (\w+)\[\];",
                   r"uint32_t* \1 = host_shared;", body)
+    body = re.sub(r"(\w+)<<<(.*?)>>>\(", r"host_grid(\1, \2, ", body,
+                  flags=re.S)
     cpp = out / f"{name}.cpp"
-    cpp.write_text(body + "}  // namespace\n" + driver)
+    cpp.write_text(body + driver)
     lib = out / f"lib{name}.so"
     subprocess.run([gxx, "-O1", "-ffp-contract=off", "-std=c++17",
                     *defines, "-I", str(include), "-I", str(out), "-shared",
@@ -437,26 +363,59 @@ def _host_build(out, name, src, driver, include, defines=()):
     return ctypes.CDLL(str(lib))
 
 
+def _launch(lib, a, name="host_launch"):
+    """Entry point `name` of host build `lib` on argument block `a`."""
+    assert _build.entry(name, type(a), lib)(ctypes.byref(a), None) == 0
+
+
+def _tensors(*objs):
+    """The tensors among objs and among the fields of those that are
+    dataclasses (an accel), recursively."""
+    out = []
+    for x in objs:
+        if torch.is_tensor(x):
+            out.append(x)
+        elif hasattr(x, "__dataclass_fields__"):
+            out += _tensors(*vars(x).values())
+    return out
+
+
 @pytest.fixture(scope="module")
 def host_kernels(tmp_path_factory):
-    """Each kernel's host launcher by name; tri_march's and staged_march's
+    """Each source's host build by name; tri_march's and staged_march's
     once per ray schedule, as "tri_march/own", "tri_march/shared",
     "staged_march/undeferred" and "staged_march/deferred"."""
+    from concurrent.futures import ThreadPoolExecutor
     out = tmp_path_factory.mktemp("host_kernels")
-    fns = {}
     schedules = {"tri_march": TRI_SCHEDULES,
                  "staged_march": STAGED_SCHEDULES}
-    for name, (driver, argtypes) in DRIVERS.items():
-        builds = ({f"{name}/{k}": v for k, v in schedules[name].items()}
-                  if name in schedules else {name: ()})
-        for key, defines in builds.items():
-            fn = _host_build(out, key.replace("/", "_"),
-                             (CSRC / f"{name}.cu").read_text(), driver, CSRC,
-                             defines).host_launch
-            fn.argtypes = argtypes
-            fn.restype = None
-            fns[key] = fn
-    return fns
+    builds = {}
+    for name in SOURCES:
+        for key, defines in ({f"{name}/{k}": v for k, v in
+                              schedules[name].items()}
+                             if name in schedules else {name: ()}).items():
+            builds[key] = (name, defines)
+    # each build in a directory of its own: a build writes the shim there
+    with ThreadPoolExecutor(4) as pool:
+        libs = {key: pool.submit(
+            _host_build, out / key.replace("/", "_"), key.replace("/", "_"),
+            (CSRC / f"{name}.cu").read_text(), DRIVERS.get(name, ""), CSRC,
+            defines) for key, (name, defines) in builds.items()}
+        return {key: lib.result() for key, lib in libs.items()}
+
+
+@pytest.mark.parametrize("block", [b for blocks in SOURCES.values()
+                                   for b in blocks],
+                         ids=lambda b: b.__name__)
+def test_host_block_sizes_are_the_wrappers(host_kernels, block):
+    """Each source's `<file>_sizes`, built for the host, reports the size
+    of the wrapper's ctypes structure for each of its argument blocks."""
+    report, k = block.SIZES
+    lib = next(lib for key, lib in host_kernels.items()
+               if key.split("/")[0] + "_sizes" == report)
+    sizes = (ctypes.c_int * 8)()
+    lib[report](sizes)
+    assert sizes[k] == ctypes.sizeof(block) > 0
 
 
 def _mesh_grid(name, res):
@@ -468,15 +427,12 @@ def _mesh_grid(name, res):
     return v, f, bb_min, bb_max, vs, geometry.grid_dims(bb_min, bb_max, vs)
 
 
-def _host_voxelize(fn, v, f, bb_min, vs, dims):
+def _host_voxelize(lib, v, f, bb_min, vs, dims):
     """K1 built for the host: (occ, set_calls, faces out of range)."""
-    nx, ny, nz = dims
-    occ = np.zeros((nz, ny, nx), np.uint8)
-    counts = np.zeros(2, np.uint64)
-    fn(v.ctypes.data, f.ctypes.data, len(f), len(v), *map(float, bb_min),
-       float(np.float32(vs)), float(np.float32(vs * 0.5)), nx, ny, nz,
-       occ.ctypes.data, counts.ctypes.data)
-    return occ, int(counts[0]), int(counts[1])
+    a, (occ, counts) = voxel_accum.accum_args(
+        torch.from_numpy(v), torch.from_numpy(f), bb_min, vs, dims)
+    _launch(lib, a, "voxel_accum_launch")
+    return occ.numpy(), int(counts[0]), int(counts[1])
 
 
 @pytest.mark.parametrize("name,res", [("icosphere", 64), ("knot", 128),
@@ -531,12 +487,12 @@ def test_host_k1_sentinel_triangles_add_nothing(host_kernels):
     v, f, bb_min, _, vs, dims = _mesh_grid("icosphere", 64)
     tri = v[f].astype(np.float32)
     pad = np.full((7, 3, 3), np.inf, np.float32)
-    fn = host_kernels["voxel_accum"]
+    lib = host_kernels["voxel_accum"]
 
     def run(t):
         vv = np.ascontiguousarray(t.reshape(-1, 3))
         ff = np.arange(len(vv), dtype=np.int32).reshape(-1, 3)
-        return _host_voxelize(fn, vv, ff, bb_min, vs, dims)
+        return _host_voxelize(lib, vv, ff, bb_min, vs, dims)
 
     occ0, calls0, bad0 = run(pad)
     assert bad0 == 0 and calls0 == 0 and not occ0.any()
@@ -545,24 +501,15 @@ def test_host_k1_sentinel_triangles_add_nothing(host_kernels):
     assert calls_p == calls > 0 and np.array_equal(occ_p, occ)
 
 
-def _host_trace(fn, o, d, tmn, tmx, admit, accel):
+def _host_trace(lib, o, d, tmn, tmx, admit, accel):
     """K2 built for the host; its outputs start as garbage, so every ray
     must be written."""
-    n = len(o)
-    t = np.full(n, 7.0, np.float32)
-    lin = np.full(n, 7, np.int32)
-    alive = np.full(n, 7, np.int32)
-    next_ray = np.zeros(mega_trace.STRIPES * 32, np.int32)
-    l2 = np.ascontiguousarray(accel.l2.numpy())
-    fine_sb = np.ascontiguousarray(accel.fine_sb.numpy())
-    vs = np.float32(accel.voxel_size)
-    fn(o.ctypes.data, d.ctypes.data, tmn.ctypes.data, tmx.ctypes.data,
-       admit.ctypes.data, l2.ctypes.data, fine_sb.ctypes.data, n,
-       *accel.dims, *accel.bdims, *accel.origin_key, float(vs),
-       float(np.float32(0.5) * vs), float(np.float32(accel.voxel_size * 8)),
-       t.ctypes.data, lin.ctypes.data, alive.ctypes.data,
-       next_ray.ctypes.data, mega_trace.STRIPES)
-    return t, lin, alive
+    a, outs = mega_trace.trace_args(*map(torch.from_numpy,
+                                         (o, d, tmn, tmx, admit)), accel)
+    for x in outs:
+        x.fill_(7)
+    _launch(lib, a, "mega_trace_launch")
+    return tuple(x.numpy() for x in outs)
 
 
 @pytest.mark.parametrize("name,res", [("icosphere", 144), ("knot", 128)])
@@ -590,7 +537,7 @@ def test_host_k2_matches_plain(host_kernels, name, res, eye_scale):
     }
     for kind, (tmn, tmx, admit) in bounds.items():
         t, lin, alive = _host_trace(host_kernels["mega_trace"], o, d, tmn,
-                                    tmx, admit.astype(np.uint8), accel)
+                                    tmx, admit, accel)
         tp, lp, _ = trace_grid_mega_plain(
             torch.from_numpy(o), torch.from_numpy(d), accel,
             torch.from_numpy(tmn), torch.from_numpy(tmx),
@@ -630,7 +577,7 @@ def test_host_k2_sparse_admit_matches_plain(host_kernels, name, res):
     tmx = (tmn + rng.uniform(0.0, 1.5 * ext, n)).astype(np.float32)
     admit = rng.random(n) < 0.05
     t, lin, alive = _host_trace(host_kernels["mega_trace"], o, d, tmn, tmx,
-                                admit.astype(np.uint8), accel)
+                                admit, accel)
     tp, lp, _ = trace_grid_mega_plain(
         torch.from_numpy(o), torch.from_numpy(d), accel,
         torch.from_numpy(tmn), torch.from_numpy(tmx),
@@ -678,7 +625,7 @@ def test_host_k2_edge_grazing_rays_match_the_oracle(host_kernels):
     n = len(o)
     tmn, tmx = np.full(n, TMIN, np.float32), np.full(n, TMAX, np.float32)
     t, lin, alive = _host_trace(host_kernels["mega_trace"], o, d, tmn, tmx,
-                                np.ones(n, np.uint8), accel)
+                                np.ones(n, bool), accel)
     tp, lp, _ = trace_grid_mega_plain(
         torch.from_numpy(o), torch.from_numpy(d), accel,
         torch.from_numpy(tmn), torch.from_numpy(tmx),
@@ -735,21 +682,16 @@ def _walk_scene(kind):
     return accel, o, d, tmn, tmx
 
 
-def _host_walk(fn, accel, o, d, tmn, tmx, cell, active, two_level, k):
-    n = len(o)
-    hits = np.empty((k, n), np.int32)
-    cell_out = np.empty((n, 3), np.int32)
-    cont = np.empty(n, np.int32)
-    coarse = np.ascontiguousarray(accel.coarse.numpy())
-    l2 = np.ascontiguousarray(accel.l2.numpy())
-    ptr = lambda a: None if a is None else a.ctypes.data  # noqa: E731
-    fn(o.ctypes.data, d.ctypes.data, tmn.ctypes.data, tmx.ctypes.data,
-       ptr(cell), ptr(active), coarse.ctypes.data,
-       ptr(l2) if two_level else None, l2.size if two_level else 0, n,
-       *accel.bdims, *accel.origin_key,
-       float(np.float32(accel.voxel_size * 8)), k, hits.ctypes.data,
-       cell_out.ctypes.data, cont.ctypes.data)
-    return hits, cell_out, cont
+def _host_walk(lib, accel, o, d, tmn, tmx, cell, active, two_level, k):
+    t = torch.from_numpy
+    a, outs = grid_walk.walk_args(
+        t(o), t(d), t(tmn), t(tmx), None if cell is None else t(cell),
+        None if active is None else t(active), accel.coarse,
+        accel.l2 if two_level else None, bdims=accel.bdims,
+        origin_key=accel.origin_key,
+        brick_world=float(accel.voxel_size * 8), k_hits=k)
+    _launch(lib, a)
+    return tuple(x.numpy() for x in outs)
 
 
 @pytest.mark.parametrize("kind", ["shell", "boxes"])
@@ -793,20 +735,10 @@ def test_host_k4_matches_plain(host_kernels, kind):
                             origin_key=accel.origin_key,
                             brick_world=float(accel.voxel_size * 8),
                             k_hits=5)
-    fine = np.ascontiguousarray(accel.fine.numpy())
-    og, vs, half, bwf, scale = brick_fine._consts(
-        accel.origin_key, accel.voxel_size, accel.bdims)
-    n = len(o)
     for kk in (1, 2, 5):
         bricks = np.ascontiguousarray(hits[:kk].numpy())
-        t_k = np.empty(n, np.float32)
-        lin_k = np.empty(n, np.int32)
-        host_kernels["brick_fine"](
-            o.ctypes.data, d.ctypes.data, bricks.ctypes.data, kk,
-            fine.ctypes.data, fine.shape[1], 0, tmn.ctypes.data,
-            tmx.ctypes.data, n, accel.dims[0], accel.dims[1],
-            *accel.bdims, *map(float, og), float(vs), float(half),
-            float(bwf), float(scale), t_k.ctypes.data, lin_k.ctypes.data)
+        t_k, lin_k = _host_fine(host_kernels["brick_fine"], o, d, bricks,
+                                accel.fine, 0, tmn, tmx, accel)
         t_p, lin_p = fine_plain(t(o), t(d), t(bricks), accel.fine, t(tmn),
                                 t(tmx), dims=accel.dims, bdims=accel.bdims,
                                 origin_key=accel.origin_key,
@@ -843,18 +775,8 @@ def test_host_k4_edge_grazing_rays_match_the_oracle(host_kernels):
                             origin_key=accel.origin_key,
                             brick_world=float(accel.voxel_size * 8),
                             k_hits=5)
-    bricks = np.ascontiguousarray(hits.numpy())
-    fine = np.ascontiguousarray(accel.fine.numpy())
-    og, vs32, half, bwf, scale = brick_fine._consts(
-        accel.origin_key, accel.voxel_size, accel.bdims)
-    t_k = np.empty(n, np.float32)
-    lin_k = np.empty(n, np.int32)
-    host_kernels["brick_fine"](
-        o.ctypes.data, d.ctypes.data, bricks.ctypes.data, 5,
-        fine.ctypes.data, fine.shape[1], 0, tmn.ctypes.data,
-        tmx.ctypes.data, n, accel.dims[0], accel.dims[1], *accel.bdims,
-        *map(float, og), float(vs32), float(half), float(bwf), float(scale),
-        t_k.ctypes.data, lin_k.ctypes.data)
+    t_k, lin_k = _host_fine(host_kernels["brick_fine"], o, d, hits.numpy(),
+                            accel.fine, 0, tmn, tmx, accel)
     t_f, lin_f = fine_plain(t(o), t(d), hits, accel.fine, t(tmn), t(tmx),
                             dims=accel.dims, bdims=accel.bdims,
                             origin_key=accel.origin_key, voxel_size=vs)
@@ -862,22 +784,17 @@ def test_host_k4_edge_grazing_rays_match_the_oracle(host_kernels):
     assert np.array_equal(t_k, t_f.numpy())
 
 
-def _host_fine(fn, o, d, bricks, fine, fine_off, tmn, tmx, accel):
+def _host_fine(lib, o, d, bricks, fine, fine_off, tmn, tmx, accel):
     """K4 built for the host over the window `fine` of the bricks from id
-    fine_off on: (t, lin)."""
-    n = len(o)
-    bricks = np.ascontiguousarray(bricks, np.int32)
-    fine = np.ascontiguousarray(fine.numpy())
-    og, vs, half, bwf, scale = brick_fine._consts(
-        accel.origin_key, accel.voxel_size, accel.bdims)
-    t_k = np.empty(n, np.float32)
-    lin_k = np.empty(n, np.int32)
-    fn(o.ctypes.data, d.ctypes.data, bricks.ctypes.data, bricks.shape[0],
-       fine.ctypes.data, fine.shape[1], fine_off, tmn.ctypes.data,
-       tmx.ctypes.data, n, accel.dims[0], accel.dims[1], *accel.bdims,
-       *map(float, og), float(vs), float(half), float(bwf), float(scale),
-       t_k.ctypes.data, lin_k.ctypes.data)
-    return t_k, lin_k
+    fine_off on, in the grid of `accel`: (t, lin)."""
+    t = torch.from_numpy
+    a, outs = brick_fine.fine_args(
+        t(o), t(d), t(np.ascontiguousarray(bricks, np.int32)),
+        fine.contiguous(), t(tmn), t(tmx), dims=accel.dims,
+        bdims=accel.bdims, origin_key=accel.origin_key,
+        voxel_size=accel.voxel_size, fine_off=fine_off)
+    _launch(lib, a, "brick_fine_launch")
+    return tuple(x.numpy() for x in outs)
 
 
 def test_host_k4_fine_window_matches_plain(host_kernels):
@@ -1009,14 +926,12 @@ def test_host_staged_march_matches_plain(host_kernels, kind, two_level, k,
         _STAGED_PLAIN[key] = staged_march.staged_march_plain(*args)
     want_t, want_lin, want_unres = _STAGED_PLAIN[key]
     assert want_unres == 0
-    outs = (torch.full((n,), 7.0), torch.full((n,), 7, dtype=torch.int32),
-            torch.zeros((), dtype=torch.int64))
-    l2 = accel.l2 if two_level else None
-    launch = staged_march._launch_args(
-        t(o), t(d), t(tmn), t(tmx), admit, accel, l2, k, outs, lanes=128)
-    assert (launch[-1] is None) == sparse and n > 128
-    host_kernels[f"staged_march/{schedule}"](
-        *[x.data_ptr() if torch.is_tensor(x) else x for x in launch])
+    a, outs = staged_march.staged_args(t(o), t(d), accel, t(tmn), t(tmx),
+                                       admit, k, two_level, lanes=128)
+    outs[0].fill_(7.0)
+    outs[1].fill_(7)
+    assert ("deferred" not in a.keep) == sparse and n > 128
+    _launch(host_kernels[f"staged_march/{schedule}"], a)
     got_t, got_lin, unresolved = outs
     assert int(unresolved) == 0
     assert torch.equal(got_lin, want_lin)
@@ -1027,55 +942,63 @@ def test_host_staged_march_matches_plain(host_kernels, kind, two_level, k,
         assert not (got_lin[~admit] >= 0).any()
     elif schedule == "deferred":
         # rays were deferred, and every ticket handed out was taken
-        sched = launch[-3]
+        sched = a.keep["sched"]
         assert int(sched[0]) > 0 and int(sched[32]) >= int(sched[0])
 
 
-def _run_held(lib_path, args, passes):
-    """host_launch of the host build at lib_path in a held run (SHIM's
-    host_run: thread 1 stops inside its first ray until thread 0 has
-    slept `passes` idle passes), in a subprocess, so that a build that
-    aborts fails the run and not the test process.  args: host_launch's
-    arguments (tensors, None, ints, floats); the tensors are written back
-    with the run's results.  Returns (exit code, idle passes slept)."""
+def _run_held(lib_path, a, tensors, passes):
+    """host_launch of the host build at lib_path on argument block `a` in
+    a held run (SHIM's host_run: thread 1 stops inside its first ray
+    until thread 0 has slept `passes` idle passes), in a subprocess, so
+    that a build that aborts fails the run and not the test process.
+    `tensors`: the CPU tensors whose storage a's pointers point into,
+    written back with the run's results.  Returns (exit code, idle passes
+    slept)."""
     import tempfile
+    views = {}
+    for x in tensors:
+        st = x.untyped_storage()
+        views[st.data_ptr()] = torch.empty(0, dtype=torch.uint8).set_(st)
+    spans = list(views.items())
+    fixes = []      # (the pointer's offset in the block, storage, offset)
+    for name, kind in type(a)._fields_:
+        p = getattr(a, name)
+        if kind is ctypes.c_void_p and p:
+            k = next(k for k, (base, v) in enumerate(spans)
+                     if base <= p < base + v.numel())
+            fixes.append((getattr(type(a), name).offset, k, p - spans[k][0]))
     with tempfile.TemporaryDirectory() as tmp:
-        arrays, spec = {}, []
-        for k, x in enumerate(args):
-            if torch.is_tensor(x):
-                arrays[f"a{k}"] = x.numpy()
-                spec.append(["a", f"a{k}"])
-            else:
-                spec.append(["n" if x is None else
-                             "f" if isinstance(x, float) else "i", x])
-        np.savez(Path(tmp) / "in.npz", **arrays)
-        (Path(tmp) / "spec.json").write_text(json.dumps(spec))
+        np.savez(Path(tmp) / "in.npz",
+                 *[v.numpy() for _, v in spans], block=np.frombuffer(
+                     bytes(a), np.uint8))
+        (Path(tmp) / "fixes.json").write_text(json.dumps(fixes))
         runner = Path(tmp) / "run.py"
         runner.write_text(f"""
-import ctypes, json, sys
+import ctypes, json
 import numpy as np
 tmp = {str(tmp)!r}
 lib = ctypes.CDLL({str(lib_path)!r})
-arrays = dict(np.load(tmp + "/in.npz"))
-args = []
-for kind, v in json.load(open(tmp + "/spec.json")):
-    args.append(ctypes.c_void_p(arrays[v].ctypes.data) if kind == "a" else
-                None if kind == "n" else ctypes.c_float(v) if kind == "f"
-                else ctypes.c_int(v))
+data = dict(np.load(tmp + "/in.npz"))
+arrays = [data[f"arr_{{k}}"] for k in range(len(data) - 1)]
+block = (ctypes.c_char * data["block"].size).from_buffer_copy(data["block"])
+for offset, k, delta in json.load(open(tmp + "/fixes.json")):
+    ctypes.c_void_p.from_buffer(block, offset).value = (
+        arrays[k].ctypes.data + delta)
 lib.host_set_held({passes})
-lib.host_launch(*args)
-np.savez(tmp + "/out.npz", **arrays)
-print(lib.host_idle_count())
+lib.host_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+rc = lib.host_launch(ctypes.addressof(block), None)
+np.savez(tmp + "/out.npz", *arrays)
+print(rc, lib.host_idle_count())
 """)
         proc = subprocess.run([sys.executable, str(runner)],
                               capture_output=True, text=True, timeout=120)
         if proc.returncode != 0:
             return proc.returncode, 0
         out = np.load(Path(tmp) / "out.npz")
-        for k, x in enumerate(args):
-            if torch.is_tensor(x):
-                x.copy_(torch.from_numpy(out[f"a{k}"]))
-        return 0, int(proc.stdout.split()[-1])
+        for k, (_, v) in enumerate(spans):
+            v.copy_(torch.from_numpy(out[f"arr_{k}"]))
+        rc, idle = map(int, proc.stdout.split()[-2:])
+        return rc, idle
 
 
 @pytest.fixture(scope="module")
@@ -1088,7 +1011,7 @@ def held_builds(tmp_path_factory):
     for name, defines in (("tri_march", TRI_SCHEDULES["shared"]),
                           ("staged_march", STAGED_SCHEDULES["deferred"])):
         _host_build(out, name, (CSRC / f"{name}.cu").read_text(),
-                    DRIVERS[name][0], CSRC,
+                    DRIVERS[name], CSRC,
                     [*defines, f"-DHOST_CLOCK_STEP={HELD_CLOCK_STEP}ll"])
         paths[name] = out / f"lib{name}.so"
     return paths
@@ -1106,28 +1029,23 @@ def test_host_idle_warp_waits_out_a_held_ray(held_builds, kernel):
     lap loop's bit for bit, unresolved 0."""
     t = torch.from_numpy
     if kernel == "tri_march":
-        tri, ta = _tri_scene("knot", 32)
-        o, d, tmn, tmx = map(t, _tri_rays("camera", tri, ta,
+        tri, accel = _tri_scene("knot", 32)
+        o, d, tmn, tmx = map(t, _tri_rays("camera", tri, accel,
                                           np.random.default_rng(32)))
-        n = o.shape[0]
-        want = tri_march_plain(o, d, tmn, tmx, ta)
-        outs = (torch.empty(n), torch.empty(n, dtype=torch.int32),
-                torch.empty(n), torch.empty(n),
-                torch.zeros(1, dtype=torch.int64))
-        args = tri_march._launch_args(o, d, tmn, tmx, ta, None, outs,
-                                      lanes=128)
+        want = tri_march_plain(o, d, tmn, tmx, accel)
+        a, outs = tri_march.march_args(o, d, tmn, tmx, accel, False,
+                                       lanes=128)
     else:
         accel, o, d, tmn, tmx = map(
             lambda x: t(x) if isinstance(x, np.ndarray) else x,
             _staged_scene("boxes", np.random.default_rng(11)))
-        n = o.shape[0]
         want = staged_march.staged_march_plain(o, d, accel, tmn, tmx, None,
                                                5, True)
-        outs = (torch.empty(n), torch.empty(n, dtype=torch.int32),
-                torch.zeros((), dtype=torch.int64))
-        args = staged_march._launch_args(o, d, tmn, tmx, None, accel,
-                                         accel.l2, 5, outs, lanes=128)
-    rc, idle = _run_held(held_builds[kernel], args, HELD_PASSES)
+        a, outs = staged_march.staged_args(o, d, accel, tmn, tmx, None, 5,
+                                           True, lanes=128)
+    rc, idle = _run_held(held_builds[kernel], a,
+                         _tensors(o, d, tmn, tmx, accel, *outs,
+                                  *a.keep.values()), HELD_PASSES)
     assert rc == 0, f"the held run failed (exit code {rc})"
     assert idle >= HELD_PASSES
     assert int(outs[-1].sum()) == 0 and want[-1] == 0
@@ -1233,14 +1151,9 @@ def test_host_tri_march_matches_plain(host_kernels, name, res, kind,
     hit = want[1] >= 0
     assert want[4] == 0 and int(hit.sum()) > 20
     for schedule in TRI_SCHEDULES:
-        outs = (torch.empty(n), torch.empty(n, dtype=torch.int32),
-                torch.empty(n), torch.empty(n),
-                torch.zeros(1, dtype=torch.int64))
-        args = tri_march._launch_args(
-            t(o), t(d), t(tmn), t(tmx), ta,
-            ta.brick.l2 if two_level else None, outs)
-        host_kernels[f"tri_march/{schedule}"](
-            *[x.data_ptr() if torch.is_tensor(x) else x for x in args])
+        a, outs = tri_march.march_args(t(o), t(d), t(tmn), t(tmx), ta,
+                                       two_level)
+        _launch(host_kernels[f"tri_march/{schedule}"], a)
         got_t, got_id, got_u, got_v, unresolved = outs
         assert int(unresolved) == 0
         assert torch.equal(got_id, want[1])
@@ -1258,7 +1171,7 @@ def _counting_build(out, name):
     """Kernel `name` (tri_march or staged_march) built for the host with
     two counters added to brick_walk.cuh: the brick walk's iterations in
     staged_group and K4's cell steps in fine_brick.  Returns a launcher
-    with host_launch's arguments that gives (brick steps, cell steps)."""
+    of an argument block that gives (brick steps, cell steps)."""
     hdr = (CSRC / "brick_walk.cuh").read_text()
     cell_loop = "  for (int step = 0; step < kSteps; ++step) {\n"
     assert hdr.count(cell_loop) == 1
@@ -1270,22 +1183,18 @@ def _counting_build(out, name):
     (out / "brick_walk.cuh").write_text(
         hdr.replace(cell_loop, cell_loop + "    ++g_cells;\n")
         .replace(brick_loop, brick_loop + "    ++g_bricks;\n"))
-    driver, argtypes = DRIVERS[name]
     lib = _host_build(out, f"{name}_counting",
                       (CSRC / f"{name}.cu").read_text(),
-                      driver + '''
+                      DRIVERS[name] + '''
 extern "C" void host_counts(unsigned long long* c) {
   c[0] = g_bricks;
   c[1] = g_cells;
   g_bricks = g_cells = 0;
 }
 ''', out)
-    lib.host_launch.argtypes = argtypes
-    lib.host_launch.restype = None
 
-    def run(*args):
-        lib.host_launch(*[x.data_ptr() if torch.is_tensor(x) else x
-                          for x in args])
+    def run(a):
+        _launch(lib, a)
         c = (ctypes.c_ulonglong * 2)()
         lib.host_counts(c)
         return int(c[0]), int(c[1])
@@ -1323,11 +1232,8 @@ def test_host_tri_march_work_count_is_the_kernels(counting_march, name, res,
     tri, ta = _tri_scene(name, res)
     o, d, tmn, tmx = map(torch.from_numpy, _tri_rays(
         kind, tri, ta, np.random.default_rng(res)))
-    n = o.shape[0]
-    outs = (torch.empty(n), torch.empty(n, dtype=torch.int32),
-            torch.empty(n), torch.empty(n), torch.zeros(1, dtype=torch.int64))
-    args = tri_march._launch_args(o, d, tmn, tmx, ta, None, outs)
-    bricks, cells = counting_march(*args)
+    a, outs = tri_march.march_args(o, d, tmn, tmx, ta, False)
+    bricks, cells = counting_march(a)
     want, work, _ = march_work(o, d, tmn, tmx, ta)
     assert torch.equal(outs[1], want[1])
     assert cells > 0 and bricks > 0
@@ -1351,48 +1257,16 @@ def test_host_staged_march_work_count_is_the_kernels(counting_staged, kind,
     n = len(o)
     admit = t(rng.random(n) < 0.05) if sparse else None
     args = (t(o), t(d), accel, t(tmn), t(tmx), admit, k, None)
-    outs = (torch.empty(n), torch.empty(n, dtype=torch.int32),
-            torch.zeros((), dtype=torch.int64))
-    l2 = accel.l2 if staged_march.use_two_level(accel, None) else None
-    bricks, cells = counting_staged(*staged_march._launch_args(
-        t(o), t(d), t(tmn), t(tmx), admit, accel, l2, k, outs))
+    a, outs = staged_march.staged_args(*args)
+    bricks, cells = counting_staged(a)
     want, work, _ = staged_work(*args)
     assert torch.equal(outs[1], want[1]) and int(outs[2]) == 0
     assert cells > 0 and bricks > 0
     assert (work["brick_steps"], work["cell_steps"]) == (bricks, cells)
 
 
-
 # ---- the frame glue: csrc/frame_shade.cu against render/pipeline.py -----
 
-FRAME_DRIVER = """
-extern "C" void host_sizes(int* out) {
-  out[0] = static_cast<int>(sizeof(RaysArgs));
-  out[1] = static_cast<int>(sizeof(SurfaceArgs));
-  out[2] = static_cast<int>(sizeof(ShadeArgs));
-}
-// every block of one-thread-a-ray kernels, thread after thread
-template <class A, class K>
-static void host_grid(const A* a, K kernel) {
-  blockDim.x = kThreads;
-  gridDim.x = (a->n + kThreads - 1) / kThreads;
-  for (unsigned b = 0; b < gridDim.x; ++b)
-    for (unsigned t = 0; t < blockDim.x; ++t) {
-      blockIdx.x = b;
-      threadIdx.x = t;
-      kernel(*a);
-    }
-}
-extern "C" void host_camera_rays(const RaysArgs* a) {
-  host_grid(a, camera_rays_kernel);
-}
-extern "C" void host_hit_surface(const SurfaceArgs* a) {
-  host_grid(a, hit_surface_kernel);
-}
-extern "C" void host_shade_post(const ShadeArgs* a) {
-  host_grid(a, shade_post_kernel);
-}
-"""
 CLEAR = (0.2, 0.3, 0.5, 1.0)
 POINT = Light()
 DIRECTIONAL = Light(position=(-3.0, 7.0, 2.0), intensity=2.5, type=1)
@@ -1411,22 +1285,9 @@ FRAME_CASES = {
 
 
 @pytest.fixture(scope="module")
-def frame_host(tmp_path_factory):
-    """csrc/frame_shade.cu built for the host: its three kernels, their
-    argument blocks the wrapper's ctypes structures."""
-    lib = _host_build(tmp_path_factory.mktemp("frame_shade"), "frame_shade",
-                      (CSRC / "frame_shade.cu").read_text(), FRAME_DRIVER,
-                      CSRC)
-    structs = (frame_shade.RaysArgs, frame_shade.SurfaceArgs,
-               frame_shade.ShadeArgs)
-    sizes = (ctypes.c_int * 3)()
-    lib.host_sizes(sizes)
-    assert list(sizes) == [ctypes.sizeof(s) for s in structs]
-    for name, struct in zip(("host_camera_rays", "host_hit_surface",
-                             "host_shade_post"), structs):
-        getattr(lib, name).argtypes = [ctypes.POINTER(struct)]
-        getattr(lib, name).restype = None
-    return lib
+def frame_host(host_kernels):
+    """csrc/frame_shade.cu built for the host."""
+    return host_kernels["frame_shade"]
 
 
 def _tri_model(v, f, rng, tex=None):
@@ -1518,7 +1379,7 @@ def _host_rays(lib, width, height, vi, pi, tiled):
                                     torch.device("cpu"))
     o.fill_(7.0)
     d.fill_(7.0)
-    lib.host_camera_rays(ctypes.byref(a))
+    _launch(lib, a, "camera_rays_launch")
     return o, d
 
 
@@ -1536,7 +1397,7 @@ def _host_surface(lib, scene, o, d, primary, light, backend):
         light.position, light.intensity, light.type)
     for x in surf:
         x.view(torch.uint8).fill_(0xA5)     # every output must be written
-    lib.host_hit_surface(ctypes.byref(a))
+    _launch(lib, a, "hit_surface_launch")
     return surf
 
 
@@ -1612,7 +1473,7 @@ def _host_shade(lib, scene, surf, d, occluded, frame=None):
     a, out = frame_shade.shade_args(surf, d, occluded, scene.materials,
                                     scene.voxel_material, CLEAR, frame)
     out.fill_(7.0)
-    lib.host_shade_post(ctypes.byref(a))
+    _launch(lib, a, "shade_post_launch")
     return out
 
 
@@ -1676,53 +1537,11 @@ def test_host_shade_post_matches_plain(frame_host, frame_scenes, ieee_sqrt,
 
 # ---- a voxel scene's rebuild: csrc/accel_build.cu against the PyTorch build
 
-ACCEL_DRIVER = """
-extern "C" void host_sizes(int* out) {
-  out[0] = static_cast<int>(sizeof(AccelArgs));
-  out[1] = static_cast<int>(sizeof(BoxArgs));
-}
-// every block of a launch of `threads` threads, thread after thread
-template <class A, class K>
-static void host_threads(const A* a, long long threads, K kernel) {
-  blockDim.x = kThreads;
-  gridDim.x = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-  for (unsigned b = 0; b < gridDim.x; ++b)
-    for (unsigned t = 0; t < blockDim.x; ++t) {
-      blockIdx.x = b;
-      threadIdx.x = t;
-      kernel(*a);
-    }
-}
-// the two passes as accel_build_launch queues them
-extern "C" void host_accel_build(const AccelArgs* a) {
-  host_threads(a, static_cast<long long>(a->coarse_words) * kWarp,
-               accel_words_kernel);
-  const long long n_sb = static_cast<long long>(a->sbx) * a->sby * a->sbz;
-  host_threads(a, n_sb * (a->tiles ? kTileJobs : 16), accel_tiles_kernel);
-}
-extern "C" void host_aabb_boxes(const BoxArgs* a) {
-  host_threads(a, a->n, aabb_boxes_kernel);
-}
-"""
-
-
 @pytest.fixture(scope="module")
-def accel_host(tmp_path_factory):
+def accel_host(host_kernels):
     """csrc/accel_build.cu built for the host: both passes of the accel
-    build and the boxes, their argument blocks the wrapper's ctypes
-    structures."""
-    lib = _host_build(tmp_path_factory.mktemp("accel_build"), "accel_build",
-                      (CSRC / "accel_build.cu").read_text(), ACCEL_DRIVER,
-                      CSRC)
-    structs = (accel_build.AccelArgs, accel_build.BoxArgs)
-    sizes = (ctypes.c_int * 2)()
-    lib.host_sizes(sizes)
-    assert list(sizes) == [ctypes.sizeof(s) for s in structs]
-    for name, struct in zip(("host_accel_build", "host_aabb_boxes"),
-                            structs):
-        getattr(lib, name).argtypes = [ctypes.POINTER(struct)]
-        getattr(lib, name).restype = None
-    return lib
+    build and the boxes."""
+    return host_kernels["accel_build"]
 
 
 def _occupancy(kind):
@@ -1757,7 +1576,7 @@ def test_host_accel_tables_match_plain(accel_host, kind, fine_sb):
     for x in tables:
         if x is not None:
             x.view(torch.uint8).fill_(0xA5)
-    accel_host.host_accel_build(ctypes.byref(a))
+    _launch(accel_host, a, "accel_build_launch")
     fine, coarse, l2, tiles = tables
     assert torch.equal(fine, want.fine)
     assert torch.equal(coarse, want.coarse)
@@ -1783,6 +1602,6 @@ def test_host_aabb_boxes_match_plain(accel_host, dims, origin, vs):
         [0, n_cells - 1], rng.integers(0, n_cells, 5000)]).astype(np.int64))
     a, boxes = accel_build.box_args(lin, dims, origin, vs)
     boxes.fill_(7.0)
-    accel_host.host_aabb_boxes(ctypes.byref(a))
+    _launch(accel_host, a, "aabb_boxes_launch")
     want = aabbs_from_linear(lin, dims, np.float32(origin), vs)
     assert boxes.shape == want.shape and torch.equal(boxes, want)

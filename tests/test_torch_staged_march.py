@@ -19,8 +19,8 @@ from test_torch_staged import (GRIDS, TRACES, _check_t,  # noqa: F401
 
 from voxelray_torch.io import meshes
 from voxelray_torch.ops.intersect import TMAX, TMIN
-from voxelray_torch.ops.kernels import (brick_fine, grid_walk, staged_march,
-                                        tri_march)
+from voxelray_torch.ops.kernels import (_build, brick_fine, grid_walk,
+                                        staged_march, tri_march)
 from voxelray_torch.ops.traverse import _per_ray
 from voxelray_torch.ops.traverse_fast import (any_hit_grid_fast, build_accel,
                                               trace_grid_fast)
@@ -205,17 +205,11 @@ def test_kernel_defers_long_rays_on_cuda(cuda):
     n = o.shape[0]
     tmn = torch.full((n,), 0.01, device=cuda)
     tmx = torch.full((n,), 2.5, device=cuda)
-    outs = (torch.empty((n,), device=cuda),
-            torch.empty((n,), dtype=torch.int32, device=cuda),
-            torch.zeros((), dtype=torch.int64, device=cuda))
-    args = staged_march._launch_args(o, d, tmn, tmx, None, accel, accel.l2,
-                                     5, outs, cfg["lanes"])
-    sched, slots = args[-3], args[-2]
-    assert slots is not None and slots.shape == (n, 4)
-    fn = staged_march._lib()
-    err = fn(*[x.data_ptr() if torch.is_tensor(x) else x for x in args],
-             torch.cuda.current_stream().cuda_stream)
-    assert err == 0
+    a, outs = staged_march.staged_args(o, d, accel, tmn, tmx, None, 5, True,
+                                       cfg["lanes"])
+    sched, slots = a.keep["sched"], a.keep["deferred"]
+    assert slots.shape == (n, 4)
+    _build.launch("staged_march", a, o.device)
     want = staged_march.staged_march_plain(o, d, accel, tmn, tmx, None, 5,
                                            True)
     torch.cuda.synchronize()

@@ -272,88 +272,30 @@ def test_each_sets_frame_matches_the_benchmark_reference(knot):
 
 # ------------------------------------------------ the kernels, host-built
 
-LAUNCHER = '''
-extern "C" void host_count(const float* tri, int n_tri, float ogx, float ogy,
-                           float ogz, float vs, float half, int nx, int ny,
-                           int nz, float lox, float loy, float loz,
-                           float hix, float hiy, float hiz, int* tri_count,
-                           int* cell_count, unsigned long long* outside,
-                           int blocks) {
-  BinArgs a = bin_args(tri, n_tri, ogx, ogy, ogz, vs, half, nx, ny, nz);
-  a.lox = lox; a.loy = loy; a.loz = loz;
-  a.hix = hix; a.hiy = hiy; a.hiz = hiz;
-  a.tri_count = tri_count;
-  a.cell_count = cell_count;
-  a.outside = outside;
-  blockDim.x = kThreads;
-  gridDim.x = blocks;
-  for (unsigned b = 0; b < gridDim.x; ++b)
-    for (unsigned t = 0; t < blockDim.x; ++t) {
-      blockIdx.x = b;
-      threadIdx.x = t;
-      tri_bin_count_kernel(a);
-    }
-}
-extern "C" void host_emit(const float* tri, int n_tri, float ogx, float ogy,
-                          float ogz, float vs, float half, int nx, int ny,
-                          int nz, const long long* cum, int* pair_tri,
-                          int* pair_lin, int blocks) {
-  BinArgs a = bin_args(tri, n_tri, ogx, ogy, ogz, vs, half, nx, ny, nz);
-  a.cum = cum;
-  a.pair_tri = pair_tri;
-  a.pair_lin = pair_lin;
-  blockDim.x = kThreads;
-  gridDim.x = blocks;
-  for (unsigned b = 0; b < gridDim.x; ++b)
-    for (unsigned t = 0; t < blockDim.x; ++t) {
-      blockIdx.x = b;
-      threadIdx.x = t;
-      tri_bin_emit_kernel(a);
-    }
-}
-'''
-
-
 @pytest.fixture(scope="module")
 def host_bin(tmp_path_factory):
     """(count, emit): tri_bin.count / emit with the host build of
-    csrc/tri_bin.cu in the kernels' place, on CPU tensors; `blocks` (0:
-    the launcher's) sets the grid."""
-    from test_torch_kernels_host import _host_build
-    import ctypes
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    csrc/tri_bin.cu in the kernels' place, on CPU tensors: the wrapper's
+    argument blocks through the source's own launchers; `blocks` (0: the
+    launcher's) sets the grid."""
+    from test_torch_kernels_host import _host_build, _launch
     lib = _host_build(tmp_path_factory.mktemp("tri_bin"), "tri_bin",
-                      (CSRC / "tri_bin.cu").read_text(), LAUNCHER, CSRC)
-    lib.host_count.argtypes = [P, I] + [F] * 5 + [I] * 3 + [F] * 6 \
-        + [P] * 3 + [I]
-    lib.host_emit.argtypes = [P, I] + [F] * 5 + [I] * 3 + [P] * 3 + [I]
+                      (CSRC / "tri_bin.cu").read_text(), "", CSRC)
 
-    def grid(origin, vs, dims):
-        return (*map(float, np.asarray(origin, np.float32)),
-                float(np.float32(vs)), float(np.float32(vs * 0.5)),
-                *map(int, dims))
-
-    def n_blocks(n_tri, blocks):
-        return blocks or max(1, -(-n_tri // 256))
+    def run(name, a, outs, blocks):
+        for x in outs[:2 if name == "tri_bin_emit_launch" else 1]:
+            x.fill_(-7)
+        lib.host_set_blocks(blocks)
+        _launch(lib, a, name)
+        return outs
 
     def count(tri9, n_tri, origin, vs, dims, lo, hi, blocks=0):
-        nx, ny, nz = dims
-        tri_count = torch.full((n_tri,), -7, dtype=torch.int32)
-        cell_count = torch.zeros((nx * ny * nz,), dtype=torch.int32)
-        outside = torch.zeros((1,), dtype=torch.int64)
-        box = [float(x) for b in (lo, hi) for x in np.asarray(b, np.float32)]
-        lib.host_count(tri9.data_ptr(), n_tri, *grid(origin, vs, dims),
-                       *box, tri_count.data_ptr(), cell_count.data_ptr(),
-                       outside.data_ptr(), n_blocks(n_tri, blocks))
-        return tri_count, cell_count, outside
+        return run("tri_bin_count_launch", *tri_bin.bin_args(
+            tri9, n_tri, origin, vs, dims, lo, hi), blocks)
 
     def emit(tri9, n_tri, origin, vs, dims, cum, n_pairs, blocks=0):
-        pair_tri = torch.full((n_pairs,), -7, dtype=torch.int32)
-        pair_lin = torch.full((n_pairs,), -7, dtype=torch.int32)
-        lib.host_emit(tri9.data_ptr(), n_tri, *grid(origin, vs, dims),
-                      cum.data_ptr(), pair_tri.data_ptr(),
-                      pair_lin.data_ptr(), n_blocks(n_tri, blocks))
-        return pair_tri, pair_lin
+        return run("tri_bin_emit_launch", *tri_bin.bin_args(
+            tri9, n_tri, origin, vs, dims, cum=cum, n_pairs=n_pairs), blocks)
 
     return count, emit
 

@@ -57,6 +57,22 @@
 
 #include "brick_walk.cuh"
 
+// brick_fine_launch's argument block (ops/kernels/brick_fine.py): the
+// kernel's arguments, FineGrid's fields in its place (fine holds the nb
+// bricks from fine_off on).
+struct BrickFineArgs {
+  const float *o, *d;
+  const int* bricks;  // (k_slots, n)
+  int k_slots;
+  const uint32_t* fine;
+  int nb, fine_off;
+  const float *t_min, *t_max;
+  int n, nx, ny, bx, by, bz;
+  float ogx, ogy, ogz, vs, half, bwf, scale;
+  float* t_out;
+  int* lin_out;
+};
+
 namespace {
 
 // o, d: (n, 3); bricks: (k_slots, n); fine: (16, g.nb) words of the bricks
@@ -85,25 +101,17 @@ __global__ void brick_fine_kernel(
 
 }  // namespace
 
-extern "C" int brick_fine_launch(
-    const void* o, const void* d, const void* bricks, int k_slots,
-    const void* fine, int nb, int fine_off, const void* t_min,
-    const void* t_max, int n, int nx, int ny, int bx, int by, int bz,
-    float ogx, float ogy, float ogz, float vs, float half, float bwf,
-    float scale, void* t_out, void* lin_out, void* stream) {
-  if (n <= 0) return 0;
-  FineGrid g;
-  g.nx = nx; g.ny = ny; g.bx = bx; g.by = by; g.bz = bz; g.nb = nb;
-  g.off = fine_off;
-  g.ogx = ogx; g.ogy = ogy; g.ogz = ogz;
-  g.vs = vs; g.half = half; g.bwf = bwf; g.scale = scale;
+extern "C" int brick_fine_launch(const BrickFineArgs* a, void* stream) {
+  if (a->n <= 0) return 0;
   const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
+  const int blocks = (a->n + threads - 1) / threads;
   brick_fine_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(o), static_cast<const float*>(d),
-      static_cast<const int*>(bricks), k_slots,
-      static_cast<const uint32_t*>(fine), static_cast<const float*>(t_min),
-      static_cast<const float*>(t_max), n, g, static_cast<float*>(t_out),
-      static_cast<int*>(lin_out));
+      a->o, a->d, a->bricks, a->k_slots, a->fine, a->t_min, a->t_max, a->n,
+      fine_grid(*a, a->fine_off), a->t_out, a->lin_out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// sizeof of the argument block (the wrapper's must match).
+extern "C" void brick_fine_sizes(int* out) {
+  out[0] = static_cast<int>(sizeof(BrickFineArgs));
 }

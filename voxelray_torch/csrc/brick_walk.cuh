@@ -50,6 +50,31 @@ struct FineGrid {
   float scale;
 };
 
+// The grids of an argument block b that holds their fields (bricks bx,
+// by, bz; origin ogx, ogy, ogz; brick width bwf; cells nx, ny of size vs,
+// half = vs / 2; the coordinate scale; the fine table's nb bricks), the
+// fine table's window starting at brick `off`.
+template <class B>
+WalkGrid walk_grid(const B& b) {
+  WalkGrid g;
+  g.bx = b.bx; g.by = b.by; g.bz = b.bz;
+  g.sbx = (b.bx + 7) / 8;
+  g.sby = (b.by + 7) / 8;
+  g.ogx = b.ogx; g.ogy = b.ogy; g.ogz = b.ogz; g.bw = b.bwf;
+  return g;
+}
+
+template <class B>
+FineGrid fine_grid(const B& b, int off) {
+  FineGrid g;
+  g.nx = b.nx; g.ny = b.ny; g.bx = b.bx; g.by = b.by; g.bz = b.bz;
+  g.nb = b.nb;
+  g.off = off;
+  g.ogx = b.ogx; g.ogy = b.ogy; g.ogz = b.ogz;
+  g.vs = b.vs; g.half = b.half; g.bwf = b.bwf; g.scale = b.scale;
+  return g;
+}
+
 // One ray: origin, direction, its IEEE reciprocal, the accept bounds
 // [t_lo, t_hi], K4's near-tie window, step signs and forward flags
 struct Ray {

@@ -51,6 +51,18 @@
 
 #include "brick_walk.cuh"
 
+// grid_walk_launch's argument block (ops/kernels/grid_walk.py): the
+// kernel's arguments, WalkGrid's fields in its place.
+struct GridWalkArgs {
+  const float *o, *d, *t_min, *t_max;
+  const int *cell_in, *active_in;
+  const uint32_t *coarse, *l2;
+  int l2_words, n, bx, by, bz;
+  float ogx, ogy, ogz, bwf;
+  int k_hits;
+  int *hits_out, *cell_out, *cont_out;
+};
+
 namespace {
 
 // o, d: (n, 3); t_max: (n,).  Entry state either from (cell_in (n, 3),
@@ -106,28 +118,20 @@ __global__ void grid_walk_kernel(
 
 }  // namespace
 
-extern "C" int grid_walk_launch(
-    const void* o, const void* d, const void* t_min, const void* t_max,
-    const void* cell_in, const void* active_in, const void* coarse,
-    const void* l2, int l2_words, int n, int bx, int by, int bz, float ogx,
-    float ogy, float ogz, float bw, int k_hits, void* hits_out,
-    void* cell_out, void* cont_out, void* stream) {
-  if (n <= 0) return 0;
-  WalkGrid g;
-  g.bx = bx; g.by = by; g.bz = bz;
-  g.sbx = (bx + 7) / 8;
-  g.sby = (by + 7) / 8;
-  g.ogx = ogx; g.ogy = ogy; g.ogz = ogz; g.bw = bw;
+extern "C" int grid_walk_launch(const GridWalkArgs* a, void* stream) {
+  if (a->n <= 0) return 0;
   const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  const size_t smem = l2 != nullptr ? sizeof(uint32_t) * l2_words : 0;
+  const int blocks = (a->n + threads - 1) / threads;
+  const size_t smem = a->l2 != nullptr ? sizeof(uint32_t) * a->l2_words : 0;
   grid_walk_kernel<<<blocks, threads, smem,
                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(o), static_cast<const float*>(d),
-      static_cast<const float*>(t_min), static_cast<const float*>(t_max),
-      static_cast<const int*>(cell_in), static_cast<const int*>(active_in),
-      static_cast<const uint32_t*>(coarse), static_cast<const uint32_t*>(l2),
-      l2_words, n, g, k_hits, static_cast<int*>(hits_out),
-      static_cast<int*>(cell_out), static_cast<int*>(cont_out));
+      a->o, a->d, a->t_min, a->t_max, a->cell_in, a->active_in, a->coarse,
+      a->l2, a->l2_words, a->n, walk_grid(*a), a->k_hits, a->hits_out,
+      a->cell_out, a->cont_out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// sizeof of the argument block (the wrapper's must match).
+extern "C" void grid_walk_sizes(int* out) {
+  out[0] = static_cast<int>(sizeof(GridWalkArgs));
 }

@@ -71,6 +71,20 @@
 #include <math.h>
 #include <stdint.h>
 
+// mega_trace_launch's argument block (ops/kernels/mega_trace.py):
+// TraceArgs' fields, the grid's in the place of its Grid.  next_ray:
+// stripes * 32 zeroed ints on the device (a counter every 128 bytes).
+struct MegaTraceArgs {
+  const float *o, *d, *t_min, *t_max;
+  const uint8_t* admit;
+  const uint32_t *l2, *fine_sb;
+  int n, nx, ny, nz, bx, by, bz;
+  float ogx, ogy, ogz, vs, half, bw;
+  float* t_out;
+  int *lin_out, *alive_out, *next_ray;
+  int stripes;
+};
+
 namespace {
 
 constexpr int kBrick = 8;
@@ -601,55 +615,39 @@ __global__ void __launch_bounds__(kThreads) mega_trace_kernel(TraceArgs a) {
   }
 }
 
-// The kernel's arguments from the C entry point's (shared with the host
-// build's launcher in tests/test_torch_kernels_host.py).
-TraceArgs trace_args(const void* o, const void* d, const void* t_min,
-                     const void* t_max, const void* admit, const void* l2,
-                     const void* fine_sb, int n, int nx, int ny, int nz,
-                     int bx, int by, int bz, float ogx, float ogy, float ogz,
-                     float vs, float half, float bw, void* t_out,
-                     void* lin_out, void* alive_out, void* next_ray,
-                     int stripes) {
+// The kernel's arguments from the entry point's block.
+TraceArgs trace_args(const MegaTraceArgs& b) {
   TraceArgs a;
-  a.o = static_cast<const float*>(o);
-  a.d = static_cast<const float*>(d);
-  a.t_min = static_cast<const float*>(t_min);
-  a.t_max = static_cast<const float*>(t_max);
-  a.admit = static_cast<const uint8_t*>(admit);
-  a.l2 = static_cast<const uint32_t*>(l2);
-  a.fine_sb = static_cast<const uint32_t*>(fine_sb);
-  a.n = n;
-  a.g.nx = nx; a.g.ny = ny; a.g.nz = nz;
-  a.g.bx = bx; a.g.by = by; a.g.bz = bz;
-  a.g.sbx = (bx + 7) / 8;
-  a.g.sby = (by + 7) / 8;
-  a.g.ogx = ogx; a.g.ogy = ogy; a.g.ogz = ogz;
-  a.g.vs = vs; a.g.half = half; a.g.bw = bw;
-  a.t_out = static_cast<float*>(t_out);
-  a.lin_out = static_cast<int*>(lin_out);
-  a.alive_out = static_cast<int*>(alive_out);
-  a.next_ray = static_cast<int*>(next_ray);
-  a.stripes = stripes;
-  a.chunks = (n + kWarp - 1) / kWarp;
+  a.o = b.o;
+  a.d = b.d;
+  a.t_min = b.t_min;
+  a.t_max = b.t_max;
+  a.admit = b.admit;
+  a.l2 = b.l2;
+  a.fine_sb = b.fine_sb;
+  a.n = b.n;
+  a.g.nx = b.nx; a.g.ny = b.ny; a.g.nz = b.nz;
+  a.g.bx = b.bx; a.g.by = b.by; a.g.bz = b.bz;
+  a.g.sbx = (b.bx + 7) / 8;
+  a.g.sby = (b.by + 7) / 8;
+  a.g.ogx = b.ogx; a.g.ogy = b.ogy; a.g.ogz = b.ogz;
+  a.g.vs = b.vs; a.g.half = b.half; a.g.bw = b.bw;
+  a.t_out = b.t_out;
+  a.lin_out = b.lin_out;
+  a.alive_out = b.alive_out;
+  a.next_ray = b.next_ray;
+  a.stripes = b.stripes;
+  a.chunks = (b.n + kWarp - 1) / kWarp;
   return a;
 }
 
 }  // namespace
 
-// next_ray: stripes * 32 zeroed ints on the device (a counter every 128
-// bytes).  Launches as many blocks as fit on the card at once (no more
-// than the rays need).
-extern "C" int mega_trace_launch(
-    const void* o, const void* d, const void* t_min, const void* t_max,
-    const void* admit, const void* l2, const void* fine_sb, int n, int nx,
-    int ny, int nz, int bx, int by, int bz, float ogx, float ogy, float ogz,
-    float vs, float half, float bw, void* t_out, void* lin_out,
-    void* alive_out, void* next_ray, int stripes, void* stream) {
-  if (n <= 0) return 0;
-  const TraceArgs a = trace_args(o, d, t_min, t_max, admit, l2, fine_sb, n,
-                                 nx, ny, nz, bx, by, bz, ogx, ogy, ogz, vs,
-                                 half, bw, t_out, lin_out, alive_out,
-                                 next_ray, stripes);
+// Launches as many blocks as fit on the card at once (no more than the
+// rays need).
+extern "C" int mega_trace_launch(const MegaTraceArgs* b, void* stream) {
+  if (b->n <= 0) return 0;
+  const TraceArgs a = trace_args(*b);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -658,8 +656,13 @@ extern "C" int mega_trace_launch(
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, mega_trace_kernel, kThreads, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = min((n + kThreads - 1) / kThreads, sms * per_sm);
+  const int blocks = min((a.n + kThreads - 1) / kThreads, sms * per_sm);
   mega_trace_kernel<<<blocks, kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// sizeof of the argument block (the wrapper's must match).
+extern "C" void mega_trace_sizes(int* out) {
+  out[0] = static_cast<int>(sizeof(MegaTraceArgs));
 }

@@ -66,6 +66,34 @@
 
 #include "brick_walk.cuh"
 
+// staged_march_launch's argument block (ops/kernels/staged_march.py):
+// StagedArgs' inputs and outputs, the fields of its WalkGrid, FineGrid
+// and Schedule in their place; smem_words: the shared memory words the
+// tables may take.  next_ray: stripes * 32 zeroed ints (a counter every
+// 128 bytes); unresolved: a zeroed 64-bit counter; sched: 3 * 32 zeroed
+// ints; deferred: n int4 and deferred_group n zeroed ints where every ray
+// is traced and n exceeds the lanes the launch holds (else null).
+struct StagedMarchArgs {
+  const float *o, *d, *t_min, *t_max;
+  const uint8_t* admit;
+  const uint32_t* coarse;
+  int coarse_words;
+  const uint32_t* l2;
+  int l2_words;
+  const uint32_t* fine;
+  int nb, fine_off, n, nx, ny, bx, by, bz;
+  float ogx, ogy, ogz, vs, half, bwf, scale;
+  int k_first, k_drain, max_groups, smem_words;
+  float* t_out;
+  int* lin_out;
+  unsigned long long* unresolved;
+  int* next_ray;
+  int stripes;
+  int* sched;
+  int4* deferred;
+  int* deferred_group;
+};
+
 namespace {
 
 // Lanes per warp: 32 on the card; the host test build runs one-lane warps.
@@ -437,52 +465,36 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
-// The kernel's arguments from the C entry point's (shared with the host
-// build's launcher in tests/test_torch_kernels_host.py).
-StagedArgs staged_args(
-    const void* o, const void* d, const void* t_min, const void* t_max,
-    const void* admit, const void* coarse, int coarse_words, const void* l2,
-    int l2_words, const void* fine, int nb, int fine_off, int n, int nx,
-    int ny, int bx, int by, int bz, float ogx, float ogy, float ogz,
-    float vs, float half, float bwf, float scale, int k_first, int k_drain,
-    int max_groups, int smem_words, void* t_out, void* lin_out,
-    void* unresolved, void* next_ray, int stripes, void* sched,
-    void* deferred, void* deferred_group) {
+// The kernel's arguments from the entry point's block.
+StagedArgs staged_args(const StagedMarchArgs& b) {
   StagedArgs a;
-  a.o = static_cast<const float*>(o);
-  a.d = static_cast<const float*>(d);
-  a.t_min = static_cast<const float*>(t_min);
-  a.t_max = static_cast<const float*>(t_max);
-  a.admit = static_cast<const uint8_t*>(admit);
-  a.coarse = static_cast<const uint32_t*>(coarse);
-  a.l2 = static_cast<const uint32_t*>(l2);
-  a.fine = static_cast<const uint32_t*>(fine);
-  a.coarse_words = coarse_words;
-  a.l2_words = l2 != nullptr ? l2_words : 0;
-  a.coarse_smem = a.l2_words + coarse_words <= smem_words;
-  a.table_words = a.l2_words + (a.coarse_smem ? coarse_words : 0);
-  a.n = n;
-  a.wg.bx = bx; a.wg.by = by; a.wg.bz = bz;
-  a.wg.sbx = (bx + 7) / 8;
-  a.wg.sby = (by + 7) / 8;
-  a.wg.ogx = ogx; a.wg.ogy = ogy; a.wg.ogz = ogz; a.wg.bw = bwf;
-  a.fg.nx = nx; a.fg.ny = ny; a.fg.bx = bx; a.fg.by = by; a.fg.bz = bz;
-  a.fg.nb = nb;
-  a.fg.off = fine_off;
-  a.fg.ogx = ogx; a.fg.ogy = ogy; a.fg.ogz = ogz;
-  a.fg.vs = vs; a.fg.half = half; a.fg.bwf = bwf; a.fg.scale = scale;
-  a.sc.k_first = k_first;
-  a.sc.k_drain = k_drain;
-  a.sc.max_groups = max_groups;
-  a.t_out = static_cast<float*>(t_out);
-  a.lin_out = static_cast<int*>(lin_out);
-  a.unresolved = static_cast<unsigned long long*>(unresolved);
-  a.next_ray = static_cast<int*>(next_ray);
-  a.stripes = stripes;
-  a.chunks = (n + kWarp - 1) / kWarp;
-  a.sched = static_cast<int*>(sched);
-  a.deferred = static_cast<int4*>(deferred);
-  a.deferred_group = static_cast<int*>(deferred_group);
+  a.o = b.o;
+  a.d = b.d;
+  a.t_min = b.t_min;
+  a.t_max = b.t_max;
+  a.admit = b.admit;
+  a.coarse = b.coarse;
+  a.l2 = b.l2;
+  a.fine = b.fine;
+  a.coarse_words = b.coarse_words;
+  a.l2_words = b.l2 != nullptr ? b.l2_words : 0;
+  a.coarse_smem = a.l2_words + b.coarse_words <= b.smem_words;
+  a.table_words = a.l2_words + (a.coarse_smem ? b.coarse_words : 0);
+  a.n = b.n;
+  a.wg = walk_grid(b);
+  a.fg = fine_grid(b, b.fine_off);
+  a.sc.k_first = b.k_first;
+  a.sc.k_drain = b.k_drain;
+  a.sc.max_groups = b.max_groups;
+  a.t_out = b.t_out;
+  a.lin_out = b.lin_out;
+  a.unresolved = b.unresolved;
+  a.next_ray = b.next_ray;
+  a.stripes = b.stripes;
+  a.chunks = (b.n + kWarp - 1) / kWarp;
+  a.sched = b.sched;
+  a.deferred = b.deferred;
+  a.deferred_group = b.deferred_group;
   return a;
 }
 
@@ -517,27 +529,11 @@ extern "C" int staged_march_config(int table_words, int* out) {
   return static_cast<int>(blocks_per_sm(smem, &out[3]));
 }
 
-// next_ray: stripes * 32 zeroed ints on the device (a counter every 128
-// bytes); unresolved: a zeroed 64-bit counter; sched: 3 * 32 zeroed
-// ints; deferred: n int4 and deferred_group n zeroed ints where every ray
-// is traced and n exceeds the lanes the launch holds (else null).
 // Launches as many blocks as fit on the card at once (no more than the
 // rays need).
-extern "C" int staged_march_launch(
-    const void* o, const void* d, const void* t_min, const void* t_max,
-    const void* admit, const void* coarse, int coarse_words, const void* l2,
-    int l2_words, const void* fine, int nb, int fine_off, int n, int nx,
-    int ny, int bx, int by, int bz, float ogx, float ogy, float ogz,
-    float vs, float half, float bwf, float scale, int k_first, int k_drain,
-    int max_groups, int smem_words, void* t_out, void* lin_out,
-    void* unresolved, void* next_ray, int stripes, void* sched,
-    void* deferred, void* deferred_group, void* stream) {
-  if (n <= 0) return 0;
-  const StagedArgs a = staged_args(
-      o, d, t_min, t_max, admit, coarse, coarse_words, l2, l2_words, fine, nb,
-      fine_off, n, nx, ny, bx, by, bz, ogx, ogy, ogz, vs, half, bwf, scale,
-      k_first, k_drain, max_groups, smem_words, t_out, lin_out, unresolved,
-      next_ray, stripes, sched, deferred, deferred_group);
+extern "C" int staged_march_launch(const StagedMarchArgs* b, void* stream) {
+  if (b->n <= 0) return 0;
+  const StagedArgs a = staged_args(*b);
   const size_t smem = smem_bytes(a.table_words);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -545,10 +541,15 @@ extern "C" int staged_march_launch(
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) err = blocks_per_sm(smem, &per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = min((n + kThreads - 1) / kThreads, sms * per_sm);
+  const int blocks = min((a.n + kThreads - 1) / kThreads, sms * per_sm);
   staged_march_kernel<<<blocks, kThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// sizeof of the argument block (the wrapper's must match).
+extern "C" void staged_march_sizes(int* out) {
+  out[0] = static_cast<int>(sizeof(StagedMarchArgs));
 }
 
 #ifdef STAGED_MARCH_CLOCKS

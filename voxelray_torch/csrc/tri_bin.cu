@@ -42,6 +42,22 @@
 
 #include "sat.cuh"
 
+// Both passes' argument block (ops/kernels/tri_bin.py): BinArgs' fields,
+// the other pass's outputs null.
+struct TriBinArgs {
+  const float* tri;
+  int n_tri;
+  float ogx, ogy, ogz, vs, half;
+  int nx, ny, nz;
+  float lox, loy, loz, hix, hiy, hiz;
+  int* tri_count;
+  int* cell_count;
+  unsigned long long* outside;
+  const long long* cum;
+  int* pair_tri;
+  int* pair_lin;
+};
+
 namespace {
 
 // Lanes per warp: 32 on the card; the host test build runs one-lane warps.
@@ -229,13 +245,21 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-BinArgs bin_args(const void* tri, int n_tri, float ogx, float ogy, float ogz,
-                 float vs, float half, int nx, int ny, int nz) {
-  BinArgs a = {};
-  a.tri = static_cast<const float*>(tri);
-  a.n_tri = n_tri;
-  a.ogx = ogx; a.ogy = ogy; a.ogz = ogz; a.vs = vs; a.half = half;
-  a.nx = nx; a.ny = ny; a.nz = nz;
+// The kernels' arguments from the entry points' block.
+BinArgs bin_args(const TriBinArgs& b) {
+  BinArgs a;
+  a.tri = b.tri;
+  a.n_tri = b.n_tri;
+  a.ogx = b.ogx; a.ogy = b.ogy; a.ogz = b.ogz; a.vs = b.vs; a.half = b.half;
+  a.nx = b.nx; a.ny = b.ny; a.nz = b.nz;
+  a.lox = b.lox; a.loy = b.loy; a.loz = b.loz;
+  a.hix = b.hix; a.hiy = b.hiy; a.hiz = b.hiz;
+  a.tri_count = b.tri_count;
+  a.cell_count = b.cell_count;
+  a.outside = b.outside;
+  a.cum = b.cum;
+  a.pair_tri = b.pair_tri;
+  a.pair_lin = b.pair_lin;
   return a;
 }
 
@@ -250,36 +274,23 @@ unsigned blocks_of(int n_tri) {
 
 // The count pass: tri_count (n_tri,) int32 written; cell_count (nx*ny*nz,)
 // int32 and outside (one 64-bit word) zeroed by the caller, added to.
-extern "C" int tri_bin_count_launch(
-    const void* tri, int n_tri, float ogx, float ogy, float ogz, float vs,
-    float half, int nx, int ny, int nz, float lox, float loy, float loz,
-    float hix, float hiy, float hiz, void* tri_count, void* cell_count,
-    void* outside, void* stream) {
-  if (n_tri <= 0) return 0;
-  BinArgs a = bin_args(tri, n_tri, ogx, ogy, ogz, vs, half, nx, ny, nz);
-  a.lox = lox; a.loy = loy; a.loz = loz;
-  a.hix = hix; a.hiy = hiy; a.hiz = hiz;
-  a.tri_count = static_cast<int*>(tri_count);
-  a.cell_count = static_cast<int*>(cell_count);
-  a.outside = static_cast<unsigned long long*>(outside);
-  tri_bin_count_kernel<<<blocks_of(n_tri), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(a);
+extern "C" int tri_bin_count_launch(const TriBinArgs* b, void* stream) {
+  if (b->n_tri <= 0) return 0;
+  tri_bin_count_kernel<<<blocks_of(b->n_tri), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(bin_args(*b));
   return static_cast<int>(cudaGetLastError());
 }
 
 // The emit pass: cum the inclusive scan of the count pass's tri_count
 // (int64), pair_tri and pair_lin (cum[n_tri - 1],) int32 written.
-extern "C" int tri_bin_emit_launch(const void* tri, int n_tri, float ogx,
-                                   float ogy, float ogz, float vs, float half,
-                                   int nx, int ny, int nz, const void* cum,
-                                   void* pair_tri, void* pair_lin,
-                                   void* stream) {
-  if (n_tri <= 0) return 0;
-  BinArgs a = bin_args(tri, n_tri, ogx, ogy, ogz, vs, half, nx, ny, nz);
-  a.cum = static_cast<const long long*>(cum);
-  a.pair_tri = static_cast<int*>(pair_tri);
-  a.pair_lin = static_cast<int*>(pair_lin);
-  tri_bin_emit_kernel<<<blocks_of(n_tri), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(a);
+extern "C" int tri_bin_emit_launch(const TriBinArgs* b, void* stream) {
+  if (b->n_tri <= 0) return 0;
+  tri_bin_emit_kernel<<<blocks_of(b->n_tri), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(bin_args(*b));
   return static_cast<int>(cudaGetLastError());
+}
+
+// sizeof of the argument block (the wrapper's must match).
+extern "C" void tri_bin_sizes(int* out) {
+  out[0] = static_cast<int>(sizeof(TriBinArgs));
 }

@@ -78,6 +78,33 @@
 
 #include "brick_walk.cuh"
 
+// tri_march_launch's argument block (ops/kernels/tri_march.py):
+// MarchArgs' inputs and outputs, the fields of its WalkGrid, FineGrids
+// (the tri grid's cell tri_vs, tri_half) and Schedule in their place;
+// smem_words: the shared memory words the tables may take.  sched:
+// kSchedWords zeroed ints; deferred: n zeroed int4 where n exceeds the
+// lanes the launch holds (else null).
+struct TriMarchArgs {
+  const float *o, *d, *t_min, *t_max;
+  const uint32_t* coarse;
+  int coarse_words;
+  const uint32_t* l2;
+  int l2_words;
+  const uint32_t* fine;
+  int nb;
+  const int *cell_slot, *cell_tris;
+  const float *tri9, *tri_origin;
+  int n, nx, ny, nz, bx, by, bz;
+  float ogx, ogy, ogz, vs, half, bwf, scale, tri_vs, tri_half;
+  int l_width, k_first, k_drain, max_groups, max_laps, smem_words;
+  float* t_out;
+  int* id_out;
+  float *u_out, *v_out;
+  unsigned long long* unresolved;
+  int* sched;
+  int4* deferred;
+};
+
 
 namespace {
 
@@ -793,59 +820,42 @@ __global__ void __launch_bounds__(kThreads) tri_march_kernel(MarchArgs a) {
   }
 }
 
-// The kernel's arguments from the C entry point's (shared with the
-// host build's launcher in tests/test_torch_kernels_host.py).
-MarchArgs march_args(
-    const void* o, const void* d, const void* t_min, const void* t_max,
-    const void* coarse, int coarse_words, const void* l2, int l2_words,
-    const void* fine, int nb, const void* cell_slot, const void* cell_tris,
-    const void* tri9, const void* tri_origin, int n, int nx, int ny, int nz,
-    int bx, int by, int bz, float ogx, float ogy, float ogz, float vs,
-    float half, float bwf, float scale, float tri_vs, float tri_half,
-    int l_width, int k_first, int k_drain, int max_groups, int max_laps,
-    int smem_words, void* t_out, void* id_out, void* u_out, void* v_out,
-    void* unresolved, void* sched, void* deferred) {
+// The kernel's arguments from the entry point's block.
+MarchArgs march_args(const TriMarchArgs& b) {
   MarchArgs a;
-  a.o = static_cast<const float*>(o);
-  a.d = static_cast<const float*>(d);
-  a.t_min = static_cast<const float*>(t_min);
-  a.t_max = static_cast<const float*>(t_max);
-  a.coarse = static_cast<const uint32_t*>(coarse);
-  a.l2 = static_cast<const uint32_t*>(l2);
-  a.fine = static_cast<const uint32_t*>(fine);
-  a.cell_slot = static_cast<const int*>(cell_slot);
-  a.cell_tris = static_cast<const int*>(cell_tris);
-  a.tri9 = static_cast<const float*>(tri9);
-  a.tri_origin = static_cast<const float*>(tri_origin);
-  a.coarse_words = coarse_words;
-  a.l2_words = l2 != nullptr ? l2_words : 0;
-  a.coarse_smem = a.l2_words + coarse_words <= smem_words;
-  a.table_words = a.l2_words + (a.coarse_smem ? coarse_words : 0);
-  a.n = n;
-  a.nz = nz;
-  a.l_width = l_width;
-  a.wg.bx = bx; a.wg.by = by; a.wg.bz = bz;
-  a.wg.sbx = (bx + 7) / 8;
-  a.wg.sby = (by + 7) / 8;
-  a.wg.ogx = ogx; a.wg.ogy = ogy; a.wg.ogz = ogz; a.wg.bw = bwf;
-  a.fg.nx = nx; a.fg.ny = ny; a.fg.bx = bx; a.fg.by = by; a.fg.bz = bz;
-  a.fg.nb = nb;
-  a.fg.off = 0;
-  a.fg.ogx = ogx; a.fg.ogy = ogy; a.fg.ogz = ogz;
-  a.fg.vs = vs; a.fg.half = half; a.fg.bwf = bwf; a.fg.scale = scale;
+  a.o = b.o;
+  a.d = b.d;
+  a.t_min = b.t_min;
+  a.t_max = b.t_max;
+  a.coarse = b.coarse;
+  a.l2 = b.l2;
+  a.fine = b.fine;
+  a.cell_slot = b.cell_slot;
+  a.cell_tris = b.cell_tris;
+  a.tri9 = b.tri9;
+  a.tri_origin = b.tri_origin;
+  a.coarse_words = b.coarse_words;
+  a.l2_words = b.l2 != nullptr ? b.l2_words : 0;
+  a.coarse_smem = a.l2_words + b.coarse_words <= b.smem_words;
+  a.table_words = a.l2_words + (a.coarse_smem ? b.coarse_words : 0);
+  a.n = b.n;
+  a.nz = b.nz;
+  a.l_width = b.l_width;
+  a.wg = walk_grid(b);
+  a.fg = fine_grid(b, 0);
   a.tg = a.fg;
-  a.tg.vs = tri_vs;
-  a.tg.half = tri_half;
-  a.sc.k_first = k_first; a.sc.k_drain = k_drain;
-  a.sc.max_groups = max_groups;
-  a.max_laps = max_laps;
-  a.t_out = static_cast<float*>(t_out);
-  a.id_out = static_cast<int*>(id_out);
-  a.u_out = static_cast<float*>(u_out);
-  a.v_out = static_cast<float*>(v_out);
-  a.unresolved = static_cast<unsigned long long*>(unresolved);
-  a.sched = static_cast<int*>(sched);
-  a.deferred = static_cast<int4*>(deferred);
+  a.tg.vs = b.tri_vs;
+  a.tg.half = b.tri_half;
+  a.sc.k_first = b.k_first; a.sc.k_drain = b.k_drain;
+  a.sc.max_groups = b.max_groups;
+  a.max_laps = b.max_laps;
+  a.t_out = b.t_out;
+  a.id_out = b.id_out;
+  a.u_out = b.u_out;
+  a.v_out = b.v_out;
+  a.unresolved = b.unresolved;
+  a.sched = b.sched;
+  a.deferred = b.deferred;
   return a;
 }
 
@@ -884,26 +894,11 @@ extern "C" int tri_march_config(int table_words, int* out) {
   return static_cast<int>(blocks_per_sm(smem, &out[6]));
 }
 
-// sched: kSchedWords zeroed ints; deferred: n zeroed int4 where n exceeds
-// the lanes the launch holds (else null), on the device.  Launches as many
-// blocks as fit on the card at once (no more than the rays need).
-extern "C" int tri_march_launch(
-    const void* o, const void* d, const void* t_min, const void* t_max,
-    const void* coarse, int coarse_words, const void* l2, int l2_words,
-    const void* fine, int nb, const void* cell_slot, const void* cell_tris,
-    const void* tri9, const void* tri_origin, int n, int nx, int ny, int nz,
-    int bx, int by, int bz, float ogx, float ogy, float ogz, float vs,
-    float half, float bwf, float scale, float tri_vs, float tri_half,
-    int l_width, int k_first, int k_drain, int max_groups, int max_laps,
-    int smem_words, void* t_out, void* id_out, void* u_out, void* v_out,
-    void* unresolved, void* sched, void* deferred, void* stream) {
-  if (n <= 0) return 0;
-  const MarchArgs a = march_args(
-      o, d, t_min, t_max, coarse, coarse_words, l2, l2_words, fine, nb,
-      cell_slot, cell_tris, tri9, tri_origin, n, nx, ny, nz, bx, by, bz, ogx,
-      ogy, ogz, vs, half, bwf, scale, tri_vs, tri_half, l_width, k_first,
-      k_drain, max_groups, max_laps, smem_words, t_out, id_out, u_out, v_out,
-      unresolved, sched, deferred);
+// Launches as many blocks as fit on the card at once (no more than the
+// rays need).
+extern "C" int tri_march_launch(const TriMarchArgs* b, void* stream) {
+  if (b->n <= 0) return 0;
+  const MarchArgs a = march_args(*b);
   const size_t smem = smem_bytes(a.table_words);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -911,10 +906,15 @@ extern "C" int tri_march_launch(
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) err = blocks_per_sm(smem, &per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = min((n + kThreads - 1) / kThreads, sms * per_sm);
+  const int blocks = min((a.n + kThreads - 1) / kThreads, sms * per_sm);
   tri_march_kernel<<<blocks, kThreads, smem,
                      static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// sizeof of the argument block (the wrapper's must match).
+extern "C" void tri_march_sizes(int* out) {
+  out[0] = static_cast<int>(sizeof(TriMarchArgs));
 }
 
 #ifdef TRI_MARCH_IDLE_CLOCKS

@@ -48,6 +48,19 @@
 
 #include "sat.cuh"
 
+// voxel_accum_launch's argument block (ops/kernels/voxel_accum.py).
+// counts: two zeroed 64-bit words, the SAT hit total and the number of
+// faces skipped for a vertex index outside [0, n_vert).
+struct VoxelAccumArgs {
+  const float* v;  // (n_vert, 3)
+  const int* f;    // (n_tri, 3)
+  int n_tri, n_vert;
+  float ogx, ogy, ogz, vs, half;
+  int nx, ny, nz;
+  uint8_t* occ;  // (nz, ny, nx)
+  unsigned long long* counts;
+};
+
 namespace {
 
 // Lanes per warp: 32 on the card; the host test build runs one-lane warps.
@@ -160,23 +173,21 @@ __global__ void __launch_bounds__(kThreads) voxel_accum_kernel(
 
 }  // namespace
 
-// counts: two zeroed 64-bit words, the SAT hit total and the number of
-// faces skipped for a vertex index outside [0, n_vert).
-extern "C" int voxel_accum_launch(const void* v, const void* f, int n_tri,
-                                  int n_vert, float ogx, float ogy,
-                                  float ogz, float vs, float half, int nx,
-                                  int ny, int nz, void* occ, void* counts,
-                                  void* stream) {
-  if (n_tri <= 0) return 0;
-  const long long rounds = (n_tri + kWarp - 1) / kWarp;
+extern "C" int voxel_accum_launch(const VoxelAccumArgs* a, void* stream) {
+  if (a->n_tri <= 0) return 0;
+  const long long rounds = (a->n_tri + kWarp - 1) / kWarp;
   long long blocks = (rounds + kWarps - 1) / kWarps;
   if (blocks > 132 * 64) blocks = 132 * 64;  // grid-stride beyond this
   voxel_accum_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(v), static_cast<const int*>(f), n_tri, n_vert,
-      ogx, ogy, ogz, vs, half, nx, ny, nz, static_cast<uint8_t*>(occ),
-      static_cast<unsigned long long*>(counts));
+      a->v, a->f, a->n_tri, a->n_vert, a->ogx, a->ogy, a->ogz, a->vs,
+      a->half, a->nx, a->ny, a->nz, a->occ, a->counts);
   return static_cast<int>(cudaGetLastError());
+}
+
+// sizeof of the argument block (the wrapper's must match).
+extern "C" void voxel_accum_sizes(int* out) {
+  out[0] = static_cast<int>(sizeof(VoxelAccumArgs));
 }
 
 extern "C" const char* voxelray_error_string(int err) {

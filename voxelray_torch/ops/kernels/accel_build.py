@@ -24,35 +24,32 @@ the counter `launches.accel_build` or `launches.aabb_boxes`
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
-from ...utils import trace
-from ._build import check, load_library
+from ._build import F, I, P, fields, launch, on_cuda
 
 __all__ = ["accel_tables", "aabb_boxes", "accel_args", "box_args",
            "AccelArgs", "BoxArgs", "TILE_ROWS"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 TILE_ROWS = 72  # a superbrick tile: 64 word rows, the occupancy row, 7 zero
 
 
 class AccelArgs(ctypes.Structure):
     """csrc/accel_build.cu's AccelArgs."""
-    _fields_ = ([("occ", _P)]
-                + [(k, _I) for k in ("nx", "ny", "nz", "bx", "by", "bz",
-                                     "sbx", "sby", "sbz", "nb",
-                                     "coarse_words", "l2_words")]
-                + [(k, _P) for k in ("fine", "coarse", "l2", "tiles")])
+    SIZES = ("accel_build_sizes", 0)
+    _fields_ = fields((P, "occ"),
+                      (I, "nx ny nz bx by bz sbx sby sbz nb coarse_words "
+                           "l2_words"),
+                      (P, "fine coarse l2 tiles"))
 
 
 class BoxArgs(ctypes.Structure):
     """csrc/accel_build.cu's BoxArgs."""
-    _fields_ = ([("lin", _P)] + [(k, _I) for k in ("n", "nx", "ny")]
-                + [(k, _F) for k in ("ogx", "ogy", "ogz", "vs", "half")]
-                + [("boxes", _P)])
+    SIZES = ("accel_build_sizes", 1)
+    _fields_ = fields((P, "lin"), (I, "n nx ny"),
+                      (F, "ogx ogy ogz vs half"), (P, "boxes"))
 
 
 def _rows(n_bits):
@@ -98,42 +95,12 @@ def box_args(lin, dims, origin, voxel_size):
     return a, boxes
 
 
-@functools.cache
-def _fns():
-    """The launchers, bound once a process, after the argument blocks'
-    sizes are checked against the library's."""
-    lib = load_library()
-    sizes = (ctypes.c_int * 2)()
-    lib.accel_build_sizes(sizes)
-    want = [ctypes.sizeof(AccelArgs), ctypes.sizeof(BoxArgs)]
-    if list(sizes) != want:
-        raise RuntimeError(f"accel_build: argument blocks of {list(sizes)} "
-                           f"bytes in the library, {want} here")
-    fns = {}
-    for name, struct in (("accel_build_launch", AccelArgs),
-                         ("aabb_boxes_launch", BoxArgs)):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(struct), _P]
-        fn.restype = _I
-        fns[name] = fn
-    return fns
-
-
-def _launch(name, a, dev):
-    # the current stream's handle as an int (frame_shade._launch's way)
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    with torch.cuda.device(dev):
-        err = _fns()[name](ctypes.byref(a), stream)
-    check(err, name)
-
-
 def accel_tables(occ, bdims, fine_sb):
     """The BrickAccel tables of occ, a (Z, Y, X) CUDA tensor (uint8; another
     dtype is cast to uint8, as the PyTorch build casts it), bdims its brick
     dims (X, Y, Z): (fine (16, NB), coarse, l2, fine_sb (n_sb, 72, 128) or
     None), int32, on occ's device."""
-    if not occ.is_cuda:
-        raise ValueError("accel_build: occ not on a CUDA device")
+    on_cuda("accel_build", occ.device)
     if occ.dim() != 3:
         raise ValueError(f"accel_build: occ must be (Z, Y, X), got "
                          f"{tuple(occ.shape)}")
@@ -142,8 +109,7 @@ def accel_tables(occ, bdims, fine_sb):
         raise ValueError(f"accel_build: {bdims} bricks exceed int32 "
                          "indexing")
     a, tables = accel_args(occ, bdims, fine_sb)
-    _launch("accel_build_launch", a, occ.device)
-    trace.count("launches.accel_build")
+    launch("accel_build", a, occ.device)
     return tables
 
 
@@ -151,8 +117,7 @@ def aabb_boxes(lin, dims, origin, voxel_size):
     """(..., 6) float32 boxes of the linear cell indices lin, a CUDA
     tensor, in aabbs_from_cells' float32 expressions, on lin's device.
     origin: three floats, or a tensor (read on the host)."""
-    if not lin.is_cuda:
-        raise ValueError("aabb_boxes: lin not on a CUDA device")
+    on_cuda("aabb_boxes", lin.device)
     if lin.numel() >= 2 ** 31:
         raise ValueError(f"aabb_boxes: {lin.numel()} cells exceed int32 "
                          "indexing")
@@ -162,6 +127,5 @@ def aabb_boxes(lin, dims, origin, voxel_size):
     lin = lin.reshape(-1).to(torch.int64).contiguous()
     a, boxes = box_args(lin, dims, origin, voxel_size)
     if a.n:
-        _launch("aabb_boxes_launch", a, lin.device)
-        trace.count("launches.aabb_boxes")
+        launch("aabb_boxes", a, lin.device)
     return boxes.reshape(*shape, 6)

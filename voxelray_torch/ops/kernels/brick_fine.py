@@ -19,7 +19,9 @@ there reads as empty.
 CUDA tensors launch the kernel; CPU tensors run the plain PyTorch version
 (`fine_plain`), the same float32 expressions vectorized over rays.  Any
 other device raises.  Each launch adds 1 to the counter
-`launches.brick_fine` (utils/trace.py).
+`launches.brick_fine` (utils/trace.py).  `fine_args` builds a launch's
+argument block on any device, so the host build of the kernel (tests/)
+runs the same blocks.
 """
 from __future__ import annotations
 
@@ -29,13 +31,23 @@ import numpy as np
 import torch
 
 from ..geometry import div_scalar, floor_cell
-from ...utils import trace
-from ._build import check, load_library
+from ._build import F, I, P, fields, launch, need, need_rays, on_cuda
 
-__all__ = ["fine_walk_multi", "fine_walk", "fine_plain", "fine_cuda"]
+__all__ = ["fine_walk_multi", "fine_walk", "fine_plain", "fine_cuda",
+           "fine_args", "BrickFineArgs"]
 
 BRICK = 8
 STEPS = 3 * BRICK + 1
+
+
+class BrickFineArgs(ctypes.Structure):
+    """csrc/brick_fine.cu's BrickFineArgs."""
+    SIZES = ("brick_fine_sizes", 0)
+    _fields_ = fields((P, "o d bricks"), (I, "k_slots"), (P, "fine"),
+                      (I, "nb fine_off"), (P, "t_min t_max"),
+                      (I, "n nx ny bx by bz"),
+                      (F, "ogx ogy ogz vs half bwf scale"),
+                      (P, "t_out lin_out"))
 
 
 def _consts(origin_key, voxel_size, bdims):
@@ -46,6 +58,15 @@ def _consts(origin_key, voxel_size, bdims):
     gmax = og + np.asarray(bdims, np.float32) * np.float32(voxel_size * BRICK)
     scale = np.float32(max(np.abs(og).max(), np.abs(gmax).max()))
     return og, vs, np.float32(0.5) * vs, np.float32(BRICK) * vs, scale
+
+
+def set_grid(a, origin_key, voxel_size, bdims):
+    """Set argument block a's brick grid bx, by, bz and its float32
+    constants (_consts)."""
+    a.bx, a.by, a.bz = bdims
+    og, vs, half, bwf, scale = _consts(origin_key, voxel_size, bdims)
+    a.ogx, a.ogy, a.ogz = (float(x) for x in og)
+    a.vs, a.half, a.bwf, a.scale = map(float, (vs, half, bwf, scale))
 
 
 def fine_plain(o, d, bricks, fine, t_min, t_max, *, dims, bdims,
@@ -221,57 +242,38 @@ def fine_plain(o, d, bricks, fine, t_min, t_max, *, dims, bdims,
     return out + (decided,) if per_hit else out
 
 
-def _lib():
-    fn = load_library().brick_fine_launch
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = ([vp] * 3 + [ci] + [vp] + [ci] * 2 + [vp] * 2 + [ci] * 6
-                   + [cf] * 7 + [vp] * 3)
-    fn.restype = ci
-    return fn
+def fine_args(o, d, bricks, fine, t_min, t_max, *, dims, bdims, origin_key,
+              voxel_size, fine_off=0):
+    """(the argument block, (t, lin)) of K4's launch, the outputs
+    allocated on o's device, unwritten; arguments as fine_plain's,
+    contiguous on any one device."""
+    dev, n, k = o.device, o.shape[0], bricks.shape[0]
+    f32, i32, what = torch.float32, torch.int32, "fine_cuda"
+    a = BrickFineArgs(n=n, k_slots=k, nb=fine.shape[1], fine_off=fine_off)
+    need_rays(a, what, o, d, t_min, t_max)
+    a.bricks = need(what, "bricks", bricks, dev, i32, (k, n))
+    a.fine = need(what, "fine", fine, dev, i32, (16, a.nb))
+    if fine_off < 0 or a.nb * 16 >= 2 ** 31:
+        raise ValueError(f"{what}: fine window of {a.nb} bricks from "
+                         f"{fine_off} on does not fit int32 indexing")
+    a.nx, a.ny, _ = dims
+    set_grid(a, origin_key, voxel_size, bdims)
+    outs = (torch.empty((n,), dtype=f32, device=dev),
+            torch.empty((n,), dtype=i32, device=dev))
+    a.t_out, a.lin_out = (x.data_ptr() for x in outs)
+    return a, outs
 
 
 def fine_cuda(o, d, bricks, fine, t_min, t_max, *, dims, bdims, origin_key,
               voxel_size, fine_off=0):
     """Launch K4; arguments as fine_plain, contiguous on one CUDA device."""
-    dev = o.device
-    n = o.shape[0]
-    k = bricks.shape[0]
-    f32, i32 = torch.float32, torch.int32
-    for name, x, dtype, shape in (("o", o, f32, (n, 3)), ("d", d, f32, (n, 3)),
-                                  ("bricks", bricks, i32, (k, n)),
-                                  ("fine", fine, i32, (16, fine.shape[1])),
-                                  ("t_min", t_min, f32, (n,)),
-                                  ("t_max", t_max, f32, (n,))):
-        if not x.is_cuda or x.device != dev:
-            raise ValueError(f"fine_cuda: {name} not on {dev}")
-        if x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError(f"fine_cuda: {name} must be {dtype} {shape}, "
-                             f"got {x.dtype} {tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"fine_cuda: {name} not contiguous")
-    nx, ny, _ = dims
-    bx, by, bz = bdims
-    nb = fine.shape[1]
-    if fine_off < 0 or nb * 16 >= 2 ** 31:
-        raise ValueError(f"fine_cuda: fine window of {nb} bricks from "
-                         f"{fine_off} on does not fit int32 indexing")
-    t = torch.empty((n,), dtype=f32, device=dev)
-    lin = torch.empty((n,), dtype=i32, device=dev)
-    if n == 0:
-        return t, lin
-    og, vs, half, bwf, scale = _consts(origin_key, voxel_size, bdims)
-    fn = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(o.data_ptr(), d.data_ptr(), bricks.data_ptr(), k,
-                 fine.data_ptr(), nb, int(fine_off), t_min.data_ptr(),
-                 t_max.data_ptr(), n,
-                 nx, ny, bx, by, bz, float(og[0]), float(og[1]),
-                 float(og[2]), float(vs), float(half), float(bwf),
-                 float(scale), t.data_ptr(), lin.data_ptr(), stream)
-    check(err, "brick_fine_launch")
-    trace.count("launches.brick_fine")
-    return t, lin
+    on_cuda("fine_cuda", o.device)
+    a, outs = fine_args(o, d, bricks, fine, t_min, t_max, dims=dims,
+                        bdims=bdims, origin_key=origin_key,
+                        voxel_size=voxel_size, fine_off=fine_off)
+    if a.n:
+        launch("brick_fine", a, o.device)
+    return outs
 
 
 def fine_walk_multi(o, d, bricks, fine, t_min, t_max, *, dims, bdims,

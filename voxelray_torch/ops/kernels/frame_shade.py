@@ -21,9 +21,9 @@ bit, but those that pass through pow (the specular power, gamma), within
 
 Each frame's constants (matrices, light, clear colour) go to the kernel
 by value, so a call makes no tensor from a host value and no host sync.
-The host side is kept short: the ctypes functions are bound once a
-process, and a call checks its tensors with integers and allocates only
-its outputs.
+The host side is kept short: a call checks its tensors and allocates
+only its outputs, and _build.launch calls the entry point, bound once a
+process.
 rays_args, surface_args and shade_args build a launch's argument block on
 any device, so the host build of the kernels (tests/) runs the same
 blocks.  Each launch adds 1 to the counter `launches.<kernel>` and its
@@ -32,20 +32,18 @@ rays to `rays.<kernel>` (utils/trace.py).
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ...utils import trace
-from ._build import check, load_library
+from ._build import F, I, P, fields, launch, need, on_cuda
 
 __all__ = ["camera_rays_cuda", "hit_surface_cuda", "shade_post_cuda",
            "rays_args", "surface_args", "shade_args", "Tables", "HitSurface",
            "RaysArgs", "SurfaceArgs", "ShadeArgs", "RECORD", "GAMMA"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # floats a ray's record holds: normal, flags word; diffuse, intensity
 RECORD = 8
 # shading.gamma_post's exponent
@@ -55,41 +53,32 @@ _LIGHT_POINT = 0
 MAT_ROW = 20
 
 
-def _ptrs(*names):
-    return [(name, _P) for name in names]
-
-
 class RaysArgs(ctypes.Structure):
     """csrc/frame_shade.cu's RaysArgs."""
-    _fields_ = ([("vi", _F * 12), ("pi", _F * 16)]
-                + [(k, _I) for k in ("width", "height", "tiled", "n")]
-                + _ptrs("origins", "dirs"))
+    SIZES = ("frame_shade_sizes", 0)
+    _fields_ = fields((F * 12, "vi"), (F * 16, "pi"),
+                      (I, "width height tiled n"), (P, "origins dirs"))
 
 
 class SurfaceArgs(ctypes.Structure):
     """csrc/frame_shade.cu's SurfaceArgs."""
-    _fields_ = (_ptrs("o", "d", "t_vox", "vox_id", "t_tri", "tri_id", "bu",
-                      "bv", "tri_n0", "tri_n1", "tri_n2", "tri_uv0",
-                      "tri_uv1", "tri_uv2", "tri_mat", "tri_tex",
-                      "materials", "voxel_material", "textures", "tex_meta",
-                      "boxes", "grid_origin")
-                + [("org", _F * 3), ("vs", _F)]
-                + [(k, _I) for k in ("nx", "ny", "has_tri", "vox_normal",
-                                     "n_layers", "tex_h", "tex_w",
-                                     "tex_levels")]
-                + [("light", _F * 3), ("intensity", _F), ("light_type", _I),
-                   ("n", _I)]
-                + _ptrs("world_pos", "l_vec", "light_dist", "admit", "rec"))
+    SIZES = ("frame_shade_sizes", 1)
+    _fields_ = fields(
+        (P, "o d t_vox vox_id t_tri tri_id bu bv tri_n0 tri_n1 tri_n2 "
+             "tri_uv0 tri_uv1 tri_uv2 tri_mat tri_tex materials "
+             "voxel_material textures tex_meta boxes grid_origin"),
+        (F * 3, "org"), (F, "vs"),
+        (I, "nx ny has_tri vox_normal n_layers tex_h tex_w tex_levels"),
+        (F * 3, "light"), (F, "intensity"), (I, "light_type n"),
+        (P, "world_pos l_vec light_dist admit rec"))
 
 
 class ShadeArgs(ctypes.Structure):
     """csrc/frame_shade.cu's ShadeArgs."""
-    _fields_ = (_ptrs("rec", "d", "l_vec", "occluded", "materials",
-                      "voxel_material")
-                + [("clear", _F * 3), ("gamma", _F)]
-                + [(k, _I) for k in ("n", "width", "height", "tiled",
-                                     "image")]
-                + _ptrs("out"))
+    SIZES = ("frame_shade_sizes", 2)
+    _fields_ = fields((P, "rec d l_vec occluded materials voxel_material"),
+                      (F * 3, "clear"), (F, "gamma"),
+                      (I, "n width height tiled image"), (P, "out"))
 
 
 class Tables(NamedTuple):
@@ -128,65 +117,12 @@ class HitSurface(NamedTuple):
     rec: torch.Tensor          # (n, 8) float32, the per-ray record
 
 
-@functools.cache
-def _fns():
-    """The three launchers, bound once; the argument blocks' sizes
-    checked against the library's."""
-    lib = load_library()
-    sizes = (ctypes.c_int * 3)()
-    lib.frame_shade_sizes.argtypes = [ctypes.c_void_p]
-    lib.frame_shade_sizes.restype = None
-    lib.frame_shade_sizes(sizes)
-    structs = (RaysArgs, SurfaceArgs, ShadeArgs)
-    if list(sizes) != [ctypes.sizeof(s) for s in structs]:
-        raise RuntimeError(f"frame_shade: argument blocks of {list(sizes)} "
-                           "bytes in the library, not the wrapper's")
-    fns = []
-    for name, struct in zip(("camera_rays_launch", "hit_surface_launch",
-                             "shade_post_launch"), structs):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(struct), _P]
-        fn.restype = _I
-        fns.append(fn)
-    return fns
-
-
-def _need(what, name, x, dev, dtype, shape, keep):
-    """x's data pointer, once x is a contiguous `dtype` tensor of `shape`
-    on device index `dev` (-1: the CPU); x goes into `keep`, which the
-    argument block holds until the launch (x may be a copy made for the
-    call)."""
-    if (x.get_device() != dev or x.dtype != dtype or x.shape != shape
-            or not x.is_contiguous()):
-        raise ValueError(f"{what}: {name} must be a contiguous {dtype} "
-                         f"{shape} tensor on device {dev}, got {x.dtype} "
-                         f"{tuple(x.shape)} on {x.device}")
-    keep.append(x)
-    return x.data_ptr()
-
-
 def _flat(x, c=None):
     """x as a contiguous (n,) or (n, c) tensor (a copy only when x's
     strides need one)."""
     if x.dim() != (1 if c is None else 2):
         x = x.reshape(-1) if c is None else x.reshape(-1, c)
     return x if x.is_contiguous() else x.contiguous()
-
-
-def _on_cuda(what, dev):
-    if dev.type != "cuda":
-        raise ValueError(f"{what}: needs CUDA tensors, got {dev}")
-
-
-def _launch(k, args, dev, what, kernel, n):
-    # the current stream's handle as an int: torch.cuda.current_stream()
-    # builds a Stream object, ~10 us of host time a call on an H100's host
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    with torch.cuda.device(dev):
-        err = _fns()[k](ctypes.byref(args), stream)
-    check(err, what)
-    trace.count("launches." + kernel)
-    trace.count("rays." + kernel, n)
 
 
 def rays_args(width, height, view_inv, proj_inv, tiled, dev):
@@ -217,12 +153,13 @@ def camera_rays_cuda(width, height, view_inv, proj_inv, tiled, device):
     (pipeline._tile_rays) when `tiled`: origins, dirs, each (H * W, 3)
     float32 contiguous.  The matrices (4x4, on the host) go by value."""
     dev = torch.device(device)
-    _on_cuda("camera_rays_cuda", dev)
+    on_cuda("camera_rays_cuda", dev)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     args, origins, dirs = rays_args(width, height, view_inv, proj_inv,
                                     tiled, dev)
-    _launch(0, args, dev, "camera_rays_launch", "camera_rays", args.n)
+    launch("camera_rays", args, dev)
+    trace.count("rays.camera_rays", args.n)
     return origins, dirs
 
 
@@ -231,12 +168,13 @@ def surface_args(origins, dirs, t_vox, vox_id, tri, tables: Tables,
     """hit_surface's argument block and its outputs (a HitSurface), on
     the rays' device; arguments as hit_surface_cuda's."""
     batch = origins.shape[:-1]
-    dev = origins.get_device()
+    dev = origins.device
     f32, i32 = torch.float32, torch.int32
-    keep = []
+    keep = {}
 
-    def need(name, x, dtype, shape):
-        return _need("hit_surface", name, x, dev, dtype, shape, keep)
+    def ptr(name, x, dtype, shape):
+        keep[name] = x      # x may be a copy made for the call
+        return need("hit_surface", name, x, dev, dtype, shape)
 
     o = _flat(origins, 3)
     n = o.shape[0]
@@ -246,51 +184,51 @@ def surface_args(origins, dirs, t_vox, vox_id, tri, tables: Tables,
         raise ValueError("hit_surface: a triangle trace goes with the "
                          "triangles' rows, and only with them")
     a = SurfaceArgs()
-    a.o = need("origins", o, f32, (n, 3))
-    a.d = need("dirs", _flat(dirs, 3), f32, (n, 3))
-    a.t_vox = need("t_vox", _flat(t_vox), f32, (n,))
+    a.o = ptr("origins", o, f32, (n, 3))
+    a.d = ptr("dirs", _flat(dirs, 3), f32, (n, 3))
+    a.t_vox = ptr("t_vox", _flat(t_vox), f32, (n,))
     if vox_id.dtype != i32:
         vox_id = vox_id.to(i32)
-    a.vox_id = need("vox_id", _flat(vox_id), i32, (n,))
+    a.vox_id = ptr("vox_id", _flat(vox_id), i32, (n,))
     if tri is not None:
         t_tri, tri_id, bu, bv = tri
         if tri_id.dtype != i32:
             tri_id = tri_id.to(i32)
-        a.t_tri = need("t_tri", _flat(t_tri), f32, (n,))
-        a.tri_id = need("tri_id", _flat(tri_id), i32, (n,))
-        a.bu = need("u", _flat(bu), f32, (n,))
-        a.bv = need("v", _flat(bv), f32, (n,))
+        a.t_tri = ptr("t_tri", _flat(t_tri), f32, (n,))
+        a.tri_id = ptr("tri_id", _flat(tri_id), i32, (n,))
+        a.bu = ptr("u", _flat(bu), f32, (n,))
+        a.bv = ptr("v", _flat(bv), f32, (n,))
         nt = tables.tri_mat.shape[0]
         n0, n1, n2 = tables.tri_n
         uv0, uv1, uv2 = tables.tri_uv
-        a.tri_n0 = need("tri_n0", n0, f32, (nt, 3))
-        a.tri_n1 = need("tri_n1", n1, f32, (nt, 3))
-        a.tri_n2 = need("tri_n2", n2, f32, (nt, 3))
-        a.tri_uv0 = need("tri_uv0", uv0, f32, (nt, 2))
-        a.tri_uv1 = need("tri_uv1", uv1, f32, (nt, 2))
-        a.tri_uv2 = need("tri_uv2", uv2, f32, (nt, 2))
-        a.tri_mat = need("tri_mat", tables.tri_mat, i32, (nt,))
-        a.tri_tex = need("tri_tex", tables.tri_tex, i32, (nt,))
+        a.tri_n0 = ptr("tri_n0", n0, f32, (nt, 3))
+        a.tri_n1 = ptr("tri_n1", n1, f32, (nt, 3))
+        a.tri_n2 = ptr("tri_n2", n2, f32, (nt, 3))
+        a.tri_uv0 = ptr("tri_uv0", uv0, f32, (nt, 2))
+        a.tri_uv1 = ptr("tri_uv1", uv1, f32, (nt, 2))
+        a.tri_uv2 = ptr("tri_uv2", uv2, f32, (nt, 2))
+        a.tri_mat = ptr("tri_mat", tables.tri_mat, i32, (nt,))
+        a.tri_tex = ptr("tri_tex", tables.tri_tex, i32, (nt,))
         tex, meta = tables.textures, tables.tex_meta
         a.n_layers, a.tex_h, a.tex_w = tex.shape[:3]
         a.tex_levels = meta.shape[1]
-        a.textures = need("textures", tex, f32,
+        a.textures = ptr("textures", tex, f32,
                           (a.n_layers, a.tex_h, a.tex_w, 3))
-        a.tex_meta = need("tex_meta", meta, i32,
+        a.tex_meta = ptr("tex_meta", meta, i32,
                           (a.n_layers, a.tex_levels, 4))
         a.has_tri = 1
-    a.materials = need("materials", tables.materials, f32,
+    a.materials = ptr("materials", tables.materials, f32,
                        (tables.materials.shape[0], MAT_ROW))
-    a.voxel_material = need("voxel_material", tables.voxel_material, f32,
+    a.voxel_material = ptr("voxel_material", tables.voxel_material, f32,
                             (MAT_ROW,))
     if tables.boxes is not None:
-        a.boxes = need("boxes", tables.boxes, f32,
+        a.boxes = ptr("boxes", tables.boxes, f32,
                        (tables.boxes.shape[0], 6))
         a.vox_normal = 1
     elif tables.grid is not None:
         origin, (a.nx, a.ny, _), vs = tables.grid
         if isinstance(origin, torch.Tensor):
-            a.grid_origin = need("grid origin", origin, f32, (3,))
+            a.grid_origin = ptr("grid origin", origin, f32, (3,))
         else:
             a.org[:] = np.asarray(origin, np.float32).tolist()
         a.vs = float(np.float32(vs))
@@ -322,10 +260,11 @@ def hit_surface_cuda(origins, dirs, t_vox, vox_id, tri, tables: Tables,
     (Tables); the light as shading.light_terms takes it (position,
     intensity, type 0 point, else directional).  Returns a HitSurface in
     the rays' batch shape."""
-    _on_cuda("hit_surface_cuda", origins.device)
+    on_cuda("hit_surface_cuda", origins.device)
     a, surf = surface_args(origins, dirs, t_vox, vox_id, tri, tables,
                            light_position, light_intensity, light_type)
-    _launch(1, a, origins.device, "hit_surface_launch", "hit_surface", a.n)
+    launch("hit_surface", a, origins.device)
+    trace.count("rays.hit_surface", a.n)
     return surf
 
 
@@ -334,23 +273,24 @@ def shade_args(surf: HitSurface, dirs, occluded, materials, voxel_material,
     """shade_post's argument block and its output, on the record's
     device; arguments as shade_post_cuda's."""
     rec = surf.rec
-    dev = rec.get_device()
+    dev = rec.device
     n = rec.shape[0]
     f32 = torch.float32
-    keep = []
+    keep = {}
 
-    def need(name, x, dtype, shape):
-        return _need("shade_post", name, x, dev, dtype, shape, keep)
+    def ptr(name, x, dtype, shape):
+        keep[name] = x      # x may be a copy made for the call
+        return need("shade_post", name, x, dev, dtype, shape)
 
     a = ShadeArgs()
-    a.rec = need("rec", rec, f32, (n, RECORD))
-    a.d = need("dirs", _flat(dirs, 3), f32, (n, 3))
-    a.l_vec = need("l_vec", _flat(surf.l_vec, 3), f32, (n, 3))
+    a.rec = ptr("rec", rec, f32, (n, RECORD))
+    a.d = ptr("dirs", _flat(dirs, 3), f32, (n, 3))
+    a.l_vec = ptr("l_vec", _flat(surf.l_vec, 3), f32, (n, 3))
     if occluded is not None:
-        a.occluded = need("occluded", _flat(occluded), torch.bool, (n,))
-    a.materials = need("materials", materials, f32,
+        a.occluded = ptr("occluded", _flat(occluded), torch.bool, (n,))
+    a.materials = ptr("materials", materials, f32,
                        (materials.shape[0], MAT_ROW))
-    a.voxel_material = need("voxel_material", voxel_material, f32,
+    a.voxel_material = ptr("voxel_material", voxel_material, f32,
                             (MAT_ROW,))
     a.clear[:] = np.asarray(clear_color, np.float32)[:3].tolist()
     a.gamma = GAMMA
@@ -381,8 +321,9 @@ def shade_post_cuda(surf: HitSurface, dirs, occluded, materials,
     frame None: linear RGB in the rays' batch shape + (3,), ray order.
     frame (height, width, tiled): render_image's gamma-corrected (H, W, 4)
     framebuffer, each ray written to its pixel (tile order when tiled)."""
-    _on_cuda("shade_post_cuda", surf.rec.device)
+    on_cuda("shade_post_cuda", surf.rec.device)
     a, out = shade_args(surf, dirs, occluded, materials, voxel_material,
                         clear_color, frame)
-    _launch(2, a, surf.rec.device, "shade_post_launch", "shade_post", a.n)
+    launch("shade_post", a, surf.rec.device)
+    trace.count("rays.shade_post", a.n)
     return out

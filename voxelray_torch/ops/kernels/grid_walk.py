@@ -13,7 +13,9 @@ CUDA tensors launch the kernel; CPU tensors run the plain PyTorch version
 (`walk_plain`), which evaluates the kernel's float32 expressions
 vectorized over rays, one step at a time, with the same per-ray step bound
 bx+by+bz+3.  Any other device raises.  Each launch adds 1 to the counter
-`launches.grid_walk` (utils/trace.py).
+`launches.grid_walk` (utils/trace.py).  `walk_args` builds a launch's
+argument block on any device, so the host build of the kernel (tests/)
+runs the same blocks.
 """
 from __future__ import annotations
 
@@ -23,12 +25,20 @@ import numpy as np
 import torch
 
 from ..geometry import div_scalar, floor_cell
-from ...utils import trace
-from ._build import check, load_library
+from ._build import F, I, P, fields, launch, need, need_rays, on_cuda
 
-__all__ = ["coarse_walk", "coarse_walk_init", "walk_plain", "walk_cuda"]
+__all__ = ["coarse_walk", "coarse_walk_init", "walk_plain", "walk_cuda",
+           "walk_args", "GridWalkArgs"]
 
 _INF = float("inf")
+
+
+class GridWalkArgs(ctypes.Structure):
+    """csrc/grid_walk.cu's GridWalkArgs."""
+    SIZES = ("grid_walk_sizes", 0)
+    _fields_ = fields((P, "o d t_min t_max cell_in active_in coarse l2"),
+                      (I, "l2_words n bx by bz"), (F, "ogx ogy ogz bwf"),
+                      (I, "k_hits"), (P, "hits_out cell_out cont_out"))
 
 
 def _bit(table, lin):
@@ -146,22 +156,42 @@ def walk_plain(o, d, t_min, t_max, cell, active, coarse, l2, *, bdims,
     return out + (int(steps),) if count_steps else out
 
 
-def _lib():
-    fn = load_library().grid_walk_launch
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 8 + [ci] * 5 + [cf] * 4 + [ci] + [vp] * 4
-    fn.restype = ci
-    return fn
-
-
-def _check(name, x, dev, dtype, shape):
-    if not x.is_cuda or x.device != dev:
-        raise ValueError(f"walk_cuda: {name} not on {dev}")
-    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
-        raise ValueError(f"walk_cuda: {name} must be {dtype} {tuple(shape)}, "
-                         f"got {x.dtype} {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"walk_cuda: {name} not contiguous")
+def walk_args(o, d, t_min, t_max, cell, active, coarse, l2, *, bdims,
+              origin_key, brick_world, k_hits):
+    """(the argument block, (hits, cell, cont)) of K3's launch, the
+    outputs allocated on o's device, unwritten; arguments as walk_cuda's,
+    on any one device."""
+    dev, n = o.device, o.shape[0]
+    f32, i32, what = torch.float32, torch.int32, "walk_cuda"
+    a = GridWalkArgs(n=n, k_hits=k_hits)
+    need_rays(a, what, o, d, t_min if cell is None else None, t_max)
+    if cell is not None:
+        a.cell_in = need(what, "cell", cell, dev, i32, (n, 3))
+        a.active_in = need(what, "active", active, dev, i32, (n,))
+    bx, by, bz = bdims
+    a.bx, a.by, a.bz = bx, by, bz
+    if bx * by * bz >= 2 ** 31:
+        raise ValueError(f"brick grid {bdims} exceeds int32 indexing")
+    a.coarse = need(what, "coarse", coarse, dev, i32)
+    if coarse.numel() * 32 < bx * by * bz:
+        raise ValueError(f"{what}: coarse table too small for {bdims}")
+    if l2 is not None:
+        a.l2 = need(what, "l2", l2, dev, i32)
+        a.l2_words = l2.numel()
+        n_sup = (-(-bx // 8)) * (-(-by // 8)) * (-(-bz // 8))
+        if a.l2_words * 32 < n_sup or a.l2_words * 4 > 48 * 1024:
+            raise ValueError(f"{what}: l2 table of {a.l2_words} words does "
+                             f"not fit {bdims} or shared memory")
+    if not 1 <= k_hits <= 64:
+        raise ValueError(f"{what}: k_hits {k_hits} outside 1..64")
+    og32, bw32 = _consts(origin_key, brick_world)
+    a.ogx, a.ogy, a.ogz = (float(x) for x in og32)
+    a.bwf = float(bw32)
+    outs = (torch.empty((k_hits, n), dtype=i32, device=dev),
+            torch.empty((n, 3), dtype=i32, device=dev),
+            torch.empty((n,), dtype=i32, device=dev))
+    a.hits_out, a.cell_out, a.cont_out = (x.data_ptr() for x in outs)
+    return a, outs
 
 
 def walk_cuda(o, d, t_min, t_max, cell, active, coarse, l2, *, bdims,
@@ -169,52 +199,13 @@ def walk_cuda(o, d, t_min, t_max, cell, active, coarse, l2, *, bdims,
     """Launch K3; arguments as walk_plain, every tensor contiguous on one
     CUDA device (t_min float32 (N,) with cell None; cell int32 (N, 3) and
     active int32 (N,) otherwise)."""
-    dev = o.device
-    n = o.shape[0]
-    f32, i32 = torch.float32, torch.int32
-    _check("o", o, dev, f32, (n, 3))
-    _check("d", d, dev, f32, (n, 3))
-    _check("t_max", t_max, dev, f32, (n,))
-    if cell is None:
-        _check("t_min", t_min, dev, f32, (n,))
-    else:
-        _check("cell", cell, dev, i32, (n, 3))
-        _check("active", active, dev, i32, (n,))
-    bx, by, bz = bdims
-    if bx * by * bz >= 2 ** 31:
-        raise ValueError(f"brick grid {bdims} exceeds int32 indexing")
-    _check("coarse", coarse, dev, i32, coarse.shape)
-    if coarse.numel() * 32 < bx * by * bz:
-        raise ValueError(f"walk_cuda: coarse table too small for {bdims}")
-    l2_words = 0
-    if l2 is not None:
-        _check("l2", l2, dev, i32, l2.shape)
-        l2_words = l2.numel()
-        n_sup = (-(-bx // 8)) * (-(-by // 8)) * (-(-bz // 8))
-        if l2_words * 32 < n_sup or l2_words * 4 > 48 * 1024:
-            raise ValueError(f"walk_cuda: l2 table of {l2_words} words does "
-                             f"not fit {bdims} or shared memory")
-    if not 1 <= k_hits <= 64:
-        raise ValueError(f"walk_cuda: k_hits {k_hits} outside 1..64")
-    hits = torch.empty((k_hits, n), dtype=i32, device=dev)
-    cell_out = torch.empty((n, 3), dtype=i32, device=dev)
-    cont = torch.empty((n,), dtype=i32, device=dev)
-    if n == 0:
-        return hits, cell_out, cont
-    og32, bw32 = _consts(origin_key, brick_world)
-    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    fn = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(o.data_ptr(), d.data_ptr(),
-                 ptr(t_min) if cell is None else None, t_max.data_ptr(),
-                 ptr(cell), ptr(active), coarse.data_ptr(), ptr(l2),
-                 l2_words, n, bx, by, bz, float(og32[0]), float(og32[1]),
-                 float(og32[2]), float(bw32), k_hits, hits.data_ptr(),
-                 cell_out.data_ptr(), cont.data_ptr(), stream)
-    check(err, "grid_walk_launch")
-    trace.count("launches.grid_walk")
-    return hits, cell_out, cont
+    on_cuda("walk_cuda", o.device)
+    a, outs = walk_args(o, d, t_min, t_max, cell, active, coarse, l2,
+                        bdims=bdims, origin_key=origin_key,
+                        brick_world=brick_world, k_hits=k_hits)
+    if a.n:
+        launch("grid_walk", a, o.device)
+    return outs
 
 
 def _walk(o, d, t_min, t_max, cell, active, coarse, l2, **kw):

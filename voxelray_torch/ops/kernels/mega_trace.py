@@ -10,7 +10,9 @@ shadow any-hit.
 CUDA tensors launch the kernel; CPU tensors run the plain PyTorch
 version, the exhaustive DDA of ops/traverse.py over the occupancy the
 accel's fine words encode.  Any other device raises.  Each launch adds
-1 to the counter `launches.mega_trace` (utils/trace.py).
+1 to the counter `launches.mega_trace` (utils/trace.py).  `trace_args`
+builds a launch's argument block on any device, so the host build of
+the kernel (tests/) runs the same blocks.
 """
 from __future__ import annotations
 
@@ -22,10 +24,12 @@ import torch
 from ...models.grids import pack_words, unpack_words
 from ..traverse import _per_ray, trace_grid_dda
 from ...utils import trace
-from ._build import check, load_library
+from ._build import F, I, P, fields, launch, need, need_rays, on_cuda
 
 __all__ = ["build_fine_sb", "trace_grid_mega", "trace_grid_mega_cuda",
-           "trace_grid_mega_plain", "accel_occupancy", "TILE_ROWS"]
+           "trace_grid_mega_plain", "trace_args", "accel_occupancy",
+           "MegaTraceArgs", "TILE_ROWS"]
+
 
 BRICK = 8
 TILE_ROWS = 72  # 64 word rows + occupancy row 64 + 7 alignment spares
@@ -89,71 +93,62 @@ def trace_grid_mega_plain(o, d, accel, t_min, t_max, admit):
     return t, lin, torch.zeros_like(lin)
 
 
-def _lib():
-    lib = load_library()
-    fn = lib.mega_trace_launch
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp] * 7 + [ci] * 7 + [cf] * 6 + [vp] * 4 + [ci, vp]
-    fn.restype = ci
-    return fn
+class MegaTraceArgs(ctypes.Structure):
+    """csrc/mega_trace.cu's MegaTraceArgs."""
+    SIZES = ("mega_trace_sizes", 0)
+    _fields_ = fields((P, "o d t_min t_max admit l2 fine_sb"),
+                      (I, "n nx ny nz bx by bz"),
+                      (F, "ogx ogy ogz vs half bw"),
+                      (P, "t_out lin_out alive_out next_ray"),
+                      (I, "stripes"))
+
+
+def trace_args(o, d, t_min, t_max, admit, accel):
+    """(the argument block, (t (N,) float32, lin (N,) int32, alive (N,)
+    int32)) of K2's launch, the outputs allocated on o's device,
+    unwritten; the zeroed stripe counters on the block (`keep`).  o, d:
+    (N, 3) float32; t_min, t_max: (N,) float32; admit: (N,) bool; the
+    accel's l2 and fine_sb: contiguous, on o's device."""
+    dev, n = o.device, o.shape[0]
+    f32, what = torch.float32, "trace_grid_mega_cuda"
+    a = MegaTraceArgs(n=n, stripes=STRIPES)
+    need_rays(a, what, o, d, t_min, t_max)
+    a.admit = need(what, "admit", admit, dev, torch.bool, (n,))
+    bx, by, bz = accel.bdims
+    a.bx, a.by, a.bz = bx, by, bz
+    n_sb = (-(-bx // 8)) * (-(-by // 8)) * (-(-bz // 8))
+    a.l2 = need(what, "accel.l2", accel.l2, dev, torch.int32)
+    a.fine_sb = need(what, "accel.fine_sb", accel.fine_sb, dev, torch.int32,
+                     (n_sb, TILE_ROWS, 128))
+    if accel.l2.numel() * 32 < n_sb:
+        raise ValueError(f"{what}: accel tables do not match bdims "
+                         f"{accel.bdims}")
+    if n >= 2 ** 30:
+        raise ValueError(f"{what}: {n} rays exceed int32 ray indexing")
+    a.nx, a.ny, a.nz = accel.dims
+    vs = np.float32(accel.voxel_size)
+    a.ogx, a.ogy, a.ogz = accel.origin_key
+    a.vs, a.half = float(vs), float(np.float32(0.5) * vs)
+    a.bw = float(np.float32(accel.voxel_size * BRICK))
+    outs = (torch.empty((n,), dtype=f32, device=dev),
+            torch.empty((n,), dtype=torch.int32, device=dev),
+            torch.empty((n,), dtype=torch.int32, device=dev))
+    a.t_out, a.lin_out, a.alive_out = (x.data_ptr() for x in outs)
+    a.keep = {"next_ray": torch.zeros((STRIPES * 32,), dtype=torch.int32,
+                                      device=dev)}
+    a.next_ray = a.keep["next_ray"].data_ptr()
+    return a, outs
 
 
 def trace_grid_mega_cuda(o, d, accel, t_min, t_max, admit):
     """Launch K2.  o, d: (N, 3) float32; t_min, t_max: (N,) float32;
     admit: (N,) bool; the accel's l2 and fine_sb on the same CUDA device.
     Returns (t (N,) float32, lin (N,) int32, alive (N,) int32)."""
-    dev = o.device
-    n = o.shape[0]
-    for name, x, dtype, shape in (("o", o, torch.float32, (n, 3)),
-                                  ("d", d, torch.float32, (n, 3)),
-                                  ("t_min", t_min, torch.float32, (n,)),
-                                  ("t_max", t_max, torch.float32, (n,)),
-                                  ("admit", admit, torch.bool, (n,))):
-        if x.device != dev or not x.is_cuda:
-            raise ValueError(f"trace_grid_mega_cuda: {name} not on {dev}")
-        if x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError(f"trace_grid_mega_cuda: {name} must be {dtype}"
-                             f" {shape}, got {x.dtype} {tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"trace_grid_mega_cuda: {name} not contiguous")
-    bx, by, bz = accel.bdims
-    n_sb = (-(-bx // 8)) * (-(-by // 8)) * (-(-bz // 8))
-    l2, fine_sb = accel.l2, accel.fine_sb
-    for name, x in (("l2", l2), ("fine_sb", fine_sb)):
-        if x.device != dev or x.dtype != torch.int32 \
-                or not x.is_contiguous():
-            raise ValueError(f"trace_grid_mega_cuda: accel.{name} must be "
-                             f"contiguous int32 on {dev}")
-    if tuple(fine_sb.shape) != (n_sb, TILE_ROWS, 128) \
-            or l2.numel() * 32 < n_sb:
-        raise ValueError("trace_grid_mega_cuda: accel tables do not match "
-                         f"bdims {accel.bdims}")
-    if n >= 2 ** 30:
-        raise ValueError(f"trace_grid_mega_cuda: {n} rays exceed int32 "
-                         "ray indexing")
-    nx, ny, nz = accel.dims
-    t = torch.empty((n,), dtype=torch.float32, device=dev)
-    lin = torch.empty((n,), dtype=torch.int32, device=dev)
-    alive = torch.empty((n,), dtype=torch.int32, device=dev)
-    if n == 0:
-        return t, lin, alive
-    vs = np.float32(accel.voxel_size)
-    ogx, ogy, ogz = accel.origin_key
-    next_ray = torch.zeros((STRIPES * 32,), dtype=torch.int32, device=dev)
-    fn = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(o.data_ptr(), d.data_ptr(), t_min.data_ptr(),
-                 t_max.data_ptr(), admit.view(torch.uint8).data_ptr(),
-                 l2.data_ptr(), fine_sb.data_ptr(), n, nx, ny, nz, bx, by,
-                 bz, ogx, ogy, ogz, float(vs),
-                 float(np.float32(0.5) * vs),
-                 float(np.float32(accel.voxel_size * BRICK)),
-                 t.data_ptr(), lin.data_ptr(), alive.data_ptr(),
-                 next_ray.data_ptr(), STRIPES, stream)
-    check(err, "mega_trace_launch")
-    trace.count("launches.mega_trace")
-    return t, lin, alive
+    on_cuda("trace_grid_mega_cuda", o.device)
+    a, outs = trace_args(o, d, t_min, t_max, admit, accel)
+    if a.n:
+        launch("mega_trace", a, o.device)
+    return outs
 
 
 def trace_grid_mega(origins, dirs, accel, t_min, t_max, admit=None,

@@ -19,34 +19,50 @@ ops/traverse_fast.trace_grid_fast(mega=False) dispatches: CUDA tensors
 launch the kernel (`staged_march_cuda`), CPU tensors run
 `staged_march_plain`, whose (t, lin, unresolved) the kernel gives bit for
 bit; any other device raises.  Each launch adds 1 to the counter
-`launches.staged_march` (utils/trace.py).
+`launches.staged_march` (utils/trace.py).  `staged_args` builds a
+launch's argument block on any device, so the host build of the kernel
+(tests/) runs the same blocks.
 """
 from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from . import brick_fine
-from ...utils import trace
-from ._build import check, load_library
+from ._build import F, I, P, config, fields, launch, need, need_rays, on_cuda
 from .brick_fine import fine_walk_multi
 from .grid_walk import coarse_walk, coarse_walk_init
 from .mega_trace import STRIPES
 
-__all__ = ["staged_march_plain", "staged_march_cuda", "use_two_level",
-           "max_drain_laps", "launch_config"]
+__all__ = ["staged_march_plain", "staged_march_cuda", "staged_args",
+           "use_two_level", "max_drain_laps", "launch_config",
+           "StagedMarchArgs"]
 
 BRICK = 8
 # occupied bricks per ray that each drain lap of the staged walk finds
 _DRAIN_K = 8
-# shared memory for the superbrick and brick masks: the 48 KB a block
-# gets without opting in; the brick mask is read from global memory when
-# both do not fit
+# shared memory for the superbrick and brick masks (staged_march's brick
+# words and tri_march's row staging come on top): the 48 KB a block gets
+# without opting in; the brick mask is read from global memory when both
+# do not fit
 SMEM_WORDS = 48 * 1024 // 4
 # the deferral's counters: three ints, each on a 128-byte line of its own
 _SCHED_WORDS = 3 * 32
+
+
+class StagedMarchArgs(ctypes.Structure):
+    """csrc/staged_march.cu's StagedMarchArgs."""
+    SIZES = ("staged_march_sizes", 0)
+    _fields_ = fields((P, "o d t_min t_max admit coarse"),
+                      (I, "coarse_words"), (P, "l2"), (I, "l2_words"),
+                      (P, "fine"),
+                      (I, "nb fine_off n nx ny bx by bz"),
+                      (F, "ogx ogy ogz vs half bwf scale"),
+                      (I, "k_first k_drain max_groups smem_words"),
+                      (P, "t_out lin_out unresolved next_ray"),
+                      (I, "stripes"),
+                      (P, "sched deferred deferred_group"))
 
 
 def use_two_level(accel, two_level):
@@ -115,136 +131,107 @@ def staged_march_plain(o, d, accel, tmn, tmx, admit, k_hits, two_level):
     return best_t, best_lin, idx.numel()
 
 
-def _launch_args(o, d, tmn, tmx, admit, accel, l2, k_hits, outs,
-                 lanes=None):
-    """staged_march_launch's arguments but the stream, in order, tensors as
-    tensors (None for a null pointer): inputs, the accel's tables (l2
-    None: single level), the grid constants, the lap loop's schedule, the
-    outputs `outs` (t, lin, unresolved), then the zeroed stripe counters,
-    and the deferral's zeroed counters and deferred-ray slots (allocated
-    here, on o's device, the zeroed parts in one buffer with the stripe
-    counters; None, no ray deferred, with an admit mask or where the rays
-    do not outnumber `lanes`, the lanes the launch holds at once; None:
-    as many as the rays)."""
-    og, vs, half, bwf, scale = brick_fine._consts(
-        accel.origin_key, accel.voxel_size, accel.bdims)
-    n, dev = o.shape[0], o.device
-    adm = None if admit is None else admit.view(torch.uint8)
+def set_tables(a, what, accel, two_level, dev):
+    """Set argument block a's brick accel, its tables contiguous on
+    `dev`: the brick and fine tables, the l2 table where the walk takes
+    two levels (checked to fit), the brick grid and its constants.  a.nb:
+    the fine table's bricks."""
+    i32 = torch.int32
+    a.coarse = need(what, "coarse", accel.coarse, dev, i32)
+    a.coarse_words = accel.coarse.numel()
+    a.fine = need(what, "fine", accel.fine, dev, i32, (16, a.nb))
+    if use_two_level(accel, two_level):
+        a.l2 = need(what, "l2", accel.l2, dev, i32)
+        a.l2_words = accel.l2.numel()
+        bx, by, bz = accel.bdims
+        n_sup = (-(-bx // 8)) * (-(-by // 8)) * (-(-bz // 8))
+        if a.l2_words * 32 < n_sup or a.l2_words > SMEM_WORDS:
+            raise ValueError(f"{what}: l2 table of {a.l2_words} words does "
+                             f"not fit {accel.bdims} or shared memory")
+    brick_fine.set_grid(a, accel.origin_key, accel.voxel_size, accel.bdims)
+
+
+def table_words(accel, two_level):
+    """The words of tables a block holds in shared memory: the l2 mask
+    (two levels) and the brick mask where both fit in SMEM_WORDS."""
+    l2_words = accel.l2.numel() if use_two_level(accel, two_level) else 0
+    coarse = accel.coarse.numel()
+    return l2_words + (coarse if l2_words + coarse <= SMEM_WORDS else 0)
+
+
+def staged_args(o, d, accel, tmn, tmx, admit, k_hits, two_level,
+                lanes=None):
+    """(the argument block, (t, lin, unresolved)) of the kernel's launch,
+    arguments as staged_march_plain's, every tensor contiguous on o's
+    device; the outputs allocated there (unresolved a zeroed 0-d int64),
+    with the zeroed stripe counters and, where the rays outnumber `lanes`
+    (the lanes the launch holds at once; None: as many as the rays) and
+    there is no admit mask, the deferral's zeroed counters and
+    deferred-ray slots, all on the block (`keep`)."""
+    dev, n = o.device, o.shape[0]
+    f32, i32, what = torch.float32, torch.int32, "staged_march_cuda"
+    bx, by, bz = accel.bdims
+    nb = accel.fine.shape[1]
+    a = StagedMarchArgs(n=n, nb=nb, fine_off=int(accel.fine_off),
+                        k_first=int(k_hits), k_drain=_DRAIN_K,
+                        max_groups=max_drain_laps(accel.bdims) + 1,
+                        smem_words=SMEM_WORDS, stripes=STRIPES)
+    need_rays(a, what, o, d, tmn, tmx)
+    if admit is not None:
+        a.admit = need(what, "admit", admit, dev, torch.bool, (n,))
+    set_tables(a, what, accel, two_level, dev)
+    if bx * by * bz >= 2 ** 31 or nb * 16 >= 2 ** 31 or n >= 2 ** 30:
+        raise ValueError(f"{what}: brick grid {accel.bdims}, fine window "
+                         f"of {nb} bricks or {n} rays exceed int32 indexing")
+    if a.coarse_words * 32 < bx * by * bz or a.fine_off < 0:
+        raise ValueError(f"{what}: brick tables do not fit {accel.bdims}")
+    if not 1 <= k_hits <= 64:
+        raise ValueError(f"{what}: k_hits {k_hits} outside 1..64")
+    a.nx, a.ny, _ = accel.dims
+    outs = (torch.empty((n,), dtype=f32, device=dev),
+            torch.empty((n,), dtype=i32, device=dev),
+            torch.zeros((), dtype=torch.int64, device=dev))
+    a.t_out, a.lin_out, a.unresolved = (x.data_ptr() for x in outs)
+    # the zeroed words in one buffer: stripe counters, then the deferral's
+    # counters and the deferred rays' groups
     slots = admit is None and n > (n if lanes is None else lanes)
     stripes = STRIPES * 32
     zeroed = torch.zeros((stripes + (_SCHED_WORDS + n if slots else 0),),
-                         dtype=torch.int32, device=dev)
-    return (o, d, tmn, tmx, adm, accel.coarse, accel.coarse.numel(), l2,
-            0 if l2 is None else l2.numel(), accel.fine, accel.fine.shape[1],
-            int(accel.fine_off), n, accel.dims[0], accel.dims[1],
-            *accel.bdims, *map(float, og), float(vs), float(half),
-            float(bwf), float(scale), int(k_hits), _DRAIN_K,
-            max_drain_laps(accel.bdims) + 1, SMEM_WORDS, *outs,
-            zeroed[:stripes], STRIPES,
-            zeroed[stripes:stripes + _SCHED_WORDS] if slots else None,
-            torch.empty((n, 4), dtype=torch.int32, device=dev)
-            if slots else None,
-            zeroed[stripes + _SCHED_WORDS:] if slots else None)
+                         dtype=i32, device=dev)
+    a.keep = {"next_ray": zeroed[:stripes]}
+    if slots:
+        a.keep.update(sched=zeroed[stripes:stripes + _SCHED_WORDS],
+                      deferred=torch.empty((n, 4), dtype=i32, device=dev),
+                      deferred_group=zeroed[stripes + _SCHED_WORDS:])
+    for k, x in a.keep.items():
+        setattr(a, k, x.data_ptr())
+    return a, outs
 
 
-def _lib(lib=None):
-    """staged_march_launch of the kernel library (or of `lib`, a build of
-    csrc/staged_march.cu alone) with its argument types."""
-    fn = (lib or load_library()).staged_march_launch
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = ([vp] * 6 + [ci, vp, ci, vp] + [ci] * 8 + [cf] * 7
-                   + [ci] * 4 + [vp] * 4 + [ci] + [vp] * 4)
-    fn.restype = ci
-    return fn
-
-
-def launch_config(accel, lib=None, two_level=None):
-    """How the kernel launches on `accel` with the current device:
+def launch_config(accel, two_level=None, lib=None):
+    """How the kernel launches on `accel` on the tables' device:
     {"group_budget": the groups after which a ray is deferred (0: never),
     "threads": a block's, "smem_bytes": its dynamic shared memory (the l2
     and brick masks, then the lanes' slots for K4's brick words),
     "blocks_per_sm": the blocks a multiprocessor holds, "lanes": the rays
-    the card holds at once}.  lib: another build of csrc/staged_march.cu
-    (default the kernel library); two_level: as staged_march_cuda's."""
-    l2_words = accel.l2.numel() if use_two_level(accel, two_level) else 0
-    coarse = accel.coarse.numel()
-    table_words = l2_words + (coarse if l2_words + coarse <= SMEM_WORDS
-                              else 0)
-    fn = (lib or load_library()).staged_march_config
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 4)()
-    check(fn(table_words, out), "staged_march_config")
-    cfg = dict(zip(("group_budget", "threads", "smem_bytes",
-                    "blocks_per_sm"), out))
-    sms = torch.cuda.get_device_properties(
-        torch.cuda.current_device()).multi_processor_count
-    cfg["lanes"] = cfg["threads"] * cfg["blocks_per_sm"] * sms
-    return cfg
+    the card holds at once}, asked of the library once for each device
+    and table size.  two_level: as staged_march_cuda's; lib: another build
+    of csrc/staged_march.cu (default the kernel library)."""
+    return dict(config("staged_march", ("group_budget", "threads",
+                                         "smem_bytes", "blocks_per_sm"),
+                       table_words(accel, two_level),
+                       accel.coarse.device.index, lib))
 
 
-def _check(name, x, dev, dtype, shape):
-    if not x.is_cuda or x.device != dev:
-        raise ValueError(f"staged_march_cuda: {name} not on {dev}")
-    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
-        raise ValueError(f"staged_march_cuda: {name} must be {dtype} "
-                         f"{tuple(shape)}, got {x.dtype} {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"staged_march_cuda: {name} not contiguous")
-
-
-def staged_march_cuda(o, d, accel, tmn, tmx, admit, k_hits, two_level,
-                      lib=None):
+def staged_march_cuda(o, d, accel, tmn, tmx, admit, k_hits, two_level):
     """Launch the kernel; arguments and (t, lin) as staged_march_plain,
     every tensor contiguous on one CUDA device.  unresolved comes back as
     a 0-d int64 tensor on the device (reading it waits for the kernel);
-    nothing here waits for the device.  lib: another build of
-    csrc/staged_march.cu (default the kernel library)."""
-    dev = o.device
-    n = o.shape[0]
-    f32, i32 = torch.float32, torch.int32
-    bx, by, bz = accel.bdims
-    nb = accel.fine.shape[1]
-    for name, x, dtype, shape in (
-            ("o", o, f32, (n, 3)), ("d", d, f32, (n, 3)),
-            ("t_min", tmn, f32, (n,)), ("t_max", tmx, f32, (n,)),
-            ("coarse", accel.coarse, i32, accel.coarse.shape),
-            ("fine", accel.fine, i32, (16, nb))):
-        _check(name, x, dev, dtype, shape)
-    if admit is not None:
-        _check("admit", admit, dev, torch.bool, (n,))
-    if bx * by * bz >= 2 ** 31 or nb * 16 >= 2 ** 31 or n >= 2 ** 30:
-        raise ValueError(f"staged_march_cuda: brick grid {accel.bdims}, "
-                         f"fine window of {nb} bricks or {n} rays exceed "
-                         "int32 indexing")
-    if accel.coarse.numel() * 32 < bx * by * bz or accel.fine_off < 0:
-        raise ValueError(f"staged_march_cuda: brick tables do not fit "
-                         f"{accel.bdims}")
-    if not 1 <= k_hits <= 64:
-        raise ValueError(f"staged_march_cuda: k_hits {k_hits} outside 1..64")
-    l2 = None
-    if use_two_level(accel, two_level):
-        l2 = accel.l2
-        _check("l2", l2, dev, i32, l2.shape)
-        n_sup = (-(-bx // 8)) * (-(-by // 8)) * (-(-bz // 8))
-        if l2.numel() * 32 < n_sup or l2.numel() > SMEM_WORDS:
-            raise ValueError(f"staged_march_cuda: l2 table of {l2.numel()} "
-                             f"words does not fit {accel.bdims} or shared "
-                             "memory")
-    outs = (torch.empty((n,), dtype=f32, device=dev),
-            torch.empty((n,), dtype=i32, device=dev),
-            torch.zeros((), dtype=torch.int64, device=dev))
-    if n == 0:
-        return outs
-    fn = _lib(lib)
-    with torch.cuda.device(dev):
-        lanes = launch_config(accel, lib, two_level)["lanes"]
-        args = _launch_args(o, d, tmn, tmx, admit, accel, l2, k_hits, outs,
-                            lanes)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*[x.data_ptr() if torch.is_tensor(x) else x for x in args],
-                 stream)
-    check(err, "staged_march_launch")
-    trace.count("launches.staged_march")
+    nothing here waits for the device."""
+    on_cuda("staged_march_cuda", o.device)
+    lanes = launch_config(accel, two_level)["lanes"] if o.shape[0] else None
+    a, outs = staged_args(o, d, accel, tmn, tmx, admit, k_hits, two_level,
+                          lanes)
+    if a.n:
+        launch("staged_march", a, o.device)
     return outs
-

@@ -20,7 +20,9 @@ launch adding 1 to the counter `launches.tri_bin_count` or
 `launches.tri_bin_emit` (utils/trace.py); CPU tensors run the plain
 PyTorch versions (`count_plain`, `emit_plain`, which take any device and
 are the kernels' bit-for-bit reference); other devices raise.  Neither
-pass syncs: the caller reads the sizes between them.
+pass syncs: the caller reads the sizes between them.  `bin_args` builds
+a pass's argument block on any device, so the host build of the kernels
+(tests/) runs the same blocks.
 """
 from __future__ import annotations
 
@@ -30,30 +32,21 @@ import numpy as np
 import torch
 
 from ..voxelize import _window_hits, hit_stream
-from ...utils import trace
-from ._build import check, load_library
+# K1's: the kernels index cells, triangle ids and pair positions in int32
+from .voxel_accum import check_sizes
+from ._build import F, I, P, fields, launch, need
 
 __all__ = ["count", "emit", "count_plain", "emit_plain", "outside_plain",
-           "check_sizes"]
-
-_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+           "check_sizes", "bin_args", "TriBinArgs"]
 
 
-def check_sizes(dims, n_tri):
-    """Raise where the grid or the triangle count exceeds the kernels'
-    int32 indexing (cells, triangle ids and pair positions)."""
-    nx, ny, nz = (int(x) for x in dims)
-    if nx * ny * nz >= 2 ** 31:
-        raise ValueError(f"tri grid {dims} exceeds int32 cell indexing")
-    if n_tri >= 2 ** 31:
-        raise ValueError(f"{n_tri} triangles exceed int32 indexing")
-
-
-def _grid_args(origin, voxel_size, dims):
-    org = np.asarray(origin, np.float32)
-    return (float(org[0]), float(org[1]), float(org[2]),
-            float(np.float32(voxel_size)),
-            float(np.float32(voxel_size * 0.5)), *(int(x) for x in dims))
+class TriBinArgs(ctypes.Structure):
+    """csrc/tri_bin.cu's TriBinArgs."""
+    SIZES = ("tri_bin_sizes", 0)
+    _fields_ = fields((P, "tri"), (I, "n_tri"), (F, "ogx ogy ogz vs half"),
+                      (I, "nx ny nz"), (F, "lox loy loz hix hiy hiz"),
+                      (P, "tri_count cell_count outside cum pair_tri "
+                           "pair_lin"))
 
 
 def _tri_rows(tri9, n_tri):
@@ -93,24 +86,41 @@ def emit_plain(tri9, n_tri, origin, voxel_size, dims, cum=None,
     return t.to(torch.int32), lin.to(torch.int32)
 
 
-def _fn(name, n_float, n_ptr):
-    fn = getattr(load_library(), name)
-    fn.argtypes = [_vp, _ci] + [_cf] * 5 + [_ci] * 3 + [_cf] * n_float \
-        + [_vp] * n_ptr
-    fn.restype = _ci
-    return fn
-
-
-def _checked(tri9, n_tri, dims):
-    if not tri9.is_cuda:
-        raise ValueError("tri_bin: tri9 not on a CUDA device")
-    if (tri9.dtype != torch.float32 or tri9.dim() != 2
-            or tri9.shape[1] != 9 or tri9.shape[0] < n_tri
-            or not tri9.is_contiguous()):
+def bin_args(tri9, n_tri, origin, voxel_size, dims, lo=None, hi=None,
+             cum=None, n_pairs=0):
+    """(the argument block, outputs) of a pass on tri9's device: with the
+    box lo, hi the count pass's, (tri_count, cell_count, outside) (the
+    last two zeroed), else the emit pass's over cum, (pair_tri, pair_lin)
+    of n_pairs each; outputs unwritten.  tri9: a contiguous (>= n_tri, 9)
+    float32 tensor; cum: a contiguous (n_tri,) int64 tensor on its
+    device."""
+    dev = tri9.device
+    if tri9.dim() != 2 or tri9.shape[1] != 9 or tri9.shape[0] < n_tri:
         raise ValueError(f"tri_bin: tri9 must be a contiguous (>= {n_tri}, "
                          f"9) float32 tensor, got {tuple(tri9.shape)} "
                          f"{tri9.dtype}")
     check_sizes(dims, n_tri)
+    a = TriBinArgs(tri=need("tri_bin", "tri9", tri9, dev, torch.float32),
+                   n_tri=n_tri)
+    a.ogx, a.ogy, a.ogz = (float(x) for x in np.asarray(origin, np.float32))
+    a.vs = float(np.float32(voxel_size))
+    a.half = float(np.float32(voxel_size * 0.5))
+    nx, ny, nz = (int(x) for x in dims)
+    a.nx, a.ny, a.nz = nx, ny, nz
+    i32 = torch.int32
+    if cum is None:
+        a.lox, a.loy, a.loz = (float(x) for x in np.asarray(lo, np.float32))
+        a.hix, a.hiy, a.hiz = (float(x) for x in np.asarray(hi, np.float32))
+        outs = (torch.empty((n_tri,), dtype=i32, device=dev),
+                torch.zeros((nx * ny * nz,), dtype=i32, device=dev),
+                torch.zeros((1,), dtype=torch.int64, device=dev))
+        a.tri_count, a.cell_count, a.outside = (x.data_ptr() for x in outs)
+    else:
+        a.cum = need("tri_bin", "cum", cum, dev, torch.int64, (n_tri,))
+        outs = (torch.empty((n_pairs,), dtype=i32, device=dev),
+                torch.empty((n_pairs,), dtype=i32, device=dev))
+        a.pair_tri, a.pair_lin = (x.data_ptr() for x in outs)
+    return a, outs
 
 
 def count(tri9, n_tri, origin, voxel_size, dims, lo, hi):
@@ -119,24 +129,10 @@ def count(tri9, n_tri, origin, voxel_size, dims, lo, hi):
         return count_plain(tri9, n_tri, origin, voxel_size, dims, lo, hi)
     if tri9.device.type != "cuda":
         raise ValueError(f"tri_bin: unsupported device {tri9.device}")
-    _checked(tri9, n_tri, dims)
-    dev = tri9.device
-    nx, ny, nz = (int(x) for x in dims)
-    tri_count = torch.empty((n_tri,), dtype=torch.int32, device=dev)
-    cell_count = torch.zeros((nx * ny * nz,), dtype=torch.int32, device=dev)
-    outside = torch.zeros((1,), dtype=torch.int64, device=dev)
+    a, outs = bin_args(tri9, n_tri, origin, voxel_size, dims, lo, hi)
     if n_tri:
-        box = [float(x) for b in (lo, hi) for x in np.asarray(b, np.float32)]
-        fn = _fn("tri_bin_count_launch", 6, 4)
-        with torch.cuda.device(dev):
-            err = fn(tri9.data_ptr(), n_tri,
-                     *_grid_args(origin, voxel_size, dims), *box,
-                     tri_count.data_ptr(), cell_count.data_ptr(),
-                     outside.data_ptr(),
-                     torch.cuda.current_stream().cuda_stream)
-        check(err, "tri_bin_count_launch")
-        trace.count("launches.tri_bin_count")
-    return tri_count, cell_count, outside
+        launch("tri_bin_count", a, tri9.device)
+    return outs
 
 
 def emit(tri9, n_tri, origin, voxel_size, dims, cum, n_pairs):
@@ -145,21 +141,8 @@ def emit(tri9, n_tri, origin, voxel_size, dims, cum, n_pairs):
         return emit_plain(tri9, n_tri, origin, voxel_size, dims)
     if tri9.device.type != "cuda":
         raise ValueError(f"tri_bin: unsupported device {tri9.device}")
-    _checked(tri9, n_tri, dims)
-    dev = tri9.device
-    if (cum.device != dev or cum.dtype != torch.int64
-            or tuple(cum.shape) != (n_tri,) or not cum.is_contiguous()):
-        raise ValueError("tri_bin: cum must be a contiguous (n_tri,) int64 "
-                         "tensor on tri9's device")
-    pair_tri = torch.empty((n_pairs,), dtype=torch.int32, device=dev)
-    pair_lin = torch.empty((n_pairs,), dtype=torch.int32, device=dev)
+    a, outs = bin_args(tri9, n_tri, origin, voxel_size, dims, cum=cum,
+                       n_pairs=n_pairs)
     if n_tri and n_pairs:
-        fn = _fn("tri_bin_emit_launch", 0, 4)
-        with torch.cuda.device(dev):
-            err = fn(tri9.data_ptr(), n_tri,
-                     *_grid_args(origin, voxel_size, dims), cum.data_ptr(),
-                     pair_tri.data_ptr(), pair_lin.data_ptr(),
-                     torch.cuda.current_stream().cuda_stream)
-        check(err, "tri_bin_emit_launch")
-        trace.count("launches.tri_bin_emit")
-    return pair_tri, pair_lin
+        launch("tri_bin_emit", a, tri9.device)
+    return outs

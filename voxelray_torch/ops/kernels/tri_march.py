@@ -18,6 +18,8 @@ Moller-Trumbore over it.
 CUDA tensors launch the kernel (`tri_march_cuda`); CPU tensors run
 `tri_march_plain`, whose (t, id, u, v) the kernel gives bit for bit.
 Each launch adds 1 to the counter `launches.tri_march` (utils/trace.py).
+`march_args` builds a launch's argument block on any device, so the host
+build of the kernel (tests/) runs the same blocks.
 """
 from __future__ import annotations
 
@@ -28,13 +30,12 @@ import torch
 
 from ..geometry import div_scalar, floor_cell
 from ..intersect import hit_triangles
-from . import brick_fine
-from ...utils import trace
-from ._build import check, load_library
-from .staged_march import (_DRAIN_K, max_drain_laps, staged_march_plain,
-                           use_two_level)
+from ._build import F, I, P, config, fields, launch, need, need_rays, on_cuda
+from .staged_march import (_DRAIN_K, SMEM_WORDS, max_drain_laps, set_tables,
+                           staged_march_plain, table_words)
 
-__all__ = ["tri_march_plain", "tri_march_cuda", "launch_config", "INNER_K"]
+__all__ = ["tri_march_plain", "tri_march_cuda", "march_args", "launch_config",
+           "TriMarchArgs", "INNER_K"]
 
 # ray-triangle pairs per Moller-Trumbore batch of the plain version:
 # bounds the (m, L, 9) gathered rows and their temporaries at full-frame
@@ -43,13 +44,23 @@ _PAIRS = 1 << 23
 # candidate bricks the staged walk finds per ray in a lap's first K4 call
 # (cost only: the cell it returns does not depend on it)
 INNER_K = 2
-# shared memory for the superbrick and brick masks (the kernel's row
-# staging comes on top): the 48 KB a block gets without opting in; the
-# brick mask is read from global memory when both do not fit
-SMEM_WORDS = 48 * 1024 // 4
 # the schedule's counters, one 128-byte line each (csrc/tri_march.cu,
 # kSchedWords)
 _SCHED_WORDS = 4 * 32
+
+
+class TriMarchArgs(ctypes.Structure):
+    """csrc/tri_march.cu's TriMarchArgs."""
+    SIZES = ("tri_march_sizes", 0)
+    _fields_ = fields((P, "o d t_min t_max coarse"), (I, "coarse_words"),
+                      (P, "l2"), (I, "l2_words"), (P, "fine"), (I, "nb"),
+                      (P, "cell_slot cell_tris tri9 tri_origin"),
+                      (I, "n nx ny nz bx by bz"),
+                      (F, "ogx ogy ogz vs half bwf scale tri_vs tri_half"),
+                      (I, "l_width k_first k_drain max_groups max_laps "
+                           "smem_words"),
+                      (P, "t_out id_out u_out v_out unresolved sched "
+                           "deferred"))
 
 
 def _cell_span(lin, o, d, ta):
@@ -199,135 +210,79 @@ def tri_march_plain(o, d, t_min, t_max, ta, two_level=None, work=None):
     return best_t, best_id, best_u, best_v, act.numel()
 
 
-def _launch_args(o, d, t_min, t_max, ta, l2, outs, lanes=0):
-    """tri_march_launch's arguments but the stream, in order, tensors as
-    tensors: inputs, the tables of `ta` (l2 None: single level), the grid
-    constants, the plain march's step bounds, the outputs `outs` (t, id,
-    u, v, unresolved), then the schedule's zeroed counters and
-    deferred-ray slots (allocated here, on o's device; None, no ray
-    deferred, where the rays do not outnumber `lanes`, the lanes the
-    launch holds at once)."""
-    n = o.shape[0]
+def march_args(o, d, t_min, t_max, ta, two_level=None, lanes=0):
+    """(the argument block, (t, id, u, v, unresolved)) of the kernel's
+    launch, arguments as tri_march_plain's, every tensor contiguous on o's
+    device; the outputs allocated there (unresolved a zeroed (1,) int64),
+    with the schedule's zeroed counters and, where the rays outnumber
+    `lanes` (the lanes the launch holds at once), the zeroed deferred-ray
+    slots, both on the block (`keep`)."""
+    dev, n = o.device, o.shape[0]
+    f32, i32, what = torch.float32, torch.int32, "tri_march_cuda"
     br = ta.brick
-    og, vs, half, bwf, scale = brick_fine._consts(br.origin_key,
-                                                  br.voxel_size, br.bdims)
+    nx, ny, nz = ta.dims
+    bx, by, bz = br.bdims
+    nb = br.fine.shape[1]
+    a = TriMarchArgs(n=n, nb=nb, l_width=ta.l_width, k_first=INNER_K,
+                     k_drain=_DRAIN_K, max_groups=max_drain_laps(br.bdims) + 1,
+                     max_laps=nx + ny + nz + 4, smem_words=SMEM_WORDS)
+    need_rays(a, what, o, d, t_min, t_max)
+    set_tables(a, what, br, two_level, dev)
+    a.cell_slot = need(what, "cell_slot", ta.cell_slot, dev, i32,
+                       (nx * ny * nz + 1,))
+    a.cell_tris = need(what, "cell_tris", ta.cell_tris, dev, i32,
+                       (ta.cell_tris.shape[0], ta.l_width))
+    a.tri9 = need(what, "tri9", ta.tri9, dev, f32, (ta.tri9.shape[0], 9))
+    a.tri_origin = need(what, "origin", ta.origin, dev, f32, (3,))
+    if tuple(br.dims) != (nx, ny, nz) or nx * ny * nz >= 2 ** 31:
+        raise ValueError(f"{what}: brick accel dims {br.dims} do not fit "
+                         f"the tri grid {ta.dims}")
+    if a.coarse_words * 32 < bx * by * bz or nb < bx * by * bz:
+        raise ValueError(f"{what}: brick tables too small for {br.bdims}")
+    a.nx, a.ny, a.nz = nx, ny, nz
     tri_vs = np.float32(ta.voxel_size)
-    return (o, d, t_min, t_max, br.coarse, br.coarse.numel(), l2,
-            0 if l2 is None else l2.numel(), br.fine, br.fine.shape[1],
-            ta.cell_slot, ta.cell_tris, ta.tri9, ta.origin, n,
-            *ta.dims, *br.bdims, *map(float, og), float(vs), float(half),
-            float(bwf), float(scale), float(tri_vs),
-            float(np.float32(0.5) * tri_vs), ta.l_width, INNER_K, _DRAIN_K,
-            max_drain_laps(br.bdims) + 1, sum(ta.dims) + 4, SMEM_WORDS,
-            *outs,
-            torch.zeros((_SCHED_WORDS,), dtype=torch.int32, device=o.device),
-            torch.zeros((n, 4), dtype=torch.int32, device=o.device)
-            if n > lanes else None)
+    a.tri_vs, a.tri_half = float(tri_vs), float(np.float32(0.5) * tri_vs)
+    outs = (torch.empty((n,), dtype=f32, device=dev),
+            torch.empty((n,), dtype=i32, device=dev),
+            torch.empty((n,), dtype=f32, device=dev),
+            torch.empty((n,), dtype=f32, device=dev),
+            torch.zeros((1,), dtype=torch.int64, device=dev))
+    (a.t_out, a.id_out, a.u_out, a.v_out,
+     a.unresolved) = (x.data_ptr() for x in outs)
+    a.keep = {"sched": torch.zeros((_SCHED_WORDS,), dtype=i32, device=dev)}
+    if n > lanes:
+        a.keep["deferred"] = torch.zeros((n, 4), dtype=i32, device=dev)
+    for k, x in a.keep.items():
+        setattr(a, k, x.data_ptr())
+    return a, outs
 
 
-def _lib(lib=None):
-    """tri_march_launch of the kernel library (or of `lib`, a build of
-    csrc/tri_march.cu alone) with its argument types."""
-    fn = (lib or load_library()).tri_march_launch
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = ([vp] * 5 + [ci] + [vp] + [ci] + [vp] + [ci] + [vp] * 4
-                   + [ci] * 7 + [cf] * 9 + [ci] * 6 + [vp] * 8)
-    fn.restype = ci
-    return fn
-
-
-def launch_config(ta, lib=None, two_level=None):
-    """How the kernel launches on `ta` with the current device: {"chunk":
+def launch_config(ta, two_level=None, lib=None):
+    """How the kernel launches on `ta` on its tables' device: {"chunk":
     the triangles a lane loads together from its own row, "share_slots":
     the positions of a shared row a lane stages per round, "share_lanes":
     the rays a warp holds at most when it shares their rows, "lap_budget":
     the laps after which a ray is deferred (0: never), "threads": a
     block's, "smem_bytes": its dynamic shared memory (the l2 and brick
     masks, then the shared rows' staging), "blocks_per_sm": the blocks a
-    multiprocessor holds, "lanes": the rays the card holds at once}.  lib:
-    another build of csrc/tri_march.cu (default the kernel library);
-    two_level: as tri_march_cuda's."""
-    br = ta.brick
-    l2_words = br.l2.numel() if use_two_level(br, two_level) else 0
-    coarse = br.coarse.numel()
-    table_words = l2_words + (coarse if l2_words + coarse <= SMEM_WORDS
-                              else 0)
-    fn = (lib or load_library()).tri_march_config
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 7)()
-    check(fn(table_words, out), "tri_march_config")
-    cfg = dict(zip(("chunk", "share_slots", "share_lanes", "lap_budget",
-                    "threads", "smem_bytes", "blocks_per_sm"), out))
-    sms = torch.cuda.get_device_properties(
-        torch.cuda.current_device()).multi_processor_count
-    cfg["lanes"] = cfg["threads"] * cfg["blocks_per_sm"] * sms
-    return cfg
+    multiprocessor holds, "lanes": the rays the card holds at once},
+    asked of the library once for each device and table size.  two_level:
+    as tri_march_cuda's; lib: another build of csrc/tri_march.cu (default
+    the kernel library)."""
+    return dict(config("tri_march", ("chunk", "share_slots", "share_lanes",
+                                      "lap_budget", "threads", "smem_bytes",
+                                      "blocks_per_sm"),
+                       table_words(ta.brick, two_level),
+                       ta.brick.coarse.device.index, lib))
 
 
-def _check(name, x, dev, dtype, shape):
-    if not x.is_cuda or x.device != dev:
-        raise ValueError(f"tri_march_cuda: {name} not on {dev}")
-    if x.dtype != dtype or tuple(x.shape) != tuple(shape):
-        raise ValueError(f"tri_march_cuda: {name} must be {dtype} "
-                         f"{tuple(shape)}, got {x.dtype} {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"tri_march_cuda: {name} not contiguous")
-
-
-def tri_march_cuda(o, d, t_min, t_max, ta, two_level=None, lib=None):
+def tri_march_cuda(o, d, t_min, t_max, ta, two_level=None):
     """Launch the kernel; arguments and outputs as tri_march_plain, every
     tensor contiguous on one CUDA device.  unresolved comes back as a
-    (1,) int64 tensor on the device (reading it waits for the kernel).
-    lib: another build of csrc/tri_march.cu (default the kernel
-    library)."""
-    dev = o.device
-    n = o.shape[0]
-    f32, i32 = torch.float32, torch.int32
-    br = ta.brick
-    nx, ny, nz = ta.dims
-    bx, by, bz = br.bdims
-    nb = br.fine.shape[1]
-    for name, x, dtype, shape in (
-            ("o", o, f32, (n, 3)), ("d", d, f32, (n, 3)),
-            ("t_min", t_min, f32, (n,)), ("t_max", t_max, f32, (n,)),
-            ("coarse", br.coarse, i32, br.coarse.shape),
-            ("fine", br.fine, i32, (16, nb)),
-            ("cell_slot", ta.cell_slot, i32, (nx * ny * nz + 1,)),
-            ("cell_tris", ta.cell_tris, i32, (ta.cell_tris.shape[0],
-                                              ta.l_width)),
-            ("tri9", ta.tri9, f32, (ta.tri9.shape[0], 9)),
-            ("origin", ta.origin, f32, (3,))):
-        _check(name, x, dev, dtype, shape)
-    if tuple(br.dims) != (nx, ny, nz) or nx * ny * nz >= 2 ** 31:
-        raise ValueError(f"tri_march_cuda: brick accel dims {br.dims} do "
-                         f"not fit the tri grid {ta.dims}")
-    if br.coarse.numel() * 32 < bx * by * bz or nb < bx * by * bz:
-        raise ValueError(f"tri_march_cuda: brick tables too small for "
-                         f"{br.bdims}")
-    l2 = None
-    if use_two_level(br, two_level):
-        l2 = br.l2
-        _check("l2", l2, dev, i32, l2.shape)
-        l2_words = l2.numel()
-        n_sup = (-(-bx // 8)) * (-(-by // 8)) * (-(-bz // 8))
-        if l2_words * 32 < n_sup or l2_words > SMEM_WORDS:
-            raise ValueError(f"tri_march_cuda: l2 table of {l2_words} words "
-                             f"does not fit {br.bdims} or shared memory")
-    outs = (torch.empty((n,), dtype=f32, device=dev),
-            torch.empty((n,), dtype=i32, device=dev),
-            torch.empty((n,), dtype=f32, device=dev),
-            torch.empty((n,), dtype=f32, device=dev),
-            torch.zeros((1,), dtype=torch.int64, device=dev))
-    if n == 0:
-        return outs
-    fn = _lib(lib)
-    with torch.cuda.device(dev):
-        lanes = launch_config(ta, lib, two_level)["lanes"]
-        args = _launch_args(o, d, t_min, t_max, ta, l2, outs, lanes)
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*[x.data_ptr() if torch.is_tensor(x) else x for x in args],
-                 stream)
-    check(err, "tri_march_launch")
-    trace.count("launches.tri_march")
+    (1,) int64 tensor on the device (reading it waits for the kernel)."""
+    on_cuda("tri_march_cuda", o.device)
+    lanes = launch_config(ta, two_level)["lanes"] if o.shape[0] else 0
+    a, outs = march_args(o, d, t_min, t_max, ta, two_level, lanes)
+    if a.n:
+        launch("tri_march", a, o.device)
     return outs

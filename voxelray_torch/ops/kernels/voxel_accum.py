@@ -11,9 +11,10 @@ PyTorch version (`voxelize_plain`) for CPU tensors; any other device
 raises.  Each launch adds 1 to the counter `launches.voxel_accum`
 (utils/trace.py).  The kernel checks the face indices itself; the
 wrapper reads its hit total and its count of out-of-range faces in one
-sync and raises if that count is not 0.
-`voxelize_planned` (ops/voxelize.py) calls `launch` on faces its plan
-checked once, and reads nothing back.
+sync and raises if that count is not 0.  `accumulate` launches and
+reads nothing back (voxelize_planned in ops/voxelize.py, the sharded
+voxelize).  `accum_args` builds a launch's argument block on any
+device, so the host build of the kernel (tests/) runs the same blocks.
 """
 from __future__ import annotations
 
@@ -23,51 +24,18 @@ import numpy as np
 import torch
 
 from ..voxelize import voxelize_plain
-from ...utils import trace
-from ._build import check, load_library
+from ._build import F, I, P, fields, launch, need, on_cuda
 
-__all__ = ["voxel_accum", "voxel_accum_cuda", "launch", "check_sizes",
-           "voxelize_plain"]
-
-_c_void = ctypes.c_void_p
-_c_int = ctypes.c_int
-_c_float = ctypes.c_float
+__all__ = ["voxel_accum", "voxel_accum_cuda", "accumulate", "accum_args",
+           "check_sizes", "VoxelAccumArgs", "voxelize_plain"]
 
 
-def _lib():
-    lib = load_library()
-    fn = lib.voxel_accum_launch
-    fn.argtypes = [_c_void, _c_void, _c_int, _c_int,
-                   _c_float, _c_float, _c_float, _c_float, _c_float,
-                   _c_int, _c_int, _c_int, _c_void, _c_void, _c_void]
-    fn.restype = _c_int
-    return fn
-
-
-def voxel_accum_cuda(v, f, origin, voxel_size, dims):
-    """Launch K1.  v (V, 3) float32 and f (F, 3) int32, contiguous, on one
-    CUDA device; returns (occ (Z, Y, X) uint8, set_calls int)."""
-    if not (v.is_cuda and f.is_cuda and v.device == f.device):
-        raise ValueError("voxel_accum_cuda needs v and f on one CUDA device")
-    if v.dtype != torch.float32 or v.dim() != 2 or v.shape[1] != 3:
-        raise ValueError(f"v must be (V, 3) float32, got {tuple(v.shape)} "
-                         f"{v.dtype}")
-    if f.dtype != torch.int32 or f.dim() != 2 or f.shape[1] != 3:
-        raise ValueError(f"f must be (F, 3) int32, got {tuple(f.shape)} "
-                         f"{f.dtype}")
-    if not (v.is_contiguous() and f.is_contiguous()):
-        raise ValueError("v and f must be contiguous")
-    check_sizes(dims, f.shape[0])
-    nx, ny, nz = (int(x) for x in dims)
-    occ = torch.zeros((nz, ny, nx), dtype=torch.uint8, device=v.device)
-    counts = torch.zeros((2,), dtype=torch.int64, device=v.device)
-    if f.shape[0] == 0 or occ.numel() == 0:
-        return occ, 0
-    launch(v, f, origin, voxel_size, dims, occ, counts)
-    calls, bad = counts.tolist()
-    if bad:
-        raise ValueError(f"{bad} faces index a vertex out of range")
-    return occ, calls
+class VoxelAccumArgs(ctypes.Structure):
+    """csrc/voxel_accum.cu's VoxelAccumArgs."""
+    SIZES = ("voxel_accum_sizes", 0)
+    _fields_ = fields((P, "v f"), (I, "n_tri n_vert"),
+                      (F, "ogx ogy ogz vs half"), (I, "nx ny nz"),
+                      (P, "occ counts"))
 
 
 def check_sizes(dims, n_faces):
@@ -80,22 +48,46 @@ def check_sizes(dims, n_faces):
         raise ValueError(f"{n_faces} faces exceed int32 indexing")
 
 
-def launch(v, f, origin, voxel_size, dims, occ, counts):
-    """Launch K1 on checked arguments (see voxel_accum_cuda): ORs the
-    mesh's occupancy into occ (Z, Y, X) uint8 and adds the hit total and
-    the number of out-of-range faces to counts (2,) int64."""
-    nx, ny, nz = (int(x) for x in dims)
-    org = np.asarray(origin, np.float32)
-    fn = _lib()
-    with torch.cuda.device(v.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(v.data_ptr(), f.data_ptr(), int(f.shape[0]),
-                 int(v.shape[0]), float(org[0]), float(org[1]),
-                 float(org[2]), float(np.float32(voxel_size)),
-                 float(np.float32(voxel_size * 0.5)),
-                 nx, ny, nz, occ.data_ptr(), counts.data_ptr(), stream)
-    check(err, "voxel_accum_launch")
-    trace.count("launches.voxel_accum")
+def accum_args(v, f, origin, voxel_size, dims):
+    """(the argument block, (occ (Z, Y, X) uint8, counts (2,) int64), both
+    zeroed on v's device).  v (V, 3) float32 and f (F, 3) int32,
+    contiguous, on one device."""
+    dev = v.device
+    a = VoxelAccumArgs(
+        v=need("voxel_accum", "v", v, dev, torch.float32, (v.shape[0], 3)),
+        f=need("voxel_accum", "f", f, dev, torch.int32, (f.shape[0], 3)),
+        n_tri=f.shape[0], n_vert=v.shape[0])
+    check_sizes(dims, f.shape[0])
+    a.nx, a.ny, a.nz = (int(x) for x in dims)
+    a.ogx, a.ogy, a.ogz = (float(x) for x in np.asarray(origin, np.float32))
+    a.vs = float(np.float32(voxel_size))
+    a.half = float(np.float32(voxel_size * 0.5))
+    occ = torch.zeros((a.nz, a.ny, a.nx), dtype=torch.uint8, device=dev)
+    counts = torch.zeros((2,), dtype=torch.int64, device=dev)
+    a.occ, a.counts = occ.data_ptr(), counts.data_ptr()
+    return a, (occ, counts)
+
+
+def accumulate(v, f, origin, voxel_size, dims):
+    """Launch K1 (arguments as accum_args', on a CUDA device) and read
+    nothing back: (occ, counts = (set_calls, faces out of range))."""
+    on_cuda("voxel_accum", v.device)
+    a, (occ, counts) = accum_args(v, f, origin, voxel_size, dims)
+    if a.n_tri and occ.numel():
+        launch("voxel_accum", a, v.device)
+    return occ, counts
+
+
+def voxel_accum_cuda(v, f, origin, voxel_size, dims):
+    """Launch K1.  v (V, 3) float32 and f (F, 3) int32, contiguous, on one
+    CUDA device; returns (occ (Z, Y, X) uint8, set_calls int)."""
+    occ, counts = accumulate(v, f, origin, voxel_size, dims)
+    if f.shape[0] == 0 or occ.numel() == 0:
+        return occ, 0
+    calls, bad = counts.tolist()
+    if bad:
+        raise ValueError(f"{bad} faces index a vertex out of range")
+    return occ, calls
 
 
 def voxel_accum(v, f, origin, voxel_size, dims):

@@ -406,7 +406,7 @@ def voxelize_planned(plan: VoxelizePlan, vertices):
     outgrows its bucket.  JAX's scatter="window" (a TPU A/B path) and
     count_only (a profiling mode) are not ported.
     """
-    from .kernels.voxel_accum import launch
+    from .kernels.voxel_accum import accumulate
 
     v = torch.as_tensor(vertices, dtype=torch.float32,
                         device=plan.device).reshape(-1, 3)
@@ -420,10 +420,6 @@ def voxelize_planned(plan: VoxelizePlan, vertices):
     if plan.device.type != "cuda":
         raise ValueError(f"voxelize_planned: unsupported device "
                          f"{plan.device}")
-    nx, ny, nz = plan.dims
-    occ = torch.zeros((nz, ny, nx), dtype=torch.uint8, device=plan.device)
-    counts = torch.zeros((2,), dtype=torch.int64, device=plan.device)
-    if plan.n_triangles and occ.numel():
-        launch(v.contiguous(), plan.faces, plan.origin, plan.voxel_size,
-               plan.dims, occ, counts)
+    occ, counts = accumulate(v.contiguous(), plan.faces, plan.origin,
+                             plan.voxel_size, plan.dims)
     return occ, counts[0]

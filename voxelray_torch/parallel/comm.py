@@ -146,18 +146,10 @@ def _accum(v, f, origin, voxel_size, dims):
     """Voxelize on v's device without a host sync: (occ (Z, Y, X) uint8,
     counts (2,) int64 = set_calls and out-of-range faces).  K1 on CUDA
     tensors, the plain voxelizer on the CPU."""
-    nx, ny, nz = (int(x) for x in dims)
     if not v.is_cuda:
         occ, calls = voxel_accum.voxel_accum(v, f, origin, voxel_size, dims)
         return occ, torch.tensor([calls, 0], device=v.device)
-    if nx * ny * nz >= 2 ** 31:
-        raise ValueError(f"grid {dims} exceeds int32 cell indexing")
-    occ = torch.zeros((nz, ny, nx), dtype=torch.uint8, device=v.device)
-    counts = torch.zeros((2,), dtype=torch.int64, device=v.device)
-    if f.shape[0]:
-        voxel_accum.launch(v, f, origin, voxel_size, (nx, ny, nz), occ,
-                           counts)
-    return occ, counts
+    return voxel_accum.accumulate(v, f, origin, voxel_size, dims)
 
 
 def voxelize_sharded(tri_verts, origin, mesh: Mesh, *, dims, voxel_size):
