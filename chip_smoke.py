@@ -56,9 +56,14 @@ Drives the port's paths the way a user calls them, at the bench's size:
     vertex sets, one plan_tri_accel over their union box (the tri-deform
     cell's 256-cell grid); on each set build_tri_accel_planned through the
     tri_bin kernels against the plain path (tri_cell_pairs on the card),
-    table for table, bit for bit; the two passes against their plain
-    versions (the counts, the serial pair stream); the rebuild's host
-    syncs; kernel ms (CUDA events) beside the bound.
+    table for table, bit for bit; the count, cells, emit and rows passes
+    and the corners pass against their plain versions (the counts, the
+    sizes block, the rows of the serial pair stream, the triangle table
+    and face terms); set 1 with PILES small triangles piled into a cell
+    each, whose rows the wide path orders (launched once), against the
+    plain rows; the rebuild's one host sync and its kernels (the tri_bin
+    passes and accel_build alone); each pass's ms (CUDA events) beside
+    the bound, the wide path's on the piled set.
   * the voxel scene's rebuild (phase 14): the deforming cell's grid
     (491x245x512 over the union box of its 32 vertex sets, set 1
     voxelized by K1) and phase 13's tri grid: accel_build's tables (with
@@ -135,7 +140,13 @@ OPS_LAP, OPS_TRI = 48, 61
 # over the deforming cell's cycle (amplitude 0.15), its tri grid's cells
 # on the longest axis
 TRI_SETS, TRI_AMPLITUDE, TRI_RES = 4, 0.15, 256
-TRI_BIN = ("tri_bin_count", "tri_bin_emit")
+# ... and set 1 with small triangles piled into a cell each, rows longer
+# than the rows pass's warp path (tri_bin.WARP_ROW)
+PILES = (100, 600)
+TRI_BIN = ("tri_bin_count", "tri_cells", "tri_bin_emit", "tri_rows")
+TRI_KERNELS = ("tri_corners_kernel", "tri_bin_count_kernel",
+               "tri_cells_kernel", "tri_bin_emit_kernel", "tri_rows_kernel",
+               "tri_rows_wide_kernel")
 # phase 14: the voxel scene's rebuild over the deforming cell's grid, GRID_RES
 # cells on the longest axis of the union box of its DEFORM_SETS vertex sets
 DEFORM_SETS = 32
@@ -1683,6 +1694,22 @@ def check_frame_glue(what, scene, vi, pi, device):
     return out
 
 
+def device_kernels(fn):
+    """The names of the kernels fn() runs on the card, one a launch
+    (torch.profiler; copies and fills left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memset", "Memcpy"))]
+
+
 def run_tri_deform(device):
     """Phase 13 (module docstring): returns tri_bin's kernel row."""
     import numpy as np
@@ -1728,10 +1755,10 @@ def run_tri_deform(device):
 
     err = 0
     for k, x in enumerate(on_card):
-        reset(*TRI_BIN)
+        reset(*TRI_BIN, "tri_rows_wide")
         got = build_tri_accel_planned(plan, x)
-        launches = counts_of(*TRI_BIN)
-        require(launches == dict.fromkeys(TRI_BIN, 1),
+        launches = counts_of(*TRI_BIN, "tri_rows_wide")
+        require(launches == {**dict.fromkeys(TRI_BIN, 1), "tri_rows_wide": 0},
                 f"tri-deform set {k}: tri_bin launches {launches}")
         with plain_binning():
             want = build_tri_accel_planned(plan, x)
@@ -1754,32 +1781,101 @@ def run_tri_deform(device):
             f"(l_width {got.l_width}, {n_ne} nonempty cells, "
             f"{int((got.cell_tris >= 0).sum())} pairs)")
 
-    # the two passes against their plain versions, on set 1
+    # the passes against their plain versions, on set 1
     tri9 = plan.tri9(on_card[1])
     n = plan.n_triangles
     args = (tri9, n, plan.origin, plan.voxel_size, plan.dims)
     counts = tri_bin.count(*args, *plan.box)
     plain = tri_bin.count_plain(*args, *plan.box)
-    for name, a, b in zip(("tri_count", "cell_count", "outside"), counts,
-                          plain):
+    for name, a, b in zip(("cell_count", "sizes"), counts, plain):
         err = max(err, apart(a, b, f"tri_bin count pass: {name}"))
-    cum = torch.cumsum(counts[0], 0)
-    pairs = int(cum[-1])
-    stream = tri_bin.emit(*args, cum, pairs)
-    for name, a, b in zip(("pair_tri", "pair_lin"), stream,
-                          tri_bin.emit_plain(*args)):
-        err = max(err, apart(a, b, f"tri_bin emit pass: {name} (against "
-                                   "the serial hit stream)"))
-    log(f"tri_bin: both passes bit-equal to the plain versions ({pairs} "
-        f"pairs, outside {int(counts[2])})")
+    cells = tri_bin.cells(*counts, tri_accel.L_WIDTHS)
+    plain_cells = tri_bin.cells_plain(*plain, tri_accel.L_WIDTHS)
+    for name, a, b in zip(("cell_slot", "mask", "sizes"),
+                          (*cells, counts[1]), (*plain_cells, plain[1])):
+        err = max(err, apart(a, b, f"tri_bin cells pass: {name}"))
+    sizes = dict(zip(tri_bin.SIZES, counts[1].tolist()))
+    n_rows, l_width = sizes["nonempty"], sizes["widest"]
+    p_tri, p_lin = tri_bin.emit_plain(*args)
+    p_lin, order = torch.sort(p_lin, stable=True)
+    err = max(err, apart(
+        tri_bin.rows(*args, cells[0], n_rows, l_width, sizes["wide"]),
+        tri_bin.rows_plain(p_tri[order], p_lin, cells[0], n_rows, l_width),
+        "tri_bin emit and rows passes: cell_tris (against the serial hit "
+        "stream's)"))
+    corners = plan.corners
+    for name, a, b in zip(("tri9", "v0", "v1", "v2", "flat", "area"),
+                          tri_bin.corners(on_card[1], corners),
+                          tri_bin.corners_plain(on_card[1], corners)):
+        require(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                f"tri_bin corners pass: {name} differs from the plain one")
+    log(f"tri_bin: every pass bit-equal to its plain version ({sizes})")
+
+    # the wide path: set 1 and PILES small triangles in a cell each
+    rng = np.random.default_rng(20)
+    vs = plan.voxel_size
+    piles = [plan.origin + (np.array(c) + 0.5) * vs
+             + rng.uniform(-vs / 3, vs / 3, (m, 9)).reshape(m, 3, 3)
+             for c, m in zip(((1, 1, 1), (nx - 2, ny - 2, nz - 2)), PILES)]
+    tri9_p = torch.cat([tri9[:n], torch.as_tensor(
+        np.concatenate(piles).reshape(-1, 9).astype(np.float32),
+        device=device), tri9[n:]])
+    n_p = n + sum(PILES)
+    args_p = (tri9_p, n_p, plan.origin, plan.voxel_size, plan.dims)
+    counts_p = tri_bin.count(*args_p, *plan.box)
+    cells_p = tri_bin.cells(*counts_p, tri_accel.L_WIDTHS)
+    sizes_p = dict(zip(tri_bin.SIZES, counts_p[1].tolist()))
+    require(sizes_p["wide"] == len(PILES)
+            and sizes_p["widest"] == max(PILES),
+            f"the piled set: sizes {sizes_p}")
+    rows_p, width_p = sizes_p["nonempty"], sizes_p["widest"]
+    reset(*TRI_BIN, "tri_rows_wide")
+    got_p = tri_bin.rows(*args_p, cells_p[0], rows_p, width_p,
+                         sizes_p["wide"])
+    torch.cuda.synchronize()
+    launches_p = counts_of("tri_bin_emit", "tri_rows", "tri_rows_wide")
+    require(launches_p == dict.fromkeys(launches_p, 1),
+            f"the piled set: launches {launches_p}")
+    p_tri, p_lin = tri_bin.emit_plain(*args_p)
+    p_lin, order = torch.sort(p_lin, stable=True)
+    err = max(err, apart(got_p, tri_bin.rows_plain(
+        p_tri[order], p_lin, cells_p[0], rows_p, width_p),
+        "the piled set: cell_tris (against the serial hit stream's)"))
+    del got_p, p_tri, p_lin, order
+    wide_block = tri_bin.rows_args(*args_p, cells_p[0], rows_p, width_p)[0]
+    _build.launch("tri_bin_emit", wide_block, device)
+    wide_ms = cuda_ms(lambda: _build.launch("tri_rows_wide", wide_block,
+                                            device), 20)
+    # the cursors read, each wide row read and written across its width
+    wide_bytes = 4 * rows_p + 8 * len(PILES) * width_p
+    log(f"tri_rows_wide, the piled set ({sizes_p['wide']} wide rows of "
+        f"{list(PILES)}, rows {rows_p} x {width_p}): bit-equal to the "
+        f"plain rows; kernel {wide_ms:.4f} ms, bound "
+        f"{bound(wide_bytes, 0)[0]:.5f} ms by bytes")
+    del wide_block, counts_p, cells_p
     sites = host_syncs(lambda: build_tri_accel_planned(plan, on_card[2]),
                        device)
     log(f"tri-deform rebuild: {len(sites)} host sync(s) at {sites}")
-    require(len(sites) <= 2, "the planned rebuild syncs more than twice")
+    require(len(sites) == 1, "the planned rebuild syncs more than once")
+    tri9_2 = plan.tri9(on_card[2])
+    names = device_kernels(lambda: build_tri_accel_planned(
+        plan, on_card[2], tri9=tri9_2))
+    log(f"tri-deform rebuild's kernels (tri9 given): {names}")
+    own = TRI_KERNELS + ("accel_words_kernel", "accel_tiles_kernel")
+    require(all(any(k in name for k in own) for name in names),
+            "the planned rebuild runs a kernel not its own")
 
-    # times: the passes, the rebuild, the plain binning
-    count_ms = cuda_ms(lambda: tri_bin.count(*args, *plan.box), 20)
-    emit_ms = cuda_ms(lambda: tri_bin.emit(*args, cum, pairs), 20)
+    # times: each pass, the rebuild, the plain binning
+    # the cells pass adds to its sizes block: a copy here
+    blocks = {"tri_corners": tri_bin.corners_args(on_card[1], corners)[0],
+              "tri_bin_count": tri_bin.count_args(*args, *plan.box)[0],
+              "tri_cells": tri_bin.cells_args(counts[0], counts[1].clone(),
+                                              tri_accel.L_WIDTHS)[0]}
+    blocks["tri_bin_emit"] = blocks["tri_rows"] = tri_bin.rows_args(
+        *args, cells[0], n_rows, l_width)[0]
+    pass_ms = {entry: cuda_ms(lambda: _build.launch(entry, blocks[entry],
+                                                    device), 20)
+               for entry in ("tri_corners",) + TRI_BIN}
     build_ms = wall_mean_ms(lambda: build_tri_accel_planned(
         plan, on_card[3]), 10)
     with plain_binning():
@@ -1789,17 +1885,27 @@ def run_tri_deform(device):
                                tri9[:n].reshape(n, 3, 3).amax(dim=1),
                                plan.origin, plan.voxel_size, plan.dims)
     tests = int((end - start).clamp(min=0).long().prod(dim=1).sum())
-    nbytes = 12 * len(v) + 12 * n + 8 * pairs + 4 * nx * ny * nz
-    log(f"tri_bin: count pass {count_ms:.4f} ms, emit pass {emit_ms:.4f} "
-        f"ms; the planned rebuild {build_ms:.4f} ms a set (synced), with "
+    # the binning's: inputs once (the vertex set, the faces), outputs once
+    # (cell_slot, the mask, the rows); the corners pass's apart
+    nbytes = 12 * len(v) + 12 * n + 5 * nx * ny * nz + 4 * n_rows * l_width
+    corners_ms = pass_ms.pop("tri_corners")
+    corners_bytes = 12 * len(v) + 24 * n + (36 + 36 + 12 + 4) * n + 36
+    log(f"tri_corners: kernel {corners_ms:.4f} ms, bound "
+        f"{bound(corners_bytes, 0)[0]:.5f} ms by bytes "
+        f"({corners_bytes / 1e6:.1f} MB)")
+    log("tri_bin: " + ", ".join(f"{k} {ms:.4f} ms" for k, ms in
+                                  pass_ms.items())
+        + f"; the planned rebuild {build_ms:.4f} ms a set (synced), with "
         f"the plain binning {plain_ms:.4f} ms; {tests} window cells, "
-        f"{pairs} pairs")
+        f"{sizes['pairs']} pairs, rows {n_rows} x {l_width}")
     row = kernel_row("tri_bin", "tri_bin.cu", "none (the triangle accel's "
                      "binning, voxelray_tpu/ops/tri_accel.py:95-121)",
-                     sum(launches.values()), err, count_ms + emit_ms,
+                     sum(launches.values()), err, sum(pass_ms.values()),
                      plain_ms, nbytes, tests * OPS_SAT)
-    row["ptxas"] = (ptxas_of(_build.build_log(), "tri_bin_count_kernel")
-                    + ptxas_of(_build.build_log(), "tri_bin_emit_kernel"))
+    row["pass_ms"] = {k: round(ms, 4) for k, ms in pass_ms.items()}
+    row["corners_ms"] = round(corners_ms, 4)
+    row["wide_ms"] = round(wide_ms, 4)
+    row["ptxas"] = {k: ptxas_of(_build.build_log(), k) for k in TRI_KERNELS}
     log(f"tri_bin: {row}")
     log(f"phase 13 (the planned triangle build): {time.time() - t0:.1f} s")
     return row
@@ -1834,7 +1940,7 @@ def run_scene_build(device):
     tri9 = tplan.tri9(torch.as_tensor(sets[1], device=device))
     nx, ny, nz = tplan.dims
     cells = tri_bin.count(tri9, tplan.n_triangles, tplan.origin,
-                          tplan.voxel_size, tplan.dims, *tplan.box)[1]
+                          tplan.voxel_size, tplan.dims, *tplan.box)[0]
     tocc = (cells > 0).view(torch.uint8).reshape(nz, ny, nx)
     torch.cuda.synchronize()
 

@@ -247,6 +247,15 @@ inline T atomicOr(T* p, T v) {
   return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
 }
 template <class T>
+inline T atomicMax(T* p, T v) {
+  T old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+  while (old < v && !__atomic_compare_exchange_n(p, &old, v, false,
+                                                 __ATOMIC_SEQ_CST,
+                                                 __ATOMIC_SEQ_CST)) {
+  }
+  return old;
+}
+template <class T>
 inline T __shfl_sync(unsigned, T v, int) { return v; }
 template <class T>
 inline T __shfl_up_sync(unsigned, T v, int) { return v; }
@@ -261,11 +270,17 @@ inline bool __all_sync(unsigned, int p) { return p != 0; }
 inline bool __any_sync(unsigned, int p) { return p != 0; }
 inline int __ffs(unsigned x) { return __builtin_ffs(x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaDevAttrMultiProcessorCount,
        cudaFuncAttributeMaxDynamicSharedMemorySize };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaMemsetAsync(void* p, int value, size_t n,
+                                   cudaStream_t) {
+  memset(p, value, n);
+  return cudaSuccess;
+}
 inline const char* cudaGetErrorString(cudaError_t) { return "host build"; }
 inline cudaError_t cudaGetDevice(int* dev) {
   *dev = 0;
@@ -331,7 +346,7 @@ SOURCES = {"voxel_accum": [voxel_accum.VoxelAccumArgs],
            "brick_fine": [brick_fine.BrickFineArgs],
            "staged_march": [staged_march.StagedMarchArgs],
            "tri_march": [tri_march.TriMarchArgs],
-           "tri_bin": [tri_bin.TriBinArgs],
+           "tri_bin": [tri_bin.TriBinArgs, tri_bin.TriCornersArgs],
            "frame_shade": [frame_shade.RaysArgs, frame_shade.SurfaceArgs,
                            frame_shade.ShadeArgs],
            "accel_build": [accel_build.AccelArgs, accel_build.BoxArgs]}

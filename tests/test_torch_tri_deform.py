@@ -1,6 +1,7 @@
 """The planned triangle scene of a deforming mesh (models/scene.plan_scene,
 build_scene_planned; ops/tri_accel.plan_tri_accel, build_tri_accel_planned)
-and the binning kernels (csrc/tri_bin.cu) on the CPU.
+and the kernels that build its step (csrc/tri_bin.cu: the corners, count,
+cells, emit and rows passes) on the CPU.
 
 A 1,536-triangle knot under four vertex sets of io/meshes.deformed, with
 one box over all four.  With two fixed triangles at that box's corners
@@ -11,8 +12,11 @@ of the same positions, array for array; each set's frame matches the
 benchmark's plain reference (benchmark/vrbench/reference.py) within the
 tri-deform cell's limits.  The kernels run built for the host with g++
 (tests/test_torch_kernels_host.py's shim, one-lane warps), against their
-plain versions and, through the planned build, against the plain build.
-No JAX: the static build is the reference here.
+plain versions and, through the planned build, against the plain build;
+the host's serial emit fills each row in order, so the rows pass is also
+given shuffled rows, and CLUSTERS piles triangles into a few cells for
+rows longer than the warp path.  No JAX: the static build is the
+reference here.
 """
 import sys
 from pathlib import Path
@@ -112,9 +116,13 @@ def _equal_accels(a, b):
 
 def _static_accel(v, f, **kw):
     """build_tri_accel over the triangles' own box."""
-    tri = v[f]
+    return _static_accel_of(v[f], **kw)
+
+
+def _static_accel_of(tri, device="cpu", **kw):
+    """build_tri_accel of (F, 3, 3) triangles over their own box."""
     return build_tri_accel(tri[:, 0], tri[:, 1], tri[:, 2], res=RES,
-                           device="cpu", **kw)
+                           device=device, **kw)
 
 
 @pytest.mark.parametrize("k", range(SETS))
@@ -272,32 +280,67 @@ def test_each_sets_frame_matches_the_benchmark_reference(knot):
 
 # ------------------------------------------------ the kernels, host-built
 
-@pytest.fixture(scope="module")
-def host_bin(tmp_path_factory):
-    """(count, emit): tri_bin.count / emit with the host build of
+class HostBin:
+    """tri_bin's count, cells and rows with the host build of
     csrc/tri_bin.cu in the kernels' place, on CPU tensors: the wrapper's
-    argument blocks through the source's own launchers; `blocks` (0: the
-    launcher's) sets the grid."""
-    from test_torch_kernels_host import _host_build, _launch
-    lib = _host_build(tmp_path_factory.mktemp("tri_bin"), "tri_bin",
-                      (CSRC / "tri_bin.cu").read_text(), "", CSRC)
+    argument blocks through the source's own launchers, each output filled
+    with garbage first; `blocks` (0: the launcher's) sets the grid, and
+    `entries` lists every entry point run."""
 
-    def run(name, a, outs, blocks):
-        for x in outs[:2 if name == "tri_bin_emit_launch" else 1]:
+    def __init__(self, lib):
+        self.lib, self.blocks, self.entries = lib, 0, []
+
+    def run(self, entry, a):
+        from test_torch_kernels_host import _launch
+        self.entries.append(entry)
+        self.lib.host_set_blocks(self.blocks)
+        _launch(self.lib, a, entry + "_launch")
+
+    def count(self, tri9, n_tri, origin, vs, dims, lo, hi):
+        a, outs = tri_bin.count_args(tri9, n_tri, origin, vs, dims, lo, hi)
+        for x in outs:
             x.fill_(-7)
-        lib.host_set_blocks(blocks)
-        _launch(lib, a, name)
+        self.run("tri_bin_count", a)
         return outs
 
-    def count(tri9, n_tri, origin, vs, dims, lo, hi, blocks=0):
-        return run("tri_bin_count_launch", *tri_bin.bin_args(
-            tri9, n_tri, origin, vs, dims, lo, hi), blocks)
+    def corners(self, verts, corners):
+        a, outs = tri_bin.corners_args(verts, corners)
+        for x in outs:
+            x.fill_(-7.0)
+        self.run("tri_corners", a)
+        return outs
 
-    def emit(tri9, n_tri, origin, vs, dims, cum, n_pairs, blocks=0):
-        return run("tri_bin_emit_launch", *tri_bin.bin_args(
-            tri9, n_tri, origin, vs, dims, cum=cum, n_pairs=n_pairs), blocks)
+    def cells(self, cell_count, sizes, widths):
+        a, (cell_slot, mask) = tri_bin.cells_args(cell_count, sizes, widths)
+        cell_slot.fill_(-7)
+        mask.fill_(7)
+        self.run("tri_cells", a)
+        return cell_slot, mask
 
-    return count, emit
+    def emit(self, tri9, n_tri, origin, vs, dims, cell_slot, n_rows,
+             l_width):
+        """The emit pass alone: (its block, cell_tris), the rows filled but
+        not ordered, the rest of each row garbage."""
+        a, cell_tris = tri_bin.rows_args(tri9, n_tri, origin, vs, dims,
+                                         cell_slot, n_rows, l_width)
+        cell_tris.fill_(-7)
+        self.run("tri_bin_emit", a)
+        return a, cell_tris
+
+    def rows(self, tri9, n_tri, origin, vs, dims, cell_slot, n_rows,
+             l_width, wide):
+        a, cell_tris = self.emit(tri9, n_tri, origin, vs, dims, cell_slot,
+                                 n_rows, l_width)
+        for entry in tri_bin.row_passes(wide)[1:]:
+            self.run(entry, a)
+        return cell_tris
+
+
+@pytest.fixture(scope="module")
+def host_bin(tmp_path_factory):
+    from test_torch_kernels_host import _host_build
+    return HostBin(_host_build(tmp_path_factory.mktemp("tri_bin"), "tri_bin",
+                               (CSRC / "tri_bin.cu").read_text(), "", CSRC))
 
 
 def _mixed_tri9(knot):
@@ -313,52 +356,317 @@ def _mixed_tri9(knot):
                       torch.zeros((1, 9))])
 
 
+# triangles piled into one cell each, near four corners of the knot's box:
+# a row as wide as the warp path holds, one wider, and one much wider
+CLUSTERS = (48, 64, 65, 150)
+# a row longer than the wide path orders in shared memory (L_WIDTHS[1])
+PILE = (4200,)
+
+
+def _clustered(knot, clusters=CLUSTERS, spread=1 / 3):
+    """(faces, vertices): the knot's set 1 and, in up to four cells of the
+    tri grid at RES, clusters[i] small triangles each, every corner within
+    `spread` cells of the cell's centre."""
+    f, sets, lo, hi = knot
+    origin, vs, dims = tri_accel._tri_grid(lo, hi, RES)
+    rng = np.random.default_rng(20)
+    v, faces = [sets[1]], [f]
+    n = len(sets[1])
+    for k, m in enumerate(clusters):
+        cell = np.array([1 if k & 1 else dims[0] - 2, 1 if k & 2 else
+                         dims[1] - 2, 1 if k < 2 else dims[2] - 2])
+        centre = origin + (cell + 0.5) * vs
+        v.append((centre + rng.uniform(-vs * spread, vs * spread,
+                                       (3 * m, 3)))
+                 .astype(np.float32))
+        faces.append(n + np.arange(3 * m).reshape(m, 3))
+        n += 3 * m
+    return np.concatenate(faces), np.concatenate(v)
+
+
+def _plain_tables(tri9, n, origin, vs, dims, lo, hi,
+                  widths=tri_accel.L_WIDTHS):
+    """The plain path's (cell_count, sizes, cell_slot, mask, cell_tris) of
+    the first n rows of tri9: the rows from emit_plain's serial pairs,
+    sorted by cell (stably: each cell's triangles stay ascending)."""
+    cell_count, sizes = tri_bin.count_plain(tri9, n, origin, vs, dims, lo,
+                                            hi)
+    cell_slot, mask = tri_bin.cells_plain(cell_count, sizes, widths)
+    p_tri, p_lin = tri_bin.emit_plain(tri9, n, origin, vs, dims)
+    p_lin, order = torch.sort(p_lin, stable=True)
+    n_rows = max(1, int(sizes[tri_bin.SIZES.index("nonempty")]))
+    l_width = max(1, int(sizes[tri_bin.SIZES.index("widest")]))
+    cell_tris = tri_bin.rows_plain(p_tri[order], p_lin, cell_slot, n_rows,
+                                   l_width)
+    return cell_count, sizes, cell_slot, mask, cell_tris
+
+
+def _shuffle_rows(cell_tris, seed):
+    """Each row's filled entries in a random order, in place (the host
+    build's serial emit leaves them ascending)."""
+    rng = np.random.default_rng(seed)
+    for r in range(cell_tris.shape[0]):
+        n = int((cell_tris[r] >= 0).sum())
+        cell_tris[r, :n] = cell_tris[r, torch.from_numpy(rng.permutation(n))]
+
+
 @pytest.mark.parametrize("blocks", [0, 1])
 def test_host_tri_bin_matches_plain(knot, host_bin, blocks):
-    """The count pass (each triangle's hits, each cell's, the triangles
-    outside the box) and the emit pass (the pairs in serial order, at
-    each triangle's offset) equal the plain versions on mixed triangles;
-    with the launcher's grid and with one block striding over them."""
+    """The count pass (each cell's hits, the triangles outside the box),
+    the cells pass (cell_slot, the mask, the sizes block) and the emit and
+    rows passes (each row's triangles ascending, then -1) equal the plain
+    versions on mixed triangles, the rows those of emit_plain's serial
+    pairs; with the launcher's grid and with one block striding over
+    them."""
     f, sets, lo, hi = knot
-    count, emit = host_bin
+    host_bin.blocks = blocks
     tri9 = _mixed_tri9(knot)
     n = len(f)
     origin, vs, dims = tri_accel._tri_grid(lo, hi, RES)
-    got = count(tri9, n, origin, vs, dims, lo, hi, blocks)
-    want = tri_bin.count_plain(tri9, n, origin, vs, dims, lo, hi)
+    want = _plain_tables(tri9, n, origin, vs, dims, lo, hi)
+    cell_count, sizes = host_bin.count(tri9, n, origin, vs, dims, lo, hi)
+    cell_slot, mask = host_bin.cells(cell_count, sizes, tri_accel.L_WIDTHS)
+    assert int(sizes[tri_bin.SIZES.index("outside")]) == 2  # NaN, moved
+    got = (cell_count, sizes, cell_slot, mask, host_bin.rows(
+        tri9, n, origin, vs, dims, cell_slot, *want[4].shape, 0))
+    for name, a, b in zip(("cell_count", "sizes", "cell_slot", "mask",
+                           "cell_tris"), got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("blocks", [0, 1])
+@pytest.mark.parametrize("widths", [(2, 5), tri_accel.L_WIDTHS])
+def test_host_cells_pass_matches_plain(knot, host_bin, widths, blocks):
+    """The cells pass over the knot's cell counts, a hundred chunks of 64
+    cells on the host build's one-lane warps (each chunk's rows numbered
+    after the chunks before it, by the look-back): cell_slot (-1 at the
+    end), the mask and every word of the sizes block equal the plain
+    version's, with widths the knot's cells outgrow and the planned
+    build's."""
+    f, sets, lo, hi = knot
+    host_bin.blocks = blocks
+    tri9 = _mixed_tri9(knot)
+    origin, vs, dims = tri_accel._tri_grid(lo, hi, RES)
+    cell_count, sizes = tri_bin.count_plain(tri9, len(f), origin, vs, dims,
+                                            lo, hi)
+    want_sizes = sizes.clone()
+    want = tri_bin.cells_plain(cell_count, want_sizes, widths)
+    got = host_bin.cells(cell_count, sizes, widths)
+    assert cell_count.numel() >= 100 * tri_bin.CHUNK_MIN
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and torch.equal(a, b)
-    assert int(got[2]) == 2                         # the NaN and the moved
-    cum = torch.cumsum(got[0], 0)
-    pairs = emit(tri9, n, origin, vs, dims, cum, int(cum[-1]), blocks)
-    for a, b in zip(pairs, tri_bin.emit_plain(tri9, n, origin, vs, dims)):
-        assert torch.equal(a, b)
+    assert torch.equal(sizes, want_sizes)
+    words = dict(zip(tri_bin.SIZES, sizes.tolist()))
+    assert words["wide"] == 0 and (words["over0"] > words["over1"] > 0
+                                   if widths == (2, 5) else
+                                   words["over0"] == words["over1"] == 0)
+
+
+@pytest.mark.parametrize("blocks", [0, 1])
+def test_host_corners_pass_matches_plain(knot, host_bin, blocks):
+    """The corners pass over the knot's set 2 with a degenerate triangle
+    and one of zero area: tri9 (its pad row zero), the three corner
+    arrays, the flat normals and the areas equal the plain version's bit
+    for bit."""
+    f, sets, lo, hi = knot
+    host_bin.blocks = blocks
+    v = torch.from_numpy(sets[2])
+    faces = f.copy()
+    faces[3, 1] = faces[3, 0]                       # degenerate
+    faces[4] = faces[4, 0]                          # a point
+    corners = torch.from_numpy(faces.reshape(-1).astype(np.int64))
+    got = host_bin.corners(v, corners)
+    want = tri_bin.corners_plain(v, corners)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                                  b.view(torch.int32))
+    assert not got[0][-1].any() and not got[4][4].any()
+
+
+@pytest.mark.parametrize("blocks", [0, 1])
+def test_host_rows_pass_orders_shuffled_rows(knot, host_bin, blocks):
+    """The rows pass given each row's entries in a random order (as the
+    card's atomics leave them) and garbage pads: each row ascending, then
+    -1, the plain path's table."""
+    f, sets, lo, hi = knot
+    host_bin.blocks = blocks
+    tri9 = _mixed_tri9(knot)
+    n = len(f)
+    origin, vs, dims = tri_accel._tri_grid(lo, hi, RES)
+    *_, cell_slot, _, want = _plain_tables(tri9, n, origin, vs, dims, lo, hi)
+    a, cell_tris = host_bin.emit(tri9, n, origin, vs, dims, cell_slot,
+                                 *want.shape)
+    filled = cell_tris >= 0
+    assert torch.equal(filled, want >= 0)
+    _shuffle_rows(cell_tris, blocks)
+    cell_tris[~filled] = -7
+    assert not torch.equal(cell_tris, want)
+    host_bin.run("tri_rows", a)
+    assert torch.equal(cell_tris, want)
+
+
+def test_host_wide_rows_take_the_wide_path(knot, host_bin, monkeypatch):
+    """Rows longer than the warp path (tri_bin.WARP_ROW): the rows pass
+    leaves them as they are, its wide path orders them; through the
+    planned build with the host-built kernels, the step runs the wide path
+    and counts its rows in tri_accel.wide_rows, and its tables are the
+    plain path's."""
+    f, sets, lo, hi = knot
+    host_bin.blocks = 0
+    faces, v = _clustered(knot)
+    n = len(faces)
+    tri9 = torch.cat([torch.from_numpy(v[faces].reshape(-1, 9)),
+                      torch.zeros((1, 9))])
+    origin, vs, dims = tri_accel._tri_grid(lo, hi, RES)
+    cell_count, sizes, cell_slot, _, want = _plain_tables(
+        tri9, n, origin, vs, dims, lo, hi)
+    wide = int((cell_count > tri_bin.WARP_ROW).sum())
+    assert wide == int(sizes[tri_bin.SIZES.index("wide")]) >= 2
+    assert int(((cell_count > 32) & (cell_count <= 64)).sum()) >= 2
+    a, cell_tris = host_bin.emit(tri9, n, origin, vs, dims, cell_slot,
+                                 *want.shape)
+    _shuffle_rows(cell_tris, 3)
+    host_bin.run("tri_rows", a)
+    long_rows = (want >= 0).sum(dim=1) > tri_bin.WARP_ROW
+    assert torch.equal(cell_tris[~long_rows], want[~long_rows])
+    assert not torch.equal(cell_tris[long_rows], want[long_rows])
+    host_bin.run("tri_rows_wide", a)
+    assert torch.equal(cell_tris, want)
+
+    plan = plan_tri_accel(faces, len(v), bb_min=lo, bb_max=hi, res=RES,
+                          device="cpu")
+    trace.reset_counters("tri_accel.")
+    plain = build_tri_accel_planned(plan, v)
+    plain_counts = trace.counters()
+    monkeypatch.setattr(tri_accel, "_use_kernel", lambda dev: True)
+    monkeypatch.setattr(tri_bin, "count", host_bin.count)
+    monkeypatch.setattr(tri_bin, "cells", host_bin.cells)
+    monkeypatch.setattr(tri_bin, "rows", host_bin.rows)
+    host_bin.entries.clear()
+    trace.reset_counters("tri_accel.")
+    _equal_accels(build_tri_accel_planned(plan, v), plain)
+    assert trace.counters() == plain_counts
+    assert plain_counts["tri_accel.wide_rows"] == wide
+    assert host_bin.entries == ["tri_bin_count", "tri_cells",
+                                "tri_bin_emit", "tri_rows", "tri_rows_wide"]
+
+
+@pytest.mark.parametrize("blocks", [0, 1])
+def test_host_rows_past_shared_memory_are_ordered_in_place(knot, host_bin,
+                                                           blocks):
+    """A row longer than the wide path holds in shared memory
+    (tri_accel.L_WIDTHS[1] entries), shuffled: the rows pass leaves it, the
+    wide path orders it where it lies; the plain path's table."""
+    f, sets, lo, hi = knot
+    host_bin.blocks = blocks
+    faces, v = _clustered(knot, PILE)
+    n = len(faces)
+    tri9 = torch.cat([torch.from_numpy(v[faces].reshape(-1, 9)),
+                      torch.zeros((1, 9))])
+    origin, vs, dims = tri_accel._tri_grid(lo, hi, RES)
+    cell_count, sizes, cell_slot, _, want = _plain_tables(
+        tri9, n, origin, vs, dims, lo, hi)
+    assert int(cell_count.max()) == PILE[0] > tri_accel.L_WIDTHS[1]
+    a, cell_tris = host_bin.emit(tri9, n, origin, vs, dims, cell_slot,
+                                 *want.shape)
+    _shuffle_rows(cell_tris, 5 + blocks)
+    host_bin.run("tri_rows", a)
+    assert not torch.equal(cell_tris, want)
+    host_bin.run("tri_rows_wide", a)
+    assert torch.equal(cell_tris, want)
+
+
+# build_tri_accel's rows on the kernels' path: (the clusters beside the
+# knot's set 1, its l_width option): short rows padded to a width past
+# L_WIDTHS[1], short rows cut, and a row past L_WIDTHS[1] (the wide path's)
+# cut to the default width
+STATIC_CASES = {"padded": ((), 5000), "cut": ((), 3), "piled": (PILE, None)}
+
+
+def _static_case(knot, case):
+    """(triangles (F, 3, 3), build_tri_accel's options, the widest cell of
+    its grid)."""
+    clusters, l_width = STATIC_CASES[case]
+    # piled tight, as the build's own grid is not the knot's
+    faces, v = _clustered(knot, clusters, spread=0.01)
+    tri = v[faces]
+    corners = tri.reshape(-1, 3)
+    origin, vs, dims = tri_accel._tri_grid(corners.min(axis=0),
+                                           corners.max(axis=0), RES)
+    _, lin = tri_bin.emit_plain(torch.from_numpy(tri.reshape(-1, 9)),
+                                len(tri), origin, vs, dims)
+    widest = int(torch.bincount(lin.long()).max())
+    return tri, {} if l_width is None else {"l_width": l_width}, widest
+
+
+def _check_static_case(case, accel, widest):
+    """The case is what its name says: l_width past the widest cell (and
+    past L_WIDTHS[1]), or cut below it (for "piled", a cell past
+    L_WIDTHS[1] cut to the default width)."""
+    if case == "padded":
+        assert accel.l_width == 5000 > tri_accel.L_WIDTHS[1] > widest
+        assert accel.overflow_cells == 0
+    else:
+        assert accel.l_width == (3 if case == "cut" else 512) < widest
+        assert accel.overflow_cells > 0
+        assert (widest > tri_accel.L_WIDTHS[1]) == (case == "piled")
+
+
+@pytest.mark.parametrize("case", sorted(STATIC_CASES))
+def test_host_static_build_cuts_and_pads_the_kernel_rows(knot, host_bin,
+                                                         monkeypatch, case):
+    """build_tri_accel (the JAX package's build, rows cut at l_width)
+    through the kernels' path, the host-built kernels in the card's place:
+    its rows written as wide as the widest cell, then cut or padded to
+    l_width, give the plain path's accel and counters, whether l_width is
+    past L_WIDTHS[1] with every row short or a row is longer than that."""
+    host_bin.blocks = 0
+    tri, kw, widest = _static_case(knot, case)
+    wide = widest > tri_bin.WARP_ROW
+    trace.reset_counters("tri_accel.")
+    want = _static_accel_of(tri, **kw)
+    counts = trace.counters()
+    _check_static_case(case, want, widest)
+    monkeypatch.setattr(tri_accel, "_use_kernel", lambda dev: True)
+    monkeypatch.setattr(tri_bin, "count", host_bin.count)
+    monkeypatch.setattr(tri_bin, "cells", host_bin.cells)
+    monkeypatch.setattr(tri_bin, "rows", host_bin.rows)
+    host_bin.entries.clear()
+    trace.reset_counters("tri_accel.")
+    _equal_accels(_static_accel_of(tri, **kw), want)
+    assert trace.counters() == counts
+    assert (counts["tri_accel.wide_rows"] > 0) == wide
+    assert host_bin.entries == ["tri_bin_count", "tri_cells",
+                                "tri_bin_emit", "tri_rows"] \
+        + ["tri_rows_wide"] * wide
 
 
 def test_host_kernel_path_builds_the_plain_accel(knot, host_bin,
                                                  monkeypatch):
-    """build_tri_accel_planned through the kernels' path (count, the one
-    sizing copy, emit, the stable sort by cell), the host-built kernels in
-    the card's place: the plain path's accel, table for table, on every
-    set."""
+    """build_tri_accel_planned through the kernels' path (the count and
+    cells passes, the one sizing copy, the emit and rows passes), the
+    host-built kernels in the card's place: the plain path's accel, table
+    for table, and its counters, on every set; no wide rows."""
     f, sets, lo, hi = knot
+    host_bin.blocks = 0
     plan = plan_tri_accel(f, len(sets[0]), bb_min=lo, bb_max=hi, res=RES,
                           device="cpu")
-    want = [build_tri_accel_planned(plan, v) for v in sets]
-    count, emit = host_bin
-    calls = []
-
-    def counting(fn):
-        def wrapped(*a):
-            calls.append(fn)
-            return fn(*a)
-        return wrapped
+    want = []
+    for v in sets:
+        trace.reset_counters("tri_accel.")
+        want.append((build_tri_accel_planned(plan, v), trace.counters()))
     monkeypatch.setattr(tri_accel, "_use_kernel", lambda dev: True)
-    monkeypatch.setattr(tri_bin, "count", counting(count))
-    monkeypatch.setattr(tri_bin, "emit", counting(emit))
-    for v, b in zip(sets, want):
-        _equal_accels(build_tri_accel_planned(plan, v), b)
-    assert calls == [count, emit] * SETS
+    monkeypatch.setattr(tri_bin, "count", host_bin.count)
+    monkeypatch.setattr(tri_bin, "cells", host_bin.cells)
+    monkeypatch.setattr(tri_bin, "rows", host_bin.rows)
+    host_bin.entries.clear()
+    for v, (accel, counts) in zip(sets, want):
+        trace.reset_counters("tri_accel.")
+        _equal_accels(build_tri_accel_planned(plan, v), accel)
+        assert trace.counters() == counts
+        assert counts["tri_accel.wide_rows"] == 0
+    assert host_bin.entries == ["tri_bin_count", "tri_cells",
+                                "tri_bin_emit", "tri_rows"] * SETS
 
 
 @pytest.fixture
@@ -370,27 +678,81 @@ def cuda():
 
 @pytest.mark.cuda
 def test_tri_bin_matches_plain_on_cuda(knot, cuda):
-    """On the card: the kernels against their plain versions on the same
-    card, and the planned accel against the plain path's."""
+    """On the card: the count, cells, emit and rows passes against their
+    plain versions on the same card (mixed triangles; and the clustered
+    knot, whose rows take the warp path's second register and the wide
+    path), the corners pass against its plain version, and the planned
+    accel against the plain path's, on every set and on the clustered
+    knot, with the same counters."""
     f, sets, lo, hi = knot
-    tri9 = _mixed_tri9(knot).to(cuda)
-    n = len(f)
     origin, vs, dims = tri_accel._tri_grid(lo, hi, RES)
-    got = tri_bin.count(tri9, n, origin, vs, dims, lo, hi)
-    want = tri_bin.count_plain(tri9, n, origin, vs, dims, lo, hi)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    cum = torch.cumsum(got[0], 0)
-    for a, b in zip(tri_bin.emit(tri9, n, origin, vs, dims, cum,
-                                 int(cum[-1])),
-                    tri_bin.emit_plain(tri9, n, origin, vs, dims)):
-        assert torch.equal(a, b)
-    plan = plan_tri_accel(f, len(sets[0]), bb_min=lo, bb_max=hi, res=RES,
-                          device=cuda)
-    on_cpu = plan_tri_accel(f, len(sets[0]), bb_min=lo, bb_max=hi, res=RES,
-                            device="cpu")
-    for v in sets:
-        ta = build_tri_accel_planned(plan, torch.from_numpy(v).to(cuda))
-        ref = build_tri_accel_planned(on_cpu, v)
+    faces, v = _clustered(knot)
+    clustered = torch.cat([torch.from_numpy(v[faces].reshape(-1, 9)),
+                           torch.zeros((1, 9))])
+    for tri9, n in ((_mixed_tri9(knot), len(f)), (clustered, len(faces))):
+        tri9 = tri9.to(cuda)
+        want = _plain_tables(tri9, n, origin, vs, dims, lo, hi)
+        cell_count, sizes = tri_bin.count(tri9, n, origin, vs, dims, lo, hi)
+        cell_slot, mask = tri_bin.cells(cell_count, sizes,
+                                        tri_accel.L_WIDTHS)
+        wide = int(sizes[tri_bin.SIZES.index("wide")])
+        got = (cell_count, sizes, cell_slot, mask, tri_bin.rows(
+            tri9, n, origin, vs, dims, cell_slot, *want[4].shape, wide))
+        for name, a, b in zip(("cell_count", "sizes", "cell_slot", "mask",
+                               "cell_tris"), got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), name
+    assert wide >= 2
+    # a last warp of triangles short of a whole one
+    verts = torch.from_numpy(v).to(cuda)
+    corners = torch.from_numpy(faces.reshape(-1).astype(np.int64)).to(cuda)
+    assert len(faces) % 32
+    for a, b in zip(tri_bin.corners(verts, corners),
+                    tri_bin.corners_plain(verts, corners)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    cases = [(f, len(sets[0]), x) for x in sets] + [(faces, len(v), v)]
+    for fc, n_v, x in cases:
+        plan = plan_tri_accel(fc, n_v, bb_min=lo, bb_max=hi, res=RES,
+                              device=cuda)
+        on_cpu = plan_tri_accel(fc, n_v, bb_min=lo, bb_max=hi, res=RES,
+                                device="cpu")
+        trace.reset_counters("tri_accel.")
+        ta = build_tri_accel_planned(plan, torch.from_numpy(x).to(cuda))
+        counts = trace.counters()
+        trace.reset_counters("tri_accel.")
+        ref = build_tri_accel_planned(on_cpu, x)
+        assert counts == trace.counters()
         for k in ("cell_slot", "cell_tris", "tri9"):
             assert torch.equal(getattr(ta, k).cpu(), getattr(ref, k)), k
+        for k in ("coarse", "fine", "l2"):
+            assert torch.equal(getattr(ta.brick, k).cpu(),
+                               getattr(ref.brick, k)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(STATIC_CASES))
+def test_static_build_on_cuda_matches_cpu(knot, cuda, case):
+    """On the card: build_tri_accel's rows, written by the kernels as wide
+    as the widest cell and then padded past L_WIDTHS[1] or cut (for
+    "piled" a row past L_WIDTHS[1], ordered in place by the wide path),
+    equal the CPU build's, table for table, with the same counters; the
+    wide path launched where a row is longer than the warp path's."""
+    tri, kw, widest = _static_case(knot, case)
+    trace.reset_counters("tri_accel.")
+    want = _static_accel_of(tri, **kw)
+    counts = {k: n for k, n in trace.counters().items()
+              if k.startswith("tri_accel.")}
+    _check_static_case(case, want, widest)
+    trace.reset_counters("tri_accel.")
+    trace.reset_counters("launches.")
+    got = _static_accel_of(tri, device=cuda, **kw)
+    assert {k: n for k, n in trace.counters().items()
+            if k.startswith("tri_accel.")} == counts
+    assert trace.counter("launches.tri_rows_wide") == int(
+        widest > tri_bin.WARP_ROW)
+    assert (got.l_width, got.overflow_cells) == (want.l_width,
+                                                 want.overflow_cells)
+    for k in ("cell_slot", "cell_tris", "tri9"):
+        assert torch.equal(getattr(got, k).cpu(), getattr(want, k)), k
+    for k in ("coarse", "fine", "l2"):
+        assert torch.equal(getattr(got.brick, k).cpu(),
+                           getattr(want.brick, k)), k

@@ -40,6 +40,7 @@ import torch
 from ..io.objload import Material
 from ..io.textures import build_mip_chain, load_texture
 from ..ops.aabbs import extract_aabbs
+from ..ops.kernels import tri_bin
 from ..ops.traverse_fast import build_accel
 from ..ops.tri_accel import build_tri_accel_planned, plan_tri_accel
 from ..utils import trace
@@ -343,22 +344,6 @@ def build_scene(models=None, grid=None, aabbs=None,
         grid_voxel_size=float(g_vs))
 
 
-def _face_terms(v0, v1, v2):
-    """(flat face normals (F, 3), world areas (F,)) of the corners, float32
-    tensors, in the numpy expressions of the loader's flat normals
-    (io/objload.py: cross, norm, guarded divide) and of _tri_lod; the
-    norm's square root is taken in float64, which rounds to the IEEE
-    float32 root on every device."""
-    e1, e2 = v1 - v0, v2 - v0
-    n = torch.stack([e1[:, 1] * e2[:, 2] - e1[:, 2] * e2[:, 1],
-                     e1[:, 2] * e2[:, 0] - e1[:, 0] * e2[:, 2],
-                     e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]], dim=1)
-    sq = n[:, 0] * n[:, 0] + n[:, 1] * n[:, 1] + n[:, 2] * n[:, 2]
-    norm = torch.sqrt(sq.double()).float()[:, None]
-    flat = torch.where(norm > 0, n / torch.clamp(norm, min=1e-30), n)
-    return flat, 0.5 * norm[:, 0]
-
-
 class ScenePlan:
     """The triangle scene of `models` whose topology stays fixed, set up
     once for a scene a step (build_scene_planned).
@@ -395,7 +380,6 @@ class ScenePlan:
 
         self.faces = as_t(faces)
         self.corners = self.faces.reshape(-1)
-        self.pad = torch.zeros((1, 9), device=dev)
         occ = torch.zeros((0, 0, 0), dtype=torch.uint8, device=dev)
         g_org = np.zeros(3, np.float32)
         aabbs = extract_aabbs({"occ": occ, "dims": (0, 0, 0),
@@ -453,7 +437,9 @@ def build_scene_planned(plan: ScenePlan, vertices, normals=None) -> Scene:
     default each triangle's flat face normal, as the loader gives a mesh
     without normals.  The corners, the normals, tri_lod and the triangle
     accel (build_tri_accel_planned: None, the brute trace, where a cell
-    outgrows the widest row) are made on the device; on CPU tensors the
+    outgrows the widest row) are made on the device (the corners, the
+    flat normals and the areas by one tri_bin.corners call, a kernel on
+    the card); on CPU tensors the
     Scene equals build_scene(models=...) of the same positions, array for
     array and table for table.
     """
@@ -463,10 +449,8 @@ def build_scene_planned(plan: ScenePlan, vertices, normals=None) -> Scene:
     if v.shape[0] != plan.n_vertices:
         raise ValueError(f"{v.shape[0]} vertices; the plan has "
                          f"{plan.n_vertices}")
-    tri9 = torch.cat([v[plan.corners].reshape(-1, 9), plan.pad])
-    tri = tri9[:-1].reshape(-1, 3, 3)
-    v0, v1, v2 = (tri[:, k].contiguous() for k in range(3))
-    flat, area = _face_terms(v0, v1, v2)
+    corners = tri_bin.corners if dev.type == "cuda" else tri_bin.corners_plain
+    tri9, v0, v1, v2, flat, area = corners(v.contiguous(), plan.corners)
     if normals is None:
         n0 = n1 = n2 = flat
     else:

@@ -32,14 +32,16 @@ by the grid's step bound; `unresolved` counts rays left at that bound
 and is 0 by construction.
 
 `plan_tri_accel` / `build_tri_accel_planned` build the accel from a
-vertex array: the faces and the grid are set once, and each build bins
-through the tri_bin kernels (ops/kernels/tri_bin.py) on the card with one
-host sync.  Rows are never cut there: a cell wider than the widest row
-(L_WIDTHS) gives no accel, and the scene takes the brute trace.  Both
-triangle scenes build this way: build_scene once over its triangles' own
-box, build_scene_planned each step of a deforming mesh.
-`build_tri_accel`, the JAX package's build (its rows cut at l_width, the
-cut cells counted in `overflow_cells`), bins the same way.
+vertex array: the faces and the grid are set once, and on the card each
+build's tables are written by the tri_bin kernels (ops/kernels/tri_bin.py:
+a counting sort of the binning's hits into the rows) with one host sync.
+Rows are never cut there: a cell wider than the widest row (L_WIDTHS)
+gives no accel, and the scene takes the brute trace.  Both triangle
+scenes build this way: build_scene once over its triangles' own box,
+build_scene_planned each step of a deforming mesh.  `build_tri_accel`,
+the JAX package's build (its rows cut at l_width, the cut cells counted
+in `overflow_cells`), bins the same way: on the card its rows are written
+as wide as the widest cell and then cut (or padded) to its l_width.
 """
 from __future__ import annotations
 
@@ -95,90 +97,74 @@ def _tri_grid(bb_min, bb_max, res):
 
 
 def _use_kernel(device):
-    """Whether the pairs come from the tri_bin kernels (CUDA tensors) or
+    """Whether the tables come from the tri_bin kernels (CUDA tensors) or
     from the plain hit stream, ops/voxelize.tri_cell_pairs (any other
     device, and the kernels' reference on the card)."""
     return device.type == "cuda"
 
 
-def _bin(tri9, n_tri, origin, vs, dims, box):
+def _bin(tri9, n_tri, origin, vs, dims, box, widths):
     """Bin the triangles (the first n_tri rows of tri9) into the grid:
-    (cell_count (X*Y*Z,) int32, outside (1,) int64, and a function
-    returning the pairs, (tri_id, lin) int32 sorted by (lin, tri_id)),
-    with no host sync on the card."""
+    (cell_slot, the nonempty cells' uint8 mask, the sizes, and a function
+    rows(n_rows, l_width) -> cell_tris, each cell's row cut at l_width).
+
+    The sizes are the one device-to-host copy: {pairs, nonempty cells,
+    widest cell, the cells wider than widths[0] (over0) and than widths[1]
+    (over1), the triangles outside the box, the rows longer than the rows
+    pass's warp path (wide)}, tri_bin.SIZES.  On the card the kernels write
+    the tables, each row as wide as the widest cell, then cut or padded
+    with -1 to l_width."""
     if _use_kernel(tri9.device):
         with trace.span("tri_bin"):
-            tri_count, cell_count, outside = tri_bin.count(
-                tri9, n_tri, origin, vs, dims, *box)
-        cum = torch.cumsum(tri_count, 0)
+            cell_count, sizes = tri_bin.count(tri9, n_tri, origin, vs, dims,
+                                              *box)
+            cell_slot, mask = tri_bin.cells(cell_count, sizes, widths)
+        sizes = dict(zip(tri_bin.SIZES, sizes.tolist()))
 
-        def pairs(n_pairs):
+        def rows(n_rows, l_width):
+            full = max(1, sizes["widest"])
             with trace.span("tri_bin"):
-                p_tri, p_lin = tri_bin.emit(tri9, n_tri, origin, vs, dims,
-                                            cum, n_pairs)
-            # the stream is in triangle order, so a stable sort by cell
-            # leaves each cell's triangles ascending
-            p_lin, order = torch.sort(p_lin, stable=True)
-            return p_tri[order], p_lin
-        return cell_count, outside, pairs
+                cell_tris = tri_bin.rows(tri9, n_tri, origin, vs, dims,
+                                         cell_slot, n_rows, full,
+                                         sizes["wide"])
+            if l_width == full:
+                return cell_tris
+            if l_width < full:
+                return cell_tris[:, :l_width].contiguous()
+            return torch.nn.functional.pad(cell_tris, (0, l_width - full),
+                                           value=-1)
+        return cell_slot, mask, sizes, rows
     p_tri, p_lin = tri_cell_pairs(tri9[:n_tri].reshape(n_tri, 3, 3), origin,
                                   vs, dims)
     n_cells = dims[0] * dims[1] * dims[2]
     cell_count = torch.bincount(p_lin, minlength=n_cells).to(torch.int32)
-    outside = tri_bin.outside_plain(tri9, n_tri, *box)
-    return cell_count, outside, lambda n_pairs: (p_tri.to(torch.int32),
-                                                 p_lin.to(torch.int32))
+    sizes = tri_bin.sizes_plain(tri9, n_tri, *box)
+    cell_slot, mask = tri_bin.cells_plain(cell_count, sizes, widths)
+    return (cell_slot, mask, dict(zip(tri_bin.SIZES, sizes.tolist())),
+            lambda n_rows, l_width: tri_bin.rows_plain(
+                p_tri, p_lin, cell_slot, n_rows, l_width))
 
 
-def _sizes(cell_count, outside, widths=()):
-    """The one device-to-host copy that sizes the rows: [pairs, nonempty
-    cells, widest cell, the cells wider than each of `widths`, the
-    triangles outside the box]."""
-    c = cell_count.long()
-    return torch.stack([c.sum(), (c > 0).sum(), c.max()]
-                       + [(c > w).sum() for w in widths]
-                       + [outside[0]]).tolist()
-
-
-def _assemble(tri9, origin, vs, dims, cell_count, pair_tri, pair_lin, n_ne,
-              l_width, overflow, truncate):
-    """The TriAccel from the pairs sorted by (lin, tri_id): rows in
-    ascending cell order, each cell's triangles ascending, cut at l_width
-    where `truncate` (otherwise l_width holds every row); the brick accel
-    of the nonempty cells (no fine_sb: tri_march walks the staged
-    walk's tables)."""
-    dev = cell_count.device
+def _accel(tri9, origin, vs, dims, cell_slot, mask, cell_tris, l_width,
+           overflow):
+    """The TriAccel of the tables, and the brick accel of the nonempty
+    cells (no fine_sb: tri_march walks the staged walk's tables)."""
     nx, ny, nz = dims
-    nonempty = cell_count > 0
-    cell_slot = torch.full((nx * ny * nz + 1,), -1, dtype=torch.int32,
-                           device=dev)
-    cell_slot[:-1] = torch.where(
-        nonempty, torch.cumsum(nonempty, 0, dtype=torch.int32) - 1, -1)
-    off = torch.cumsum(cell_count, 0) - cell_count          # int64
-    lin = pair_lin.long()
-    within = torch.arange(lin.numel(), device=dev) - off[lin]
-    rows = cell_slot[lin].long()
-    cell_tris = torch.full((max(1, n_ne), l_width), -1, dtype=torch.int32,
-                           device=dev)
-    if truncate:
-        keep = within < l_width
-        cell_tris[rows[keep], within[keep]] = pair_tri[keep]
-    else:
-        cell_tris[rows, within] = pair_tri
-    brick = build_accel(nonempty.view(torch.uint8).reshape(nz, ny, nx),
-                        origin, vs, fine_sb=False)
+    brick = build_accel(mask.reshape(nz, ny, nx), origin, vs, fine_sb=False)
     return TriAccel(brick=brick, cell_slot=cell_slot, cell_tris=cell_tris,
                     tri9=tri9, origin=brick.origin, dims=dims,
                     voxel_size=float(vs), l_width=l_width,
                     overflow_cells=overflow)
 
 
-def _record(pairs, n_ne, l_width, overflow, outside):
-    trace.count("tri_accel.pairs", pairs)
+def _record(sizes, l_width, overflow, wide):
+    n_ne = sizes["nonempty"]
+    trace.count("tri_accel.pairs", sizes["pairs"])
     trace.count("tri_accel.row_slots", max(1, n_ne) * l_width)
     trace.count("tri_accel.nonempty_cells", n_ne)
     trace.count("tri_accel.overflow_cells", overflow)
-    trace.count("tri_accel.outside", outside)
+    trace.count("tri_accel.outside", sizes["outside"])
+    trace.count("tri_accel.wide_rows", wide)
 
 
 @trace.spanned("build_tri_accel")
@@ -206,16 +192,17 @@ def build_tri_accel(v0, v1, v2, *, res=64, l_width=None, max_l_width=512,
     tri9 = torch.cat([torch.as_tensor(tri_all.reshape(f_total, 9),
                                       device=dev),
                       torch.zeros((1, 9), device=dev)])    # degenerate pad
-    cell_count, outside, pairs = _bin(tri9, f_total, origin, vs, dims, box)
-    n_pairs, n_ne, widest, n_out = _sizes(cell_count, outside)
-    if l_width is None:
-        l_width = min(widest if n_ne else 1, max_l_width)
-    l_width = max(1, int(l_width))
-    overflow = int((cell_count > l_width).sum())
-    pair_tri, pair_lin = pairs(n_pairs)
-    _record(n_pairs, n_ne, l_width, overflow, n_out)
-    return _assemble(tri9, origin, vs, dims, cell_count, pair_tri, pair_lin,
-                     n_ne, l_width, overflow, truncate=True)
+    # the cut: l_width where given, else the widest cell up to max_l_width
+    cut = max(1, int(max_l_width if l_width is None else l_width))
+    cell_slot, mask, sizes, rows = _bin(tri9, f_total, origin, vs, dims, box,
+                                        (cut, cut))
+    l_width = cut if l_width is not None else max(
+        1, min(sizes["widest"], max_l_width))
+    overflow = sizes["over0"]
+    _record(sizes, l_width, overflow, sizes["wide"])
+    return _accel(tri9, origin, vs, dims, cell_slot, mask,
+                  rows(max(1, sizes["nonempty"]), l_width), l_width,
+                  overflow)
 
 
 class TriAccelPlan:
@@ -273,12 +260,13 @@ def build_tri_accel_planned(plan: TriAccelPlan, vertices, tri9=None):
 
     vertices: (V, 3) float32, numpy or a tensor (numpy is copied to the
     device first); tri9: the plan's triangle table of these vertices
-    (TriAccelPlan.tri9) where the caller has it.  On the card the pairs
-    come from the tri_bin kernels, and the step syncs once: one copy of
-    the sizes (pairs, nonempty cells, widest cell, overflows, triangles
-    outside the box), which also feed the counters tri_accel.pairs,
-    row_slots (rows x l_width), nonempty_cells, overflow_cells and
-    outside.
+    (TriAccelPlan.tri9) where the caller has it.  On the card the tri_bin
+    kernels write the tables, and the step syncs once: one copy of the
+    sizes (pairs, nonempty cells, widest cell, overflows, triangles
+    outside the box, rows longer than the rows pass's warp path), which
+    also feed the counters tri_accel.pairs, row_slots (rows x l_width),
+    nonempty_cells, overflow_cells, outside and wide_rows (the rows the
+    wide path orders; 0 where the step returns None).
     """
     if tri9 is None:
         v = torch.as_tensor(vertices, dtype=torch.float32,
@@ -287,23 +275,22 @@ def build_tri_accel_planned(plan: TriAccelPlan, vertices, tri9=None):
             raise ValueError(f"{v.shape[0]} vertices; the plan has "
                              f"{plan.n_vertices}")
         tri9 = plan.tri9(v)
-    n_tri = plan.n_triangles
-    cell_count, outside, pairs = _bin(tri9, n_tri, plan.origin,
-                                      plan.voxel_size, plan.dims, plan.box)
-    n_pairs, n_ne, widest, over, over_retry, n_out = _sizes(
-        cell_count, outside, L_WIDTHS)
-    l_width = max(1, min(widest, L_WIDTHS[1] if over else L_WIDTHS[0]))
-    overflow = over_retry if over else 0
-    _record(n_pairs, n_ne, l_width, overflow, n_out)
+    cell_slot, mask, sizes, rows = _bin(tri9, plan.n_triangles, plan.origin,
+                                        plan.voxel_size, plan.dims, plan.box,
+                                        L_WIDTHS)
+    over = sizes["over0"]
+    l_width = max(1, min(sizes["widest"],
+                         L_WIDTHS[1] if over else L_WIDTHS[0]))
+    overflow = sizes["over1"] if over else 0
     if overflow:
+        _record(sizes, l_width, overflow, 0)
         logging.getLogger(__name__).warning(
             "tri accel: %d cells outgrow l_width %d; using exact brute "
             "triangle traversal", overflow, L_WIDTHS[1])
         return None
-    pair_tri, pair_lin = pairs(n_pairs)
-    return _assemble(tri9, plan.origin, plan.voxel_size, plan.dims,
-                     cell_count, pair_tri, pair_lin, n_ne, l_width, 0,
-                     truncate=False)
+    _record(sizes, l_width, 0, sizes["wide"])
+    return _accel(tri9, plan.origin, plan.voxel_size, plan.dims, cell_slot,
+                  mask, rows(max(1, sizes["nonempty"]), l_width), l_width, 0)
 
 
 def trace_triangles_grid(origins, dirs, ta: TriAccel, t_min=TMIN,
