@@ -18,8 +18,10 @@ Drives the port's paths the way a user calls them, at the bench's size:
   * the encodings (phase 8): the 512^3 grid's AABBs extracted (GridBool
     .get_aabbs and get_aabbs_fixed), GridAabbStruct, GridVec and the
     octree built on the card (build ms, memory_usage_bytes), and gate 3's
-    octree scene rendered with backend="octree", its primary trace held
-    against K2's; then a brute AABB trace of sampled rays against K2 and
+    octree scene rendered with backend="octree", its primary trace (the
+    octree_walk kernel under the coarse region map) held to the plain
+    walk and against K2's; then a brute AABB trace of sampled rays
+    against K2 and
     save_grid / load_grid round trips;
   * the front end (phase 9): `python -m voxelray_torch.cli`'s main in
     this process on the knot at 512^3 with the ground plane, one
@@ -64,6 +66,16 @@ Drives the port's paths the way a user calls them, at the bench's size:
     plain rows; the rebuild's one host sync and its kernels (the tri_bin
     passes and accel_build alone); each pass's ms (CUDA events) beside
     the bound, the wide path's on the piled set.
+  * the octree walk (phase 15, BASELINE configs[2]): the knot's GridVec
+    at 256 cells on its longest axis (245x114x256) under its Morton
+    octree (Octree.from_grid, equal field by field to Octree.from_mesh),
+    the gate-3 scene over it; on the frames of the orbit cameras the
+    octree_walk kernel (one launch a trace) against the plain walk on the
+    card (_walk; the shadow rays through the admit mask against the
+    admitted rays compacted), ray by ray: 0 rays apart, 0 cut at
+    max_outer; the kernel's ms by CUDA events beside its byte bound, its
+    registers and spills; the frame's launches and host syncs (0), and
+    the frame with the kernel against the frame with the plain walk.
   * the voxel scene's rebuild (phase 14): the deforming cell's grid
     (491x245x512 over the union box of its 32 vertex sets, set 1
     voxelized by K1) and phase 13's tri grid: accel_build's tables (with
@@ -150,6 +162,11 @@ TRI_KERNELS = ("tri_corners_kernel", "tri_bin_count_kernel",
 # phase 14: the voxel scene's rebuild over the deforming cell's grid, GRID_RES
 # cells on the longest axis of the union box of its DEFORM_SETS vertex sets
 DEFORM_SETS = 32
+# phase 15: the octree over the knot's GridVec at OCTREE_RES cells on the
+# longest axis (BASELINE configs[2]), at most 16 items a leaf; the bench's
+# light
+OCTREE_RES = 256
+BENCH_LIGHT = ((10.0, 55.0, 8.0), 1000.0)
 # phase 12: the frame glue's kernels (csrc/frame_shade.cu); their calls
 # timed queued behind a ~10 ms sleep, longer than the host takes to queue
 # them
@@ -824,40 +841,63 @@ def build_encodings(grid, v, f, vs, device, smi):
 def octree_frame(tree, gv, mats, o, d, occ_np, device, smi):
     """The gate-3 scene (occupancy from the tree, GridVec's list, the
     tree; voxelray_tpu/utils/gates.py:61-80): its primary trace on the
-    bench camera's rays against K2's on the same scene, and frames with
-    backend "octree" over the orbit cameras.  Returns K2's (t, lin)."""
+    bench camera's rays (the octree_walk kernel under the 512^3 tree's
+    coarse region map) against the plain walk on the card, ray by ray,
+    and against K2's on the same scene; frames with backend "octree" over
+    the orbit cameras; no ray cut by max_outer in any of these traces (the
+    counter octree.cut_rays).  Returns K2's (t, lin)."""
+    import torch
     from voxelray_torch.models.scene import build_scene
     from voxelray_torch.ops import octree_traverse
+    from voxelray_torch.ops.intersect import TMAX, TMIN
     from voxelray_torch.ops.traverse_fast import trace_grid_fast
-    octree_traverse.cut_rays = 0
+    from voxelray_torch.utils import trace
     oscene, build_ms = wall_ms(lambda: build_scene(
         grid=tree, aabbs=gv.get_aabbs(), octree=tree, device=device))
     log(f"octree scene: build_scene {build_ms:.1f} ms, {oscene.n_voxels} "
         "boxes")
     t_k, lin_k = trace_grid_fast(o, d, oscene.accel)
-    (t_o, lin_o, steps), trace_ms = wall_ms(
-        lambda: octree_traverse.trace_octree(o, d, tree, return_stats=True))
-    log(f"octree primary trace ({o.shape[0]} rays): {trace_ms:.1f} ms, "
-        f"{steps} steps ({trace_ms / max(steps, 1):.3f} ms a step), rays "
-        f"cut by max_outer {octree_traverse.cut_rays} [{smi}]")
-    compare_traces("octree primary vs K2", o, d, occ_np, tree.origin,
-                   tree.voxel_size, t_o, lin_o, t_k, lin_k)
-    log_frames("octree (backend octree)",
-               time_frames(oscene, mats, backend="octree"), smi)
-    from scripts.torch_frame_profile import profile_frame
-    from voxelray_torch.render import pipeline
-    for shadows in (True, False):
-        prof = profile_frame(lambda: pipeline.render_image(
-            oscene, *mats[0], width=WIDTH, height=HEIGHT, backend="octree",
-            shadows=shadows), ())
-        log(f"octree frame shadows={shadows} under torch.profiler: wall "
-            f"{prof['wall_ms']:.1f} ms, device busy "
-            f"{prof['device_busy_ms']:.1f} ms, idle share "
-            f"{prof['device_idle_share']:.3f}, "
-            f"{prof['device_launches']} device launches [{smi}]")
-    log(f"octree: rays cut by max_outer over every octree trace "
-        f"{octree_traverse.cut_rays}")
-    require(octree_traverse.cut_rays == 0, "octree rays cut by max_outer")
+    cut = trace.counters().get("octree.cut_rays", 0)
+    # recording stays on over every octree trace of the phase (the primary
+    # trace, every frame's primary and shadow traces, the profiled frames)
+    # so that octree.cut_rays counts them all; the frames' times and the
+    # profiled launches then include the counters' adds
+    trace.enable()
+    try:
+        (t_o, lin_o, steps), trace_ms = wall_ms(
+            lambda: octree_traverse.trace_octree(o, d, tree,
+                                                 return_stats=True))
+        steps = int(steps)
+        (t_p, lin_p), plain_ms = wall_ms(lambda: plain_walk_cuda(
+            o.reshape(-1, 3), d.reshape(-1, 3), TMIN, TMAX, tree)[0])
+        apart = int(((t_o.reshape(-1) != t_p) | (lin_o.reshape(-1) != lin_p))
+                    .sum())
+        log(f"octree primary trace ({o.shape[0]} rays): {trace_ms:.1f} ms "
+            f"(the plain walk {plain_ms:.1f} ms), the most regions of a ray "
+            f"{steps}, {apart} rays apart from the plain walk [{smi}]")
+        require(apart == 0, f"octree_walk at 512^3: {apart} rays apart "
+                "from the plain walk")
+        compare_traces("octree primary vs K2", o, d, occ_np, tree.origin,
+                       tree.voxel_size, t_o, lin_o, t_k, lin_k)
+        log_frames("octree (backend octree)",
+                   time_frames(oscene, mats, backend="octree"), smi)
+        from scripts.torch_frame_profile import profile_frame
+        from voxelray_torch.render import pipeline
+        for shadows in (True, False):
+            prof = profile_frame(lambda: pipeline.render_image(
+                oscene, *mats[0], width=WIDTH, height=HEIGHT,
+                backend="octree", shadows=shadows), ())
+            log(f"octree frame shadows={shadows} under torch.profiler: "
+                f"wall {prof['wall_ms']:.1f} ms, device busy "
+                f"{prof['device_busy_ms']:.1f} ms, idle share "
+                f"{prof['device_idle_share']:.3f}, "
+                f"{prof['device_launches']} device launches [{smi}]")
+        torch.cuda.synchronize(device)
+        cut = trace.counters().get("octree.cut_rays", 0) - cut
+    finally:
+        trace.disable()
+    log(f"octree: rays cut by max_outer over every octree trace {cut}")
+    require(cut == 0, "octree rays cut by max_outer")
     return t_k, lin_k
 
 
@@ -2047,6 +2087,212 @@ def run_scene_build(device):
     return rows
 
 
+def plain_walk_cuda(o, d, t_min, t_max, tree, *, admit=None,
+                    any_hit=False, max_outer=512, stats=False):
+    """octree_walk.walk_cuda's outputs by the plain walk on the card
+    (ops/octree_traverse._walk over the admitted rays compacted, as the
+    octree route ran before the kernel): the kernel's reference and the
+    frame before it.  Returns (outputs, None)."""
+    import torch
+    from voxelray_torch.ops.octree_traverse import _walk
+    from voxelray_torch.ops.traverse import _per_ray
+    n, dev = o.shape[0], o.device
+    tmn, tmx = _per_ray(t_min, n, dev), _per_ray(t_max, n, dev)
+    sel = None if admit is None else torch.nonzero(admit).squeeze(1)
+    if sel is not None:
+        o, d, tmn, tmx = o[sel], d[sel], tmn[sel], tmx[sel]
+    t, lin, _, _, _ = _walk(o, d, tree, tmn, tmx, max_outer)
+    if sel is not None:
+        t_all = torch.full((n,), float("inf"), device=dev)
+        lin_all = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        t_all[sel], lin_all[sel] = t, lin
+        t, lin = t_all, lin_all
+    return ((torch.isfinite(t),) if any_hit else (t, lin)), None
+
+
+@contextlib.contextmanager
+def plain_octree():
+    """The octree route's traces by plain_walk_cuda in the kernel's place
+    (the frame before the kernel)."""
+    from voxelray_torch.ops.kernels import octree_walk
+    real = octree_walk.walk_cuda
+    octree_walk.walk_cuda = plain_walk_cuda
+    try:
+        yield
+    finally:
+        octree_walk.walk_cuda = real
+
+
+def same_fields(what, a, b):
+    """Every field of two dataclasses equal (tensors bit for bit)."""
+    import numpy as np
+    import torch
+    for k, x in vars(a).items():
+        y = getattr(b, k)
+        if torch.is_tensor(x):
+            same = (torch.is_tensor(y) and x.dtype == y.dtype
+                    and torch.equal(x, y))
+        elif isinstance(x, np.ndarray):
+            same = np.array_equal(x, y)
+        else:
+            same = x == y
+        require(same, f"{what}: field {k} differs")
+
+
+def run_octree(device):
+    """Phase 15 (module docstring): returns octree_walk's kernel row."""
+    import numpy as np
+    import torch
+
+    from voxelray_torch.io import meshes
+    from voxelray_torch.models.grids import GridVec
+    from voxelray_torch.models.octree import Octree
+    from voxelray_torch.models.scene import Light, build_scene
+    from voxelray_torch.ops import geometry
+    from voxelray_torch.ops.intersect import TMAX, TMIN
+    from voxelray_torch.ops.kernels import _build, frame_shade, octree_walk
+    from voxelray_torch.ops.octree_traverse import (any_hit_octree,
+                                                    trace_octree)
+    from voxelray_torch.render import pipeline
+    from voxelray_torch.utils import trace
+
+    t0 = time.time()
+    smi = smi_line()
+    v, f = meshes.torus_knot(**MESH)
+    bb_min, bb_max = geometry.mesh_bbox(v)
+    vs = float(max(bb_max - bb_min)) / OCTREE_RES
+    box = dict(bb_min=bb_min, bb_max=bb_max, device=device)
+    gv, gv_ms = wall_ms(lambda: GridVec.from_mesh(v, f, vs, **box))
+    tree, tree_ms = wall_ms(lambda: Octree.from_grid(gv))
+    want, mesh_ms = wall_ms(lambda: Octree.from_mesh(v, f, vs, **box))
+    same_fields("Octree.from_grid against from_mesh", tree, want)
+    del want
+    log(f"octree {tree.dims}: GridVec.from_mesh {gv_ms:.1f} ms, "
+        f"Octree.from_grid {tree_ms:.1f} ms (Octree.from_mesh "
+        f"{mesh_ms:.1f} ms, every field equal); {tree.n_items} items, "
+        f"{tree.n_nodes} nodes, bits {tree.bits_per_axis}, map_bits "
+        f"{tree.map_bits} [{smi}]")
+    scene = build_scene(grid=tree, aabbs=gv.get_aabbs(), octree=tree,
+                        device=device)
+    _, orbit = bench_camera(bb_min, bb_max)
+    mats = [c.matrices(WIDTH, HEIGHT)[2:] for c in orbit]
+    light = Light(position=BENCH_LIGHT[0], intensity=BENCH_LIGHT[1])
+    tables = pipeline._surface_tables(scene, "octree")
+
+    def traces(vi, pi):
+        """The frame's primary rays and its shadow query."""
+        o, d, _ = pipeline._frame_rays(scene, vi, pi, WIDTH, HEIGHT,
+                                       "octree")
+        t, lin = trace_octree(o, d, tree)
+        q = frame_shade.hit_surface_cuda(o, d, t, lin, None, tables,
+                                         light.position, light.intensity,
+                                         light.type)
+        flat = (q.world_pos.reshape(-1, 3).contiguous(),
+                q.l_vec.reshape(-1, 3).contiguous(),
+                q.light_dist.reshape(-1).contiguous(),
+                q.admit.reshape(-1).contiguous())
+        return (o.reshape(-1, 3).contiguous(), d.reshape(-1, 3).contiguous(),
+                t.reshape(-1), lin.reshape(-1)), flat
+
+    # every orbit camera's traces against the plain walk, ray by ray
+    before = trace.counters()
+    trace.enable()
+    apart, rays, admitted = 0, 0, 0
+    try:
+        for vi, pi in mats:
+            (o, d, t, lin), (wp, lv, ld, adm) = traces(vi, pi)
+            hit = any_hit_octree(wp, lv, tree, t_min=TMIN, t_max=ld,
+                                 admit=adm)
+            (tp, lp), _ = plain_walk_cuda(o, d, TMIN, TMAX, tree)
+            (hp,), _ = plain_walk_cuda(wp, lv, TMIN, ld, tree, admit=adm,
+                                       any_hit=True)
+            apart += int(((t != tp) | (lin != lp)).sum())
+            apart += int((hit != hp).sum())
+            rays += o.shape[0]
+            admitted += int(adm.sum())
+        torch.cuda.synchronize()
+    finally:
+        trace.disable()
+    after = trace.counters()
+    got = {k: after.get(f"octree.{k}", 0) - before.get(f"octree.{k}", 0)
+           for k in octree_walk.STATS[:3]}
+    log(f"octree walk over {len(mats)} orbit frames ({rays} primary rays, "
+        f"{admitted} admitted shadow rays): {apart} rays apart from the "
+        f"plain walk on the card; counters {got}, "
+        f"{got['regions'] / max(got['rays'], 1):.4f} regions a ray")
+    require(apart == 0, f"octree_walk: {apart} rays apart from _walk")
+    require(got["cut_rays"] == 0, "octree_walk: rays cut by max_outer")
+    require(got["rays"] == rays + admitted, f"octree.rays {got['rays']}")
+
+    # the kernel's time on the first camera's traces, beside its bound:
+    # each primary ray read (24 B) and answered (t and lin, 8 B); each
+    # shadow ray's admit byte read and its answer (a byte) written, the
+    # admitted ones read (24 B) with their t_max (4 B)
+    (o, d, _, _), (wp, lv, ld, adm) = traces(*mats[0])
+    n, m = o.shape[0], int(adm.sum())
+    p_ms = cuda_ms(lambda: octree_walk.walk_cuda(o, d, TMIN, TMAX, tree),
+                   10)
+    s_ms = cuda_ms(lambda: octree_walk.walk_cuda(
+        wp, lv, TMIN, ld, tree, admit=adm, any_hit=True), 10)
+    (_, st), _ = wall_ms(lambda: octree_walk.walk_cuda(o, d, TMIN, TMAX,
+                                                       tree, stats=True))
+    p_plain = wall_ms(lambda: plain_walk_cuda(o, d, TMIN, TMAX, tree))[1]
+    s_plain = wall_ms(lambda: plain_walk_cuda(
+        wp, lv, TMIN, ld, tree, admit=adm, any_hit=True))[1]
+    p_bytes, s_bytes = 32 * n, 2 * n + 28 * m
+    stats = dict(zip(octree_walk.STATS, st.tolist()))
+    log(f"octree_walk primary ({n} rays): kernel {p_ms:.4f} ms, plain "
+        f"{p_plain:.1f} ms, bound {bound(p_bytes, 0)[0]:.5f} ms; stats "
+        f"{stats}; shadow ({m} admitted): kernel {s_ms:.4f} ms, plain "
+        f"{s_plain:.1f} ms, bound {bound(s_bytes, 0)[0]:.5f} ms [{smi}]")
+
+    # the frame: launches, host syncs, time with the kernel and with the
+    # plain walk
+    vi, pi = mats[0]
+
+    def frame(shadows=True):
+        return pipeline.render_image(scene, vi, pi, width=WIDTH,
+                                     height=HEIGHT, light=light,
+                                     backend="octree", shadows=shadows)
+
+    reset(octree_walk, *FRAME_KERNELS)
+    img = frame()
+    torch.cuda.synchronize()
+    counts = counts_of(octree_walk, *FRAME_KERNELS)
+    require(counts == {"octree_walk": 2, "camera_rays": 1,
+                       "hit_surface": 1, "shade_post": 1},
+            f"octree frame launches {counts}")
+    sites = host_syncs(frame, device)
+    require(not sites, f"octree frame: host syncs at {sites}")
+    with plain_octree():
+        img_p = frame()
+        torch.cuda.synchronize()
+    require(torch.equal(img, img_p), "the octree frame differs from the "
+            "frame of the plain walk")
+    frame_ms = {s: wall_mean_ms(lambda: frame(s), 5) for s in (True, False)}
+    with plain_octree():
+        plain_ms = {s: wall_ms(lambda: frame(s))[1] for s in (True, False)}
+    log(f"octree frame {WIDTH}x{HEIGHT}: launches {counts}, 0 host syncs, "
+        f"equal to the plain walk's frame; ms (shadows on / off) "
+        f"{frame_ms[True]:.3f} / "
+        f"{frame_ms[False]:.3f}, with the plain walk {plain_ms[True]:.1f} / "
+        f"{plain_ms[False]:.1f} [{smi}]")
+
+    row = kernel_row(
+        "octree_walk", "octree_walk.cu",
+        "none: the host-stepped region loop of ops/octree_traverse._walk "
+        "(voxelray_tpu/ops/octree_traverse.py _trace_octree_impl, XLA ops)",
+        counts["octree_walk"], 0.0, p_ms, p_plain, p_bytes, 0)
+    row.update(shadow={"ms": round(s_ms, 4), "plain_ms": round(s_plain, 4),
+                       "bound_ms": round(bound(s_bytes, 0)[0], 5),
+                       "admitted": m},
+               stats=stats, frame_ms=frame_ms, plain_frame_ms=plain_ms,
+               ptxas=ptxas_of(_build.build_log(), "octree_walk_kernel"))
+    log(f"octree_walk: {row}")
+    log(f"phase 15 (the octree walk): {time.time() - t0:.1f} s")
+    return row
+
+
 def frame_glue_rows(glue, vox_counts, tri_counts, build_log):
     """The kernel rows of the frame glue's kernels from phase 12's
     results: launches of the voxel frame, times on the voxel frame and,
@@ -2553,6 +2799,9 @@ def run(device):
 
     # ---- 14. the voxel scene's rebuild ---------------------------------
     rows += run_scene_build(device)
+
+    # ---- 15. the octree walk -------------------------------------------
+    rows.append(run_octree(device))
     return rows, smi_line()
 
 

@@ -5,8 +5,9 @@ csrc/voxel_accum.cu, mega_trace.cu, grid_walk.cu, brick_fine.cu,
 staged_march.cu, tri_march.cu, frame_shade.cu (the frame glue: camera
 rays, the closest-hit surface, shade + post; held to render/pipeline.py's
 PyTorch glue), accel_build.cu (a voxel scene's brick accel tables and
-its boxes; held to build_accel's PyTorch build and aabbs_from_linear) and
-tri_bin.cu are compiled with g++ (SHIM below standing in for the CUDA
+its boxes; held to build_accel's PyTorch build and aabbs_from_linear),
+tri_bin.cu and octree_walk.cu (held to ops/octree_traverse._walk) are
+compiled with g++ (SHIM below standing in for the CUDA
 runtime, each launch `kernel<<<...>>>(...)` running the kernel's blocks
 and threads on the host, csrc/ on the include path for the shared
 brick_walk.cuh), and each kernel runs thread by thread on the CPU.  The
@@ -30,6 +31,7 @@ idled, to show that an idle warp waits for a running warp's ray however
 long that takes.  Skips where g++ is missing.
 """
 import ctypes
+import dataclasses
 import json
 import re
 import shutil
@@ -51,8 +53,8 @@ from voxelray_torch.ops.intersect import TMAX, TMIN, make_camera_rays
 from voxelray_torch.ops.aabbs import aabbs_from_linear
 from voxelray_torch.ops.kernels import (_build, accel_build, brick_fine,
                                         frame_shade, grid_walk, mega_trace,
-                                        staged_march, tri_bin, tri_march,
-                                        voxel_accum)
+                                        octree_walk, staged_march, tri_bin,
+                                        tri_march, voxel_accum)
 from voxelray_torch.ops.kernels.brick_fine import fine_plain
 from voxelray_torch.ops.kernels.grid_walk import walk_plain
 from voxelray_torch.ops.kernels.mega_trace import trace_grid_mega_plain
@@ -349,7 +351,8 @@ SOURCES = {"voxel_accum": [voxel_accum.VoxelAccumArgs],
            "tri_bin": [tri_bin.TriBinArgs, tri_bin.TriCornersArgs],
            "frame_shade": [frame_shade.RaysArgs, frame_shade.SurfaceArgs,
                            frame_shade.ShadeArgs],
-           "accel_build": [accel_build.AccelArgs, accel_build.BoxArgs]}
+           "accel_build": [accel_build.AccelArgs, accel_build.BoxArgs],
+           "octree_walk": [octree_walk.OctreeWalkArgs]}
 
 
 def _host_build(out, name, src, driver, include, defines=()):
@@ -1620,3 +1623,176 @@ def test_host_aabb_boxes_match_plain(accel_host, dims, origin, vs):
     _launch(accel_host, a, "aabb_boxes_launch")
     want = aabbs_from_linear(lin, dims, np.float32(origin), vs)
     assert boxes.shape == want.shape and torch.equal(boxes, want)
+
+
+# ---- the octree walk: csrc/octree_walk.cu against ops/octree_traverse._walk
+
+def _octree_tree(name):
+    """(tree, mesh vertices) of the octree cases, all at most 64 cells a
+    side: the knot and the icosphere with their full region maps, the
+    knot's tree under a coarse map of 3 bits (the descent below its
+    INTERNAL entries), the icosphere's without a map or item rows (the
+    descent from the root), and bunny_like(2) at 0.11, whose SLIVER_RAYS
+    miss in the JAX package's walk."""
+    from voxelray_torch.models.octree import Octree, build_region_map
+    mesh, res = {"knot": ("knot", 64), "knot-coarse": ("knot", 64),
+                 "icosphere": ("icosphere", 48),
+                 "icosphere-nomap": ("icosphere", 48),
+                 "bunny": ("bunny", None)}[name]
+    if mesh == "bunny":
+        v, f = meshes.bunny_like(2)
+        vs = 0.11
+    else:
+        v, f, _, _, vs, _ = _mesh_grid(mesh, res)
+    tree = Octree.from_mesh(v, f, vs, device="cpu")
+    if name == "knot-coarse":
+        tree = dataclasses.replace(tree, map_bits=3, region_map=torch.from_numpy(
+            build_region_map(tree.children.numpy(), tree.bits_per_axis, 3)))
+    elif name == "icosphere-nomap":
+        tree = dataclasses.replace(tree, region_map=None, items4=None)
+    assert 0 < tree.bits_per_axis <= 6
+    return tree, v
+
+
+def _octree_rays(tree, v, kind, seed=0):
+    """(o, d) float32 (N, 3) of a ray set: "camera" (64 x 36 from outside),
+    "inside" (from points inside the root cube), "grazing" (along an axis,
+    from points on cell face planes and edges, some directions tilted by
+    an ulp), "edges" (aimed at edges of occupied cells, test_torch_octree's
+    stress set) and, on the bunny, its SLIVER_RAYS before them."""
+    rng = np.random.default_rng(seed)
+    lo, hi = v.min(axis=0), v.max(axis=0)
+    if kind == "camera":
+        center = (lo + hi) * 0.5
+        cam = Camera(eye=tuple(center + np.float32([0.9, 0.55, -0.9]) * 0.85
+                               * float(max(hi - lo))), center=tuple(center))
+        _, _, vi, pi = cam.matrices(64, 36)
+        o, d = make_camera_rays(64, 36, vi, pi)
+        return (np.ascontiguousarray(o.reshape(-1, 3).numpy()),
+                np.ascontiguousarray(d.reshape(-1, 3).numpy()))
+    og = np.float32(tree.origin_key)
+    vs = np.float32(tree.voxel_size)
+    side = 1 << tree.bits_per_axis
+    if kind == "inside":
+        n = 1500
+        o = og + rng.uniform(0.05, 0.95, (n, 3)).astype(np.float32) \
+            * np.float32(side) * vs
+        d = rng.normal(size=(n, 3))
+    elif kind == "grazing":
+        n = 1500
+        nx, ny, _ = tree.dims
+        lin = torch.nonzero(tree.occupancy().reshape(-1)).squeeze(1).numpy()
+        pick = lin[rng.integers(0, len(lin), n)]
+        cell = np.stack([pick % nx, (pick // nx) % ny, pick // (nx * ny)], 1)
+        axis = rng.integers(0, 3, n)
+        # on one or two face planes of the cell, in from 2 to 6 cells back
+        corner = (cell + rng.integers(0, 2, (n, 3))).astype(np.float32)
+        frac = rng.uniform(0.2, 0.8, (n, 3)).astype(np.float32)
+        on_edge = rng.random(n) < 0.5
+        frac[on_edge] = 0.0
+        o = og + (corner + frac * (rng.random((n, 3)) < 0.5)) * vs
+        back = rng.uniform(2, 6, n).astype(np.float32)
+        sign = np.where(rng.random(n) < 0.5, -1.0, 1.0).astype(np.float32)
+        d = np.zeros((n, 3), np.float32)
+        d[np.arange(n), axis] = sign
+        o[np.arange(n), axis] -= sign * back * vs
+        tilt = rng.random(n) < 0.3
+        other = (axis + rng.integers(1, 3, n)) % 3
+        d[np.flatnonzero(tilt), other[tilt]] = np.float32(2.0 ** -23)
+    else:
+        from test_torch_octree import SLIVER_RAYS, _edge_rays
+        o, d = _edge_rays(tree, 3000, seed)
+        if tree.voxel_size == 0.11:
+            hexed = np.float32([[[float.fromhex(x) for x in v3] for v3 in r]
+                                for r in SLIVER_RAYS])
+            o = np.concatenate([hexed[:, 0], o])
+            d = np.concatenate([hexed[:, 1], d])
+    d = np.asarray(d, np.float64)
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    return np.ascontiguousarray(o, np.float32), \
+        np.ascontiguousarray(d, np.float32)
+
+
+def _host_octree(lib, o, d, tmn, tmx, tree, **kw):
+    """The walk built for the host on (o, d): its outputs (every word
+    written: they start as garbage) and its stats block."""
+    bound = (lambda x: torch.from_numpy(x) if isinstance(x, np.ndarray)
+             else x)
+    a, outs, stats = octree_walk.walk_args(
+        torch.from_numpy(o), torch.from_numpy(d), bound(tmn), bound(tmx),
+        tree, stats=True, **kw)
+    for x in outs:
+        x.view(torch.uint8).fill_(0xA5)
+    _launch(lib, a, "octree_walk_launch")
+    return [x.numpy() for x in outs], dict(zip(octree_walk.STATS,
+                                               stats.tolist()))
+
+
+def _plain_octree(o, d, tmn, tmx, tree, max_outer=512):
+    from voxelray_torch.ops.octree_traverse import _walk
+    n = len(o)
+    bound = (lambda x: torch.from_numpy(x) if isinstance(x, np.ndarray)
+             else torch.full((n,), float(x)))
+    t, lin, cut, steps, regions = _walk(
+        torch.from_numpy(o), torch.from_numpy(d), tree, bound(tmn),
+        bound(tmx), max_outer)
+    return t.numpy(), lin.numpy(), {"rays": n, "regions": regions,
+                                    "cut_rays": cut, "most_regions": steps}
+
+
+@pytest.mark.parametrize("rays", ["camera", "inside", "grazing", "edges"])
+@pytest.mark.parametrize("tree_name", ["knot", "knot-coarse", "icosphere",
+                                       "icosphere-nomap", "bunny"])
+def test_host_octree_walk_matches_plain(host_kernels, tree_name, rays):
+    """The nearest hit of every ray, t and cell, bit-equal to _walk's, with
+    the same counts: rays walked, region steps (their sum and the most of
+    one ray) and none cut."""
+    tree, v = _octree_tree(tree_name)
+    o, d = _octree_rays(tree, v, rays)
+    (t, lin), stats = _host_octree(host_kernels["octree_walk"], o, d, TMIN,
+                                   TMAX, tree)
+    tp, lp, want = _plain_octree(o, d, TMIN, TMAX, tree)
+    assert np.array_equal(t, tp) and np.array_equal(lin, lp)
+    assert stats == want and stats["cut_rays"] == 0
+    assert np.isfinite(t).sum() > len(o) // 20
+
+
+@pytest.mark.parametrize("tree_name", ["knot", "knot-coarse", "bunny"])
+def test_host_octree_any_hit_matches_plain(host_kernels, tree_name):
+    """The shadow pass: from the camera rays' hit points toward a light,
+    t_max each ray's distance to it, a sparse admit mask (a third of the
+    hits).  The any-hit mode's answer is isfinite of _walk's t over the
+    admitted rays, False elsewhere; it walks the admitted rays alone."""
+    tree, v = _octree_tree(tree_name)
+    o, d = _octree_rays(tree, v, "camera")
+    (t, _), _ = _host_octree(host_kernels["octree_walk"], o, d, TMIN, TMAX,
+                             tree)
+    hit = np.isfinite(t)
+    p = o + d * np.where(hit, t, 1.0)[:, None]
+    to_light = np.float32([10.0, 55.0, 8.0]) - p
+    dist = np.linalg.norm(to_light, axis=1).astype(np.float32)
+    ld = (to_light / dist[:, None]).astype(np.float32)
+    admit = hit & (np.random.default_rng(3).random(len(o)) < 0.35)
+    (occluded,), stats = _host_octree(
+        host_kernels["octree_walk"], p, ld, TMIN, dist, tree,
+        admit=torch.from_numpy(admit), any_hit=True)
+    tp, _, want = _plain_octree(p[admit], ld[admit], TMIN, dist[admit],
+                                tree)
+    expect = np.zeros(len(o), bool)
+    expect[admit] = np.isfinite(tp)
+    assert np.array_equal(occluded, expect)
+    assert stats == want and 0 < expect.sum() < admit.sum()
+
+
+def test_host_octree_walk_cut_at_max_outer(host_kernels):
+    """A bound of 2 region steps cuts the rays that need more: they miss,
+    and the kernel counts as many cut rays as _walk does, with the same
+    results for the rest."""
+    tree, v = _octree_tree("knot")
+    o, d = _octree_rays(tree, v, "camera")
+    (t, lin), stats = _host_octree(host_kernels["octree_walk"], o, d, TMIN,
+                                   TMAX, tree, max_outer=2)
+    tp, lp, want = _plain_octree(o, d, TMIN, TMAX, tree, max_outer=2)
+    assert np.array_equal(t, tp) and np.array_equal(lin, lp)
+    assert stats == want and stats["cut_rays"] > 100
+    assert stats["most_regions"] == 2

@@ -20,6 +20,7 @@ Tolerances:
     the same backend: hit mask equal and >= 99.9% of pixels within 2e-5
     (tests/test_torch_render.py's tolerance; the count outside printed).
 """
+import contextlib
 import dataclasses
 
 import jax.numpy as jnp
@@ -43,11 +44,29 @@ from voxelray_torch.ops import morton, octree_traverse
 from voxelray_torch.ops.intersect import make_camera_rays
 from voxelray_torch.ops.octree_traverse import any_hit_octree, trace_octree
 from voxelray_torch.ops.traverse import trace_aabbs_brute, trace_grid_dda
+from voxelray_torch.ops.voxelize import voxelize_hits
 from voxelray_torch.render.pipeline import render_image
+from voxelray_torch.utils import trace
 
 torch.set_num_threads(2)
 VS = 0.11
 IMG_W, IMG_H = 64, 36
+
+
+@contextlib.contextmanager
+def _recording():
+    """Record (utils/trace.py) for the block; yields a dict that holds the
+    counters at its end, the walk's octree.* among them."""
+    trace.disable()
+    trace.clear()
+    trace.enable()
+    got = {}
+    try:
+        yield got
+        got.update(trace.counters())
+    finally:
+        trace.disable()
+        trace.clear()
 
 
 def test_morton_copies_and_device_codes():
@@ -198,9 +217,11 @@ def test_trace_octree_matches_jax(trees, ray_sets):
     o, d = ray_sets
     jt_t, jt_lin = (np.asarray(x) for x in jtrace(jnp.asarray(o.numpy()),
                                                   jnp.asarray(d.numpy()), jt))
-    octree_traverse.cut_rays = 0
-    tt, lin, steps = trace_octree(o, d, t, return_stats=True)
-    assert octree_traverse.cut_rays == 0 and 0 < steps < 512
+    with _recording() as cnt:
+        tt, lin, steps = trace_octree(o, d, t, return_stats=True)
+    assert cnt["octree.cut_rays"] == 0 and 0 < steps < 512
+    assert cnt["octree.rays"] == o.shape[0]
+    assert steps * o.shape[0] >= cnt["octree.regions"] >= o.shape[0]
     tt, lin = tt.numpy(), lin.numpy()
     hit = np.isfinite(jt_t)
     assert hit.sum() > 500
@@ -265,13 +286,16 @@ def test_octree_tmax_clipping_and_cut_rays(trees):
     assert not bool(torch.isfinite(t_clip).any()) and int(lin[0]) == -1
     # a one-step bound cuts the rays that need more steps; they miss
     os_, ds = _rays(23, 64)
-    octree_traverse.cut_rays = 0
-    tt, _, steps = trace_octree(torch.from_numpy(os_), torch.from_numpy(ds),
-                                t, max_outer=1, return_stats=True)
-    cut = octree_traverse.cut_rays
+    with _recording() as cnt:
+        tt, _, steps = trace_octree(torch.from_numpy(os_),
+                                    torch.from_numpy(ds), t, max_outer=1,
+                                    return_stats=True)
+    cut = cnt["octree.cut_rays"]
     assert cut > 0 and steps == 1
-    full, _ = trace_octree(torch.from_numpy(os_), torch.from_numpy(ds), t)
-    assert octree_traverse.cut_rays == cut
+    with _recording() as cnt:
+        full, _ = trace_octree(torch.from_numpy(os_), torch.from_numpy(ds),
+                               t)
+    assert cnt["octree.cut_rays"] == 0
     lost = int(torch.isfinite(full).sum()) - int(torch.isfinite(tt).sum())
     assert 0 < lost <= cut
 
@@ -420,3 +444,57 @@ def test_octree_backend_without_an_octree_shades_the_box_it_hit(trees):
     print(f"JAX octree-without-octree frame: {off} of {IMG_W * IMG_H} "
           "pixels off its brute frame")
     assert off > 0
+
+
+@pytest.mark.parametrize("mesh", ["bunny", "knot", "icosphere-box"])
+def test_octree_from_grid_equals_from_mesh(mesh):
+    """Octree.from_grid over GridVec.from_mesh's boxes (no second
+    voxelize) equals Octree.from_mesh at the same voxel size and box,
+    field by field: the codes with their duplicates, items, nodes, region
+    map, item rows, set_calls.  The boxes' cells, read back from their
+    centres, are the hit stream's cells in its order."""
+    from voxelray_torch.io import meshes as pmeshes
+    box = {}
+    if mesh == "bunny":
+        v, f = pmeshes.bunny_like(2)
+        vs = VS
+    elif mesh == "knot":
+        v, f = pmeshes.torus_knot(2, 3, 128, 64)
+        vs = float(np.ptp(v, axis=0).max()) / 64
+    else:
+        v, f = pmeshes.icosphere(3)
+        vs = 0.05
+        box = dict(bb_min=np.float32([-1.3, -1.1, -1.2]),
+                   bb_max=np.float32([1.2, 1.25, 1.1]))
+    gv = GridVec.from_mesh(v, f, vs, device="cpu", **box)
+    want = octree.Octree.from_mesh(v, f, vs, device="cpu", **box)
+    assert want.n_items == gv.set_calls > want.n_nodes > 1
+    hits = voxelize_hits(v, f, vs, device="cpu", **box)
+    assert torch.equal(gv.cells(), hits["lin"])
+    tree = octree.Octree.from_grid(gv)
+    assert vars(tree).keys() == vars(want).keys()
+    for k, a in vars(tree).items():
+        b = getattr(want, k)
+        if torch.is_tensor(a):
+            assert a.dtype == b.dtype and torch.equal(a, b), k
+        elif isinstance(a, np.ndarray):
+            assert a.dtype == b.dtype and np.array_equal(a, b), k
+        else:
+            assert a == b, k
+
+
+def test_any_hit_octree_admit_mask_walks_the_admitted_rays(trees,
+                                                          ray_sets):
+    """With an admit mask the shadow predicate walks the admitted rays
+    alone (compacted on CPU tensors): their answers are those of the
+    rays walked on their own, the others False."""
+    _, _, _, t = trees
+    o, d = ray_sets
+    rng = np.random.default_rng(8)
+    tmax = torch.from_numpy(rng.uniform(0.5, 5.0, o.shape[0])
+                            .astype(np.float32))
+    admit = torch.from_numpy(rng.random(o.shape[0]) < 0.3)
+    got = any_hit_octree(o, d, t, t_max=tmax, admit=admit)
+    want = any_hit_octree(o[admit], d[admit], t, t_max=tmax[admit])
+    assert not bool(got[~admit].any())
+    assert torch.equal(got[admit], want) and 0 < int(want.sum())

@@ -139,6 +139,15 @@ def test_cuda_entry_points_refuse_cpu_tensors():
                                  cpu, cpu + 1, ta)
     with pytest.raises(ValueError, match="unsupported device"):
         trace_triangles_grid(meta, meta, ta)
+    from voxelray_torch.models.octree import Octree
+    from voxelray_torch.ops.kernels import octree_walk
+    from voxelray_torch.ops.octree_traverse import trace_octree
+    tree = Octree.from_mesh(v, f, vs, device="cpu")
+    with pytest.raises(ValueError):
+        octree_walk.walk_cuda(torch.zeros((n, 3)), torch.ones((n, 3)), 0.001,
+                              10000.0, tree)
+    with pytest.raises(ValueError, match="unsupported device"):
+        trace_octree(meta, meta, tree)
 
 
 def test_cpu_triangle_trace_takes_the_plain_march():
@@ -312,7 +321,8 @@ def test_nvcc_command_targets_hopper_without_fma_contraction():
     srcs = {Path(c).name for cmd in compiles for c in cmd if c.endswith(".cu")}
     assert srcs == {"voxel_accum.cu", "mega_trace.cu", "grid_walk.cu",
                     "brick_fine.cu", "tri_march.cu", "staged_march.cu",
-                    "frame_shade.cu", "tri_bin.cu", "accel_build.cu"}
+                    "frame_shade.cu", "tri_bin.cu", "accel_build.cu",
+                    "octree_walk.cu"}
     assert len(compiles) == len(srcs)
     # the shared header brick_walk.cuh is found through -I csrc
     for cmd in compiles:
@@ -548,6 +558,131 @@ def test_encodings_and_octree_walk_on_cuda_match_cpu(cuda):
     assert torch.equal(got[1].cpu(), want[1])
     assert torch.equal(got[0].cpu(), want[0])
 
+
+@pytest.mark.cuda
+def test_octree_frame_on_cuda_walks_once_a_trace_without_a_sync(cuda):
+    """render_image with backend "octree" on the card: one octree_walk
+    launch for the primary trace and one for the shadow trace (the admit
+    mask read in the kernel), no host sync, and the frame of the CPU run
+    (the plain walk and the plain glue) within the frame glue's rounding;
+    the shadow query's occlusion bit-equal to the CPU's."""
+    import warnings
+    from voxelray_torch.models.grids import GridVec
+    from voxelray_torch.models.octree import Octree
+    from voxelray_torch.ops.intersect import TMIN
+    from voxelray_torch.ops.kernels import octree_walk
+    from voxelray_torch.ops.octree_traverse import any_hit_octree
+    v, f = meshes.bunny_like(2)
+    scenes = {}
+    for dev in ("cpu", cuda):
+        gv = GridVec.from_mesh(v, f, 0.11, device=dev)
+        tree = Octree.from_grid(gv)
+        scenes[str(dev)] = build_scene(grid=tree, aabbs=gv.get_aabbs(),
+                                       octree=tree, device=dev)
+    cam = Camera(eye=(2.5, 1.5, -2.5), center=(0.0, 0.0, 0.0))
+    _, _, vi, pi = cam.matrices(128, 64)
+    kw = dict(width=128, height=64, backend="octree",
+              light=Light(position=(10.0, 55.0, 8.0), intensity=1000.0))
+    want = pipeline.render_image(scenes["cpu"], vi, pi, **kw)
+    scene = scenes[str(cuda)]
+    pipeline.render_image(scene, vi, pi, **kw)
+    torch.cuda.synchronize()
+    before = _launched(octree_walk)
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            img = pipeline.render_image(scene, vi, pi, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [f"{w.filename}:{w.lineno}" for w in rec
+             if "called a synchronizing" in str(w.message)]
+    assert not syncs, syncs
+    torch.cuda.synchronize()
+    assert _launched(octree_walk) == before + 2
+    assert (img.cpu() - want).abs().max() <= 1e-4
+    # the shadow pass alone, from the CPU's shadow query
+    o, d, _ = pipeline._frame_rays(scenes["cpu"], vi, pi, 128, 64, "octree")
+    t, lin = pipeline._trace_voxels(scenes["cpu"], o, d, TMIN, 1e4,
+                                    "octree")
+    s = pipeline.surface_terms(scenes["cpu"], o, d, t, lin, kw["light"],
+                               backend="octree")
+    admit = s.hit & s.facing
+    occ_c = any_hit_octree(s.world_pos, s.l_vec, scenes["cpu"].octree,
+                           t_min=TMIN, t_max=s.light_dist, admit=admit)
+    occ_g = any_hit_octree(s.world_pos.to(cuda), s.l_vec.to(cuda),
+                           scene.octree, t_min=TMIN,
+                           t_max=s.light_dist.to(cuda), admit=admit.to(cuda))
+    assert 0 < int(occ_c.sum()) < int(admit.sum())
+    assert torch.equal(occ_g.cpu(), occ_c)
+
+
+
+@pytest.mark.cuda
+def test_octree_frame_kept_for_its_scene_is_the_wrappers_frame(cuda):
+    """render_image's kept octree frame (pipeline._OctreeFrame): bit-equal
+    to the frame the wrappers make call by call (pipeline._render) from
+    several cameras, with shadows on and off; kept while its arguments
+    hold, made anew for another light; while recording, the wrappers'
+    spans and the same counters."""
+    from voxelray_torch.models.grids import GridVec
+    from voxelray_torch.models.octree import Octree
+    from voxelray_torch.ops.intersect import TMAX, TMIN
+    v, f = meshes.bunny_like(2)
+    gv = GridVec.from_mesh(v, f, 0.11, device=cuda)
+    tree = Octree.from_grid(gv)
+    scene = build_scene(grid=tree, aabbs=gv.get_aabbs(), octree=tree,
+                        device=cuda)
+    w, h = 128, 64
+
+    def by_calls(vi, pi, light, shadows):
+        o, d, _ = pipeline._frame_rays(scene, vi, pi, w, h, "octree")
+        return pipeline._render(
+            scene, o, d, light, (1.0, 1.0, 1.0, 1.0), (h, w, False),
+            backend="octree", t_min=TMIN, t_max=TMAX, shadows=shadows,
+            fast_opts=None, shadow_opts=None, trace_voxels_fn=None,
+            any_hit_fn=None)
+
+    lights = (Light(position=(10.0, 55.0, 8.0), intensity=1000.0),
+              Light(position=(-3.0, 4.0, 2.0), intensity=50.0))
+    eyes = ((2.5, 1.5, -2.5), (-2.0, 0.8, 2.2), (0.3, 2.6, 0.4))
+    for light in lights:
+        for shadows in (True, False):
+            kept = None
+            for eye in eyes:
+                _, _, vi, pi = Camera(eye=eye, center=(0.0, 0.0, 0.0)) \
+                    .matrices(w, h)
+                img = pipeline.render_image(scene, vi, pi, width=w,
+                                            height=h, backend="octree",
+                                            light=light, shadows=shadows)
+                plan = pipeline._OCTREE_FRAMES[id(scene)][2]
+                assert kept is None or plan is kept
+                kept = plan
+                assert torch.equal(img, by_calls(vi, pi, light, shadows))
+    _, _, vi, pi = Camera(eye=eyes[0], center=(0.0, 0.0, 0.0)).matrices(w, h)
+    got = {}
+    trace.enable()
+    try:
+        for how in ("kept", "calls"):
+            trace.clear()
+            if how == "kept":
+                pipeline.render_image(scene, vi, pi, width=w, height=h,
+                                      backend="octree", light=lights[0])
+            else:
+                by_calls(vi, pi, lights[0], True)
+            torch.cuda.synchronize()
+            got[how] = ([r.name for r in trace.records()],
+                        trace.counters())
+    finally:
+        trace.disable()
+        trace.clear()
+    names, counts = got["kept"]
+    assert names == ["render_image", "rays", "primary", "octree_walk",
+                     "surface", "shadow", "octree_walk", "shade", "post"]
+    assert [n for n in names if n not in ("render_image", "rays", "post")] \
+        == got["calls"][0]
+    assert counts == got["calls"][1]
+    assert counts["octree.rays"] > w * h and counts["shadow.admitted"] > 0
 
 def _ulps(a, b):
     def ordered(x):

@@ -245,19 +245,24 @@ class GridVec:
     def get_aabbs(self):
         return self.aabbs  # verbatim (voxelgridVecEncoding.cpp:16-19)
 
+    def cells(self):
+        """Each box's cell as an int64 linear index, in list order: the
+        floor of each box centre's grid coordinates."""
+        nx, ny, _ = self.dims
+        half = float(np.float32(self.voxel_size * 0.5))
+        centers = self.aabbs[:, 0:3] + half
+        org = torch.as_tensor(self.origin, device=self.aabbs.device)
+        idx = div_scalar(centers - org,
+                         float(np.float32(self.voxel_size))).to(torch.int64)
+        return idx[:, 0] + nx * (idx[:, 1] + ny * idx[:, 2])
+
     def occupancy(self):
-        """(Z, Y, X) uint8 occupancy rebuilt from the box centres."""
+        """(Z, Y, X) uint8 occupancy of the boxes' cells."""
         nx, ny, nz = self.dims
         dev = self.aabbs.device
         occ = torch.zeros(nz * ny * nx, dtype=torch.uint8, device=dev)
         if self.aabbs.shape[0]:
-            half = float(np.float32(self.voxel_size * 0.5))
-            centers = self.aabbs[:, 0:3] + half
-            org = torch.as_tensor(self.origin, device=dev)
-            idx = div_scalar(centers - org,
-                             float(np.float32(self.voxel_size))
-                             ).to(torch.int64)
-            occ[idx[:, 0] + nx * (idx[:, 1] + ny * idx[:, 2])] = 1
+            occ[self.cells()] = 1
         return occ.reshape(nz, ny, nx)
 
     def memory_usage_bytes(self):

@@ -17,10 +17,12 @@ ranges on the 3-bit octant digit per level.  Semantics kept:
     in build_nodes' output, -1 in the tree's children table.
 
 Octree.from_mesh takes the hit stream on the device
-(ops/voxelize.voxelize_hits), encodes the codes as int64 and sorts them
-with torch.sort there; build_nodes and build_region_map (numpy copies of
-the JAX package's functions, build_nodes with its pre-order renumbering
-vectorised) run on the host over the sorted codes.  The
+(ops/voxelize.voxelize_hits), Octree.from_grid the cells of a GridVec
+made from it (the same hits, no second voxelize); either encodes the
+codes as int64 and sorts them with torch.sort there; build_nodes and
+build_region_map (numpy copies of the JAX package's functions,
+build_nodes with its pre-order renumbering vectorised) run on the host
+over the sorted codes.  The
 region map is the flattened descent that ops/octree_traverse.py walks.
 """
 from __future__ import annotations
@@ -271,6 +273,16 @@ def _items4(ix, iy, iz, max_items):
     return it4
 
 
+def _bits(dims):
+    """bitsPerAxis: ceil(log2(maxDim)) in double precision, more than 21
+    raises (octTree.hpp:578-585)."""
+    bits = int(math.ceil(math.log2(float(max(dims)))))
+    if bits > 21:
+        raise ValueError("We support up to 21 bits per axis "
+                         "(max 2^21 voxels per dimension)!")
+    return bits
+
+
 @dataclass(frozen=True)
 class Octree:
     """Flat Morton octree as tensors on one device."""
@@ -340,22 +352,44 @@ class Octree:
             return cls.from_arrays(empty, np.zeros((0, 10), np.int64),
                                    bb_min, dims, voxel_size, 0,
                                    max_items_per_leaf, 0, device)
-        # ceil(log2(maxDim)) in double precision (octTree.hpp:578-580)
-        bits = int(math.ceil(math.log2(float(max_dim))))
-        if bits > 21:
-            raise ValueError(
-                "We support up to 21 bits per axis "
-                "(max 2^21 voxels per dimension)!")
+        bits = _bits(dims)
         r = voxelize_hits(v, f, voxel_size, bb_min=bb_min, bb_max=bb_max,
                           device=device)
+        return cls._of_hits(r["lin"], bb_min, dims, voxel_size, bits,
+                            max_items_per_leaf, r["set_calls"], device)
+
+    @classmethod
+    def _of_hits(cls, lin, root_min, dims, voxel_size, bits, max_items,
+                 set_calls, device):
+        """The tree of a hit stream's cells (int64 linear indices in dims,
+        duplicates kept): their Morton codes sorted on the device, the
+        nodes and the region map built on the host."""
         nx, ny, _ = dims
-        lin = r["lin"]
         codes = morton_encode3(lin % nx, (lin // nx) % ny, lin // (nx * ny))
         codes = torch.sort(codes).values
         nodes = build_nodes(codes.cpu().numpy().astype(np.uint64), bits,
-                            int(max_items_per_leaf))
-        return cls.from_arrays(codes, nodes, bb_min, dims, voxel_size, bits,
-                               max_items_per_leaf, r["set_calls"], device)
+                            int(max_items))
+        return cls.from_arrays(codes, nodes, root_min, dims, voxel_size,
+                               bits, max_items, set_calls, device)
+
+    @classmethod
+    def from_grid(cls, grid, max_items_per_leaf=16):
+        """Octree of a GridVec's boxes, on its device: one item per box,
+        duplicates included, from the boxes' cells (GridVec.cells), with no
+        second voxelize.  At the voxel size and box the list was made with
+        it equals from_mesh's tree field by field (from_mesh's items are
+        the same SAT hits); a list without boxes gives the empty tree."""
+        dims = tuple(int(x) for x in grid.dims)
+        device = grid.aabbs.device
+        root_min = np.asarray(grid.origin, np.float32)
+        if max(dims) == 0 or grid.aabbs.shape[0] == 0:
+            return cls.from_arrays(
+                torch.zeros((0,), dtype=torch.int64, device=device),
+                np.zeros((0, 10), np.int64), root_min, dims,
+                grid.voxel_size, 0, max_items_per_leaf, 0, device)
+        bits = _bits(dims)
+        return cls._of_hits(grid.cells(), root_min, dims, grid.voxel_size,
+                            bits, max_items_per_leaf, grid.set_calls, device)
 
     @property
     def origin(self):

@@ -41,7 +41,8 @@ from ...utils import trace
 from ._build import F, I, P, fields, launch, need, on_cuda
 
 __all__ = ["camera_rays_cuda", "hit_surface_cuda", "shade_post_cuda",
-           "rays_args", "surface_args", "shade_args", "Tables", "HitSurface",
+           "rays_args", "rays_camera", "surface_args", "shade_args",
+           "Tables", "HitSurface",
            "RaysArgs", "SurfaceArgs", "ShadeArgs", "RECORD", "GAMMA"]
 
 # floats a ray's record holds: normal, flags word; diffuse, intensity
@@ -134,18 +135,24 @@ def rays_args(width, height, view_inv, proj_inv, tiled, dev):
         raise ValueError(f"camera_rays: bad frame {width}x{height}")
     if tiled and (height % _TILE_H or width % _TILE_W):
         raise ValueError(f"camera_rays: {width}x{height} does not tile")
+    a = RaysArgs()
+    rays_camera(a, view_inv, proj_inv)
+    origins = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    dirs = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    a.width, a.height, a.tiled, a.n = width, height, int(bool(tiled)), n
+    a.origins, a.dirs = origins.data_ptr(), dirs.data_ptr()
+    return a, origins, dirs
+
+
+def rays_camera(a, view_inv, proj_inv):
+    """Write the camera's inverse matrices (4x4, on the host) into
+    camera_rays' block `a`."""
     vi = np.ascontiguousarray(view_inv, np.float32)
     pi = np.ascontiguousarray(proj_inv, np.float32)
     if vi.shape != (4, 4) or pi.shape != (4, 4):
         raise ValueError("camera_rays: the matrices must be 4x4")
-    origins = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    dirs = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    a = RaysArgs()
     ctypes.memmove(a.vi, vi.ctypes.data, 48)
     ctypes.memmove(a.pi, pi.ctypes.data, 64)
-    a.width, a.height, a.tiled, a.n = width, height, int(bool(tiled)), n
-    a.origins, a.dirs = origins.data_ptr(), dirs.data_ptr()
-    return a, origins, dirs
 
 
 def camera_rays_cuda(width, height, view_inv, proj_inv, tiled, device):

@@ -24,9 +24,18 @@ rounds of `steps` skips, the drain fraction) shapes when a ray is
 stepped, not which regions it visits, and is not ported: here one loop
 steps every live ray once per iteration and compacts the live rays
 (ops/compact.py).  `max_outer` bounds the steps (regions) per ray; a ray
-still live at the bound returns a miss, as in the JAX package, and is
-added to the module counter `cut_rays`; return_stats=True also returns
-the steps the loop took.
+still live at the bound returns a miss, as in the JAX package.
+return_stats=True also returns the most steps (regions) of one ray.
+
+On CUDA tensors the walk is one launch of csrc/octree_walk.cu
+(ops/kernels/octree_walk.py): one thread a ray, the same regions, probes
+and float expressions, so the same results bit for bit, with no host
+sync; the shadow any-hit reads an admit mask there.  CPU tensors take
+`_walk`, the loop above; any other device raises.  Each call is a span
+"octree_walk" (utils/trace.py) and, while recording, adds to the device
+counters octree.rays (the rays walked: the admitted ones of a masked
+trace), octree.regions (their region steps) and octree.cut_rays (those
+cut by max_outer), from either walk.
 
 Three faults of the JAX walk are repaired here; each loses the nearest
 hit that the reference's slab test over every cell finds:
@@ -49,15 +58,14 @@ import numpy as np
 import torch
 
 from ..models.octree import INTERNAL_FLAG, LEAF_FLAG
+from ..utils import trace
 from .compact import compact_mask
 from .geometry import floor_cell
 from .intersect import TMAX, TMIN
+from .kernels import octree_walk
 from .traverse import _per_ray
 
-__all__ = ["trace_octree", "any_hit_octree", "cut_rays"]
-
-# rays cut by max_outer since the caller last set this to 0
-cut_rays = 0
+__all__ = ["trace_octree", "any_hit_octree"]
 
 
 def _descend(children, node_leaf, node, desc, level0, bits, cx, cy, cz):
@@ -151,7 +159,8 @@ _SUBSETS = ((1, 0, 0), (0, 1, 0), (0, 0, 1), (1, 1, 0), (1, 0, 1),
 
 
 def _walk(o, d, tree, tmn, tmx, max_outer):
-    """(t, lin, rays cut by max_outer, steps) over flat (N, 3) rays."""
+    """(t, lin, rays cut by max_outer, steps, region steps of all rays)
+    over flat (N, 3) rays."""
     n = o.shape[0]
     dev = o.device
     bits = tree.bits_per_axis
@@ -285,9 +294,10 @@ def _walk(o, d, tree, tmn, tmx, max_outer):
         sub = [x[ent] for x in (so, sd, sinv, stmn, stmx, pt, pl)]
         probe(base, base, base, te[ent], *sub)
         pt[ent], pl[ent] = sub[5], sub[6]
-    steps = 0
+    steps = regions = 0
     while idx.numel() and steps < max_outer:
         steps += 1
+        regions += idx.numel()
         so, sd, sinv, stex, stmn, stmx, st, cell, pt, pl = s
         lg, hit_t, hit_l = region_hits(cell, so, sinv, stmn, stmx)
 
@@ -349,36 +359,87 @@ def _walk(o, d, tree, tmn, tmx, max_outer):
             sel, _, _, _ = compact_mask(keep, n_live, keep.shape[0])
             idx = idx[sel]
             s = [x[sel] for x in s]
-    return best_t, best_lin, int(idx.numel()), steps
+    return best_t, best_lin, int(idx.numel()), steps, regions
+
+
+def _bound(x, n, dev):
+    """A t bound as the kernel takes it: a scalar as it is, else (n,)
+    contiguous float32."""
+    if not torch.is_tensor(x) and np.ndim(x) == 0:
+        return x
+    return _per_ray(x, n, dev).contiguous()
+
+
+def _dispatch(origins, dirs, tree, t_min, t_max, max_outer, admit,
+              any_hit, stats):
+    """The walk of one call, inside the span "octree_walk": the kernel on
+    CUDA tensors, `_walk` over the admitted rays on CPU tensors.  Returns
+    (outputs, most region steps of one ray), walk_cuda's outputs in the
+    rays' shape; the steps are None unless `stats` (a 0-dim device tensor
+    from the kernel, an int from the plain walk).  While recording, adds
+    the walk's counters."""
+    batch = origins.shape[:-1]
+    dev = origins.device
+    n = batch.numel()
+    if tree.n_items == 0 or tree.bits_per_axis == 0 or n == 0:
+        if any_hit:
+            out = (torch.zeros(batch, dtype=torch.bool, device=dev),)
+        else:
+            out = (torch.full(batch, float("inf"), device=dev),
+                   torch.full(batch, -1, dtype=torch.int32, device=dev))
+        return out, 0 if stats else None
+    o = origins.reshape(-1, 3).to(torch.float32)
+    d = dirs.reshape(-1, 3).to(torch.float32)
+    adm = None if admit is None else admit.reshape(-1)
+    with trace.span("octree_walk"):
+        if o.is_cuda:
+            out, block = octree_walk.walk_cuda(
+                o.contiguous(), d.contiguous(), _bound(t_min, n, dev),
+                _bound(t_max, n, dev), tree,
+                admit=None if adm is None else adm.contiguous(),
+                any_hit=any_hit, max_outer=max_outer,
+                stats=stats or trace.enabled())
+            steps = None if block is None else block[3]
+        elif dev.type == "cpu":
+            sel = (slice(None) if adm is None
+                   else torch.nonzero(adm).squeeze(1))
+            t, lin, cut, steps, regions = _walk(
+                o[sel], d[sel], tree, _per_ray(t_min, n, dev)[sel],
+                _per_ray(t_max, n, dev)[sel], max_outer)
+            if any_hit:
+                hit = torch.zeros(n, dtype=torch.bool, device=dev)
+                hit[sel] = torch.isfinite(t)
+                out = (hit,)
+            else:
+                out = (t, lin)
+            block = torch.tensor([t.shape[0], regions, cut, steps])
+        else:
+            raise ValueError(f"octree walk: unsupported device {dev}")
+        if block is not None:
+            octree_walk.count(block)
+    return (tuple(x.reshape(batch) for x in out),
+            steps if stats else None)
 
 
 def trace_octree(origins, dirs, tree, t_min=TMIN, t_max=TMAX,
                  max_outer=512, return_stats=False):
     """Nearest voxel hit by the octree walk: (t, cell lin), inf / -1 on a
     miss; the cells are linear indices in the tree's dims, like the grid
-    backends'.  t_min / t_max are scalars or per ray.  Rays cut by
-    max_outer are added to `cut_rays`.  With return_stats=True also the
-    loop's steps (the regions of the longest ray)."""
-    global cut_rays
-    batch = origins.shape[:-1]
-    dev = origins.device
-    o = origins.reshape(-1, 3).to(torch.float32)
-    d = dirs.reshape(-1, 3).to(torch.float32)
-    n = o.shape[0]
-    if tree.n_items == 0 or tree.bits_per_axis == 0 or n == 0:
-        t = torch.full(batch, float("inf"), device=dev)
-        lin = torch.full(batch, -1, dtype=torch.int32, device=dev)
-        return (t, lin, 0) if return_stats else (t, lin)
-    t, lin, cut, steps = _walk(o, d, tree, _per_ray(t_min, n, dev),
-                               _per_ray(t_max, n, dev), max_outer)
-    cut_rays += cut
-    out = (t.reshape(batch), lin.reshape(batch))
+    backends'.  t_min / t_max are scalars or per ray.  With
+    return_stats=True also the most region steps of one ray (a 0-dim
+    device tensor from the kernel, an int from the plain walk)."""
+    out, steps = _dispatch(origins, dirs, tree, t_min, t_max, max_outer,
+                           None, False, return_stats)
     return out + (steps,) if return_stats else out
 
 
 def any_hit_octree(origins, dirs, tree, t_min=TMIN, t_max=TMAX,
-                   max_outer=512):
-    """Shadow predicate over the octree; t_max may be per ray."""
-    t, _ = trace_octree(origins, dirs, tree, t_min=t_min, t_max=t_max,
-                        max_outer=max_outer)
-    return torch.isfinite(t)
+                   max_outer=512, admit=None):
+    """Shadow predicate over the octree (bool, the shape of the rays);
+    t_max may be per ray.  With an admit mask (bool, the rays' shape)
+    only the admitted rays are walked, the others come back False: on
+    CUDA tensors the kernel reads the mask itself, on CPU tensors the
+    admitted rays are compacted."""
+    (hit,), _ = _dispatch(origins, dirs, tree, t_min, t_max, max_outer,
+                          admit, True, False)
+    return hit

@@ -35,16 +35,21 @@ closest-hit terms and the shadow query) and shade_post (shading, miss,
 alpha and gamma, written straight into the framebuffer).  Their plain
 version is the PyTorch code of this module (make_camera_rays, _tile_rays,
 surface_terms, the shade stage, gamma_post), which CPU tensors run; any
-other device raises.
+other device raises.  An octree frame on the card (backend "octree", no
+triangles) is the same five launches every frame; render_image keeps
+their argument blocks and the buffers between them for the scene
+(_OctreeFrame) and only writes each frame's camera and framebuffer in.
 """
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import torch
 
 from ..ops.intersect import TMAX, TMIN, make_camera_rays
-from ..ops.kernels import frame_shade
+from ..ops.kernels import frame_shade, octree_walk
+from ..ops.kernels._build import launch
 from ..ops.octree_traverse import any_hit_octree, trace_octree
 from ..ops.traverse import (any_hit_aabbs_brute, any_hit_grid_dda,
                             any_hit_triangles_brute, trace_aabbs_brute,
@@ -175,14 +180,35 @@ def _trace_voxels(scene: Scene, origins, dirs, t_min, t_max, backend,
                              t_max=t_max)
 
 
+def _count_shadow(occluded, admit):
+    """While recording: the shadow rays handed to a trace that reads the
+    admit mask itself (all of them) and those admitted."""
+    if trace.enabled():
+        n = occluded.numel()
+        trace.count("shadow.rays", n)
+        if admit is None:
+            trace.count("shadow.admitted", n)
+        else:
+            trace.count_device("shadow.admitted", admit)
+
+
 def _any_hit(scene: Scene, origins, dirs, t_min, t_max, backend, admit,
              fast_opts=None, shadow_opts=None):
     """Occlusion of the shadow rays.  With an admit mask only the admitted
-    rays are traced (K2 reads the mask itself, the other traces take the
-    admitted rays compacted); the others come back unoccluded."""
+    rays are traced (K2 and the octree walk take the mask, the other
+    traces the admitted rays compacted); the others come back
+    unoccluded."""
     route = _voxel_route(scene, backend)
-    occluded = torch.zeros(origins.shape[:-1], dtype=torch.bool,
-                           device=origins.device)
+    if route == "octree":
+        # the whole batch and the mask to the walk, which on the card reads
+        # the mask itself (no compaction, no sync)
+        occluded = any_hit_octree(origins, dirs, scene.octree, t_min=t_min,
+                                  t_max=t_max, admit=admit)
+        _count_shadow(occluded, admit)
+        route = None
+    else:
+        occluded = torch.zeros(origins.shape[:-1], dtype=torch.bool,
+                               device=origins.device)
     if route == "fast":
         # shadow coverage has its own defaults: of fast_opts only the
         # layout knob two_level carries over (pipeline.py:170-190)
@@ -192,13 +218,7 @@ def _any_hit(scene: Scene, origins, dirs, t_min, t_max, backend, admit,
         occluded = any_hit_grid_fast(origins, dirs, scene.accel,
                                      t_min=t_min, t_max=t_max, admit=admit,
                                      **opts)
-        if trace.enabled():
-            n = occluded.numel()
-            trace.count("shadow.rays", n)
-            if admit is None:
-                trace.count("shadow.admitted", n)
-            else:
-                trace.count_device("shadow.admitted", admit)
+        _count_shadow(occluded, admit)
     if route == "brute" and not scene.n_voxels:
         route = None
     if not scene.n_triangles and route in ("fast", None):
@@ -217,9 +237,7 @@ def _any_hit(scene: Scene, origins, dirs, t_min, t_max, backend, admit,
             hit |= any_hit_triangles_brute(o, d, scene.tri_v0, scene.tri_v1,
                                            scene.tri_v2, t_min=t_min,
                                            t_max=tmx)
-    if route == "octree":
-        hit |= any_hit_octree(o, d, scene.octree, t_min=t_min, t_max=tmx)
-    elif route == "dda":
+    if route == "dda":
         hit |= any_hit_grid_dda(o, d, scene.occ_flat, scene.grid_origin,
                                 dims=scene.grid_dims,
                                 voxel_size=scene.grid_voxel_size,
@@ -228,8 +246,7 @@ def _any_hit(scene: Scene, origins, dirs, t_min, t_max, backend, admit,
         hit |= any_hit_aabbs_brute(o, d, scene.voxel_aabbs, t_min=t_min,
                                    t_max=tmx)
     if trace.enabled():
-        calls = bool(scene.n_triangles) + (route in ("octree", "dda",
-                                                     "brute"))
+        calls = bool(scene.n_triangles) + (route in ("dda", "brute"))
         trace.count("shadow.rays", calls * o.shape[0])
         trace.count("shadow.admitted", calls * o.shape[0])
     if admit is not None:
@@ -523,6 +540,107 @@ def _frame_rays(scene: Scene, view_inv, proj_inv, width, height, backend):
     return origins, dirs, lambda x: _untile_rays(x, height, width)
 
 
+class _OctreeFrame:
+    """An octree frame's launches on the card, kept for its scene.
+
+    With backend "octree", no triangles and a nonempty tree, a frame is
+    camera_rays, octree_walk, hit_surface, octree_walk over the shadow
+    rays (when shadows are on) and shade_post, each reading what the one
+    before wrote, and nothing in them changes from frame to frame but the
+    camera.  Their blocks are built once, by the wrappers' own builders,
+    with the buffers between the kernels (the rays, the hits, the surface
+    record, the occlusion); a frame writes its camera into a copy of the
+    rays block and a new framebuffer into a copy of the shade block, and
+    launches the five on the stream the blocks were built for, with the
+    spans and counters the wrappers' calls make.  The kernels of one
+    stream run in order, so a frame's kernels overwrite those buffers only
+    after the frame before has read them."""
+
+    def __init__(self, scene: Scene, width, height, light, clear_color,
+                 shadows, device):
+        tree, n = scene.octree, width * height
+        self.device, self.n, self.size = device, n, (height, width)
+        self.rays, o, d = frame_shade.rays_args(
+            width, height, torch.eye(4), torch.eye(4), False, device)
+        self.walk, (t, lin), _ = octree_walk.walk_args(o, d, TMIN, TMAX,
+                                                       tree)
+        self.surface, q = frame_shade.surface_args(
+            o, d, t, lin, None, _surface_tables(scene, "octree"),
+            light.position, light.intensity, light.type)
+        self.shadow = occluded = None
+        if shadows:
+            self.shadow, (occluded,), _ = octree_walk.walk_args(
+                q.world_pos, q.l_vec, TMIN, q.light_dist, tree,
+                admit=q.admit, any_hit=True)
+        self.shade, _ = frame_shade.shade_args(
+            q, d, occluded, scene.materials, scene.voxel_material,
+            clear_color, (height, width, False))
+        self.admit, self.occluded = q.admit, occluded
+        self.held = (o, d, t, lin, q)
+
+    def frame(self, view_inv, proj_inv):
+        """The frame from the camera (view_inv, proj_inv), as render_image
+        returns it."""
+        dev, n = self.device, self.n
+        with trace.span("render_image"):
+            with trace.span("rays"):
+                a = frame_shade.RaysArgs.from_buffer_copy(self.rays)
+                frame_shade.rays_camera(a, view_inv, proj_inv)
+                launch("camera_rays", a, dev)
+                trace.count("rays.camera_rays", n)
+            with trace.span("primary"), trace.span("octree_walk"):
+                octree_walk.relaunch(self.walk, dev)
+            with trace.span("surface"):
+                launch("hit_surface", self.surface, dev)
+                trace.count("rays.hit_surface", n)
+            with trace.span("shadow"):
+                if self.shadow is not None:
+                    with trace.span("octree_walk"):
+                        octree_walk.relaunch(self.shadow, dev)
+                    _count_shadow(self.occluded, self.admit)
+            with trace.span("shade"):
+                out = torch.empty(self.size + (4,), dtype=torch.float32,
+                                  device=dev)
+                a = frame_shade.ShadeArgs.from_buffer_copy(self.shade)
+                a.out = out.data_ptr()
+                launch("shade_post", a, dev)
+                trace.count("rays.shade_post", n)
+            with trace.span("post"):
+                return out
+
+
+# id of a scene -> (weak reference to it, the key of its kept octree
+# frame, the frame): one for each scene, made anew when the key changes
+_OCTREE_FRAMES = {}
+
+
+def _octree_frame(scene: Scene, width, height, light, clear_color,
+                  shadows):
+    """The scene's _OctreeFrame for these arguments on the current stream
+    of its device, or None where its frame is not the octree's five
+    launches."""
+    tree = scene.octree
+    if (scene.n_triangles or tree is None or tree.n_items == 0
+            or tree.bits_per_axis == 0):
+        return None
+    dev = scene.device
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (int(width), int(height), tuple(map(float, light.position)),
+           float(light.intensity), int(light.type),
+           tuple(map(float, clear_color)), bool(shadows), dev,
+           torch._C._cuda_getCurrentRawStream(dev.index))
+    held = _OCTREE_FRAMES.get(id(scene))
+    if held is not None and held[0]() is scene and held[1] == key:
+        return held[2]
+    plan = _OctreeFrame(scene, key[0], key[1], light, clear_color, shadows,
+                        dev)
+    _OCTREE_FRAMES[id(scene)] = (weakref.ref(
+        scene, lambda _, k=id(scene): _OCTREE_FRAMES.pop(k, None)), key,
+        plan)
+    return plan
+
+
 def render_image(scene: Scene, view_inv, proj_inv, *, width, height,
                  light: Light = Light(), clear_color=(1.0, 1.0, 1.0, 1.0),
                  backend="dda", shadows=True, fast_opts=None,
@@ -533,12 +651,18 @@ def render_image(scene: Scene, view_inv, proj_inv, *, width, height,
     With tracing on (utils/trace.py) the call is one span
     "render_image" whose children are the frame's stages: "rays",
     "primary", "surface", "shadow", "shade" and "post"; a trace kernel's
-    call ("mega_trace", "staged_march", "tri_march") is a span under
+    call ("mega_trace", "staged_march", "tri_march", "octree_walk") is a
+    span under
     "primary" or "shadow".  On the card the frame is the camera_rays,
     hit_surface and shade_post kernels around the traces, and "post" only
     returns the framebuffer shade_post wrote."""
     _check_backend(backend)
     kernels = _takes_kernels(scene.device)
+    if kernels and _voxel_route(scene, backend) == "octree":
+        plan = _octree_frame(scene, width, height, light, clear_color,
+                             shadows)
+        if plan is not None:
+            return plan.frame(view_inv, proj_inv)
     with trace.span("render_image"):
         with trace.span("rays"):
             origins, dirs, untile = _frame_rays(scene, view_inv, proj_inv,
